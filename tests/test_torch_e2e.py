@@ -1,0 +1,154 @@
+"""The port's test_dir main path held against dirjax's on the CPU, plus the
+port's guarantees: it never imports jax, the kernel wrapper takes its plain
+version only for CPU tensors, and the kernel build raises without nvcc."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import dirjax.datasets as D
+from dirjax.models import create_model as jcreate
+from dirjax.ops import fit_pca
+from dirjax.utils.checkpoints import Checkpoint, save_native
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def synth_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("synth_torch"))
+    D.Synthetic(root, revisited=True)
+    return root
+
+
+@pytest.fixture(scope="module")
+def ckpt_path(tmp_path_factory):
+    model = jcreate("resnet18_rmac", out_dim=32)
+    params = model.init(jax.random.PRNGKey(0))
+    pca = fit_pca(np.random.default_rng(0).normal(size=(64, 32)))
+    path = str(tmp_path_factory.mktemp("ckpt_torch") / "model.npz")
+    save_native(path, Checkpoint(model=model, params=params,
+                                 preprocess=model.preprocess,
+                                 pca={"Landmarks_clean": pca}))
+    return path
+
+
+def _argv(synth_root, ckpt_path, *extra):
+    return ["--dataset", f"Synthetic('{synth_root}')", "--checkpoint", ckpt_path,
+            "--whiten", "Landmarks_clean", "--aqe", "10", "3", "--adba", "10", "3",
+            "--gpu", "-1", "--threads", "2", *extra]
+
+
+@pytest.mark.parametrize("extra", [("--batching", "group"),
+                                   ("--batching", "bucket"),
+                                   ("--tta", "flip", "--pooling", "gem")])
+def test_test_dir_prints_the_same_map(synth_root, ckpt_path, extra):
+    from dirjax.cli.test_dir import main as jmain
+    from dirjax_torch.cli.test_dir import main as tmain
+
+    argv = _argv(synth_root, ckpt_path, *extra)
+    want, got = jmain(argv), tmain(argv)
+    assert "mAP-medium" in got and set(got) == set(want)
+    assert {k: f"{v:g}" for k, v in got.items()} == \
+        {k: f"{v:g}" for k, v in want.items()}
+
+
+def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now raises
+        "from dirjax_torch.test_dir import main\n"
+        f"res = main({_argv(synth_root, ckpt_path)!r})\n"
+        "assert 'mAP-medium' in res\n"
+        "import dirjax_torch.kernels.build, dirjax_torch.utils.checkpoints\n"
+        "print('NO_JAX_OK')\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, cwd=REPO, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX_OK" in out.stdout and " * mAP-medium = " in out.stdout
+
+
+def test_dispatcher_on_cpu_launches_nothing(synth_root, ckpt_path, tmp_path):
+    from dirjax_torch.cli.test_dir import main as tmain
+    from dirjax_torch.ops import gem_head
+
+    gem_head.launches = 0
+    tmain(_argv(synth_root, ckpt_path) + ["--whiten", "",
+                                          "--profile", str(tmp_path / "prof")])
+    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    x = torch.rand(2, 3, 3, 8)
+    gem_head.fused_gem_head(x, 3.0, torch.randn(8, 5), torch.zeros(5))
+    assert gem_head.launches == 0
+
+
+def test_dispatcher_refuses_other_devices():
+    from dirjax_torch.ops import fused_gem_head
+
+    x = torch.empty(2, 3, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_gem_head(x, 3.0, torch.empty(8, 5, device="meta"),
+                       torch.empty(5, device="meta"))
+
+
+def test_gpu_flag_raises_without_cuda(monkeypatch):
+    from dirjax_torch.cli.common import setup_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        setup_device([0])
+    assert setup_device([-1]).type == "cpu"
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    import shutil
+
+    from dirjax_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kbuild"))
+    monkeypatch.setattr(shutil, "which", lambda *a, **k: None)
+    build.load_library.cache_clear()
+    with pytest.raises(build.BuildError, match="nvcc"):
+        build.build()
+    with pytest.raises(build.BuildError):
+        build.load_library()
+    assert not os.path.exists(tmp_path / "kbuild")  # nothing, not a stub
+
+
+def test_build_reports_compiler_errors(monkeypatch, tmp_path):
+    from dirjax_torch.kernels import build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: bad source' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kbuild"))
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    with pytest.raises(build.BuildError, match="bad source"):
+        build.build()
+    assert os.listdir(tmp_path / "kbuild") == []
+
+
+def test_adaptive_call_halves_on_oom():
+    from dirjax_torch.extraction import adaptive_call
+
+    calls = []
+
+    def call(images, mask):
+        calls.append(len(images))
+        if len(images) > 2:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return torch.from_numpy(images.reshape(len(images), -1).sum(1, keepdims=True))
+
+    images = np.arange(7 * 4, dtype=np.float32).reshape(7, 2, 2)
+    out = adaptive_call(call, images, np.ones((7, 2, 2), bool))
+    np.testing.assert_array_equal(out[:, 0], images.reshape(7, -1).sum(1))
+    assert calls == [7, 3, 1, 2, 4, 2, 2]
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        adaptive_call(lambda i, m: call(np.repeat(i, 3, axis=0), m), images[:1])
