@@ -15,8 +15,20 @@ Phases, each of which raises on failure:
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
-   in each run, every mAP must be finite in [0, 1], and fp32 descriptors of
-   4 images on the card must match the port's CPU path (cosine > 0.9999).
+   in each run. The database descriptors each run saves (--save-feats) must
+   be finite unit vectors, and those of the first 4 images must match the
+   port's fp32 CPU path: cosine > 0.9999 for the fp32 run, > 0.999 for the
+   bf16 one. The mAPs are only checked to be finite in [0, 1]: the synthetic
+   classes differ by colour, so even random weights rank them perfectly and
+   mAP = 1 says nothing about the path.
+
+    python3 chip_smoke.py --profile DIR   # also phase 4
+
+4. profile — where a warm database extraction's time goes, fp32 and bf16:
+   unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
+   peak memory, and a torch.profiler trace whose device intervals are merged
+   into busy time and split into convolution, elementwise, copies, K1 and
+   other. Writes the traces and ``profile_summary.json`` into DIR.
 
 Prints the card's name and power limit, then one JSON line with each
 kernel's launches, error and times, and last a JSON line with "ok": true.
@@ -25,6 +37,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -32,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -39,6 +53,8 @@ import torch
 RTOL, ATOL = 2e-4, 2e-5
 MAIN_SHAPE = (8, 32, 24, 2048)   # R101 C5 at 1024x768, batch 8
 MAIN_D = 2048
+N_REF = 4                        # database images held against the CPU path
+COS_BOUND = {"fp32": 0.9999, "bf16": 0.999}
 
 
 def card_line() -> str:
@@ -96,7 +112,8 @@ def kernel_phase(device) -> dict:
             ("bf16", MAIN_D, x.to(torch.bfloat16), mask),
             ("db_landscape", MAIN_D, x.reshape(B, W, H, C), None),
             ("query_bf16", MAIN_D, x[:6].reshape(6, W, H, C).to(torch.bfloat16), None)]:
-        w = torch.randn((C, d), generator=g, device=device) * C ** -0.5
+        # W as the model passes it: the (C, D) view of an nn.Linear weight
+        w = (torch.randn((d, C), generator=g, device=device) * C ** -0.5).T
         b = torch.randn((d,), generator=g, device=device) * 0.01
         got = gem_head.fused_gem_head(xin, p, w, b, mask=m)
         want = gem_head.gem_head_reference(xin.float(), m, p, w, b)
@@ -107,7 +124,7 @@ def kernel_phase(device) -> dict:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         worst = max(worst, err)
 
-    w = torch.randn((C, MAIN_D), generator=g, device=device) * C ** -0.5
+    w = (torch.randn((MAIN_D, C), generator=g, device=device) * C ** -0.5).T
     b = torch.zeros((MAIN_D,), device=device)
 
     def plain():
@@ -184,14 +201,16 @@ def write_inputs(workdir: str, arch: str, image_size, n_classes: int,
     return bench, ckpt
 
 
-def run_test_dir(bench: str, ckpt: str, gpu: int, bf16: bool):
-    """One test_dir run; returns (results, images, seconds)."""
+def run_test_dir(bench: str, ckpt: str, gpu: int, bf16: bool, feats: str):
+    """One test_dir run that saves its descriptors into ``feats``; returns
+    (results, database descriptors, images, seconds)."""
     from dirjax_torch import datasets
     from dirjax_torch.cli.test_dir import main
 
     argv = ["--dataset", f"Synthetic('{bench}')", "--checkpoint", ckpt,
             "--gpu", str(gpu), "--whiten", "smoke",
-            "--aqe", "10", "3", "--adba", "10", "3"] + (["--bf16"] if bf16 else [])
+            "--aqe", "10", "3", "--adba", "10", "3",
+            "--save-feats", feats] + (["--bf16"] if bf16 else [])
     db = datasets.create(f"Synthetic('{bench}')")
     n_images = len(db) + len(db.get_query_db())
     if gpu >= 0:
@@ -206,32 +225,134 @@ def run_test_dir(bench: str, ckpt: str, gpu: int, bf16: bool):
             raise AssertionError(f"{k} = {v} is not a finite value in [0, 1]")
     if not any(k.startswith("mAP-") for k in res):
         raise AssertionError(f"no Revisited mAP in {res}")
-    return res, n_images, seconds
+    bdescs = np.load(os.path.join(feats, "feats.bdescs.npy"))
+    norms = np.linalg.norm(bdescs, axis=1)
+    if (bdescs.shape[0] != len(db) or not np.isfinite(bdescs).all()
+            or np.abs(norms - 1).max() > 1e-4):
+        raise AssertionError(f"bad database descriptors: shape {bdescs.shape}, "
+                             f"norms {norms.min()}..{norms.max()}")
+    return res, bdescs, n_images, seconds
 
 
-def cpu_vs_cuda_cosine(bench: str, ckpt: str, device, n: int = 4) -> float:
-    """fp32 descriptors of ``n`` database images on the card (fused head)
-    and on the port's CPU path (plain composition)."""
+def cpu_reference(bench: str, ckpt: str, n: int = N_REF) -> np.ndarray:
+    """fp32 descriptors of the first ``n`` database images on the port's CPU
+    path (plain PyTorch head), from the decoded images."""
     from dirjax_torch import datasets
     from dirjax_torch.extraction import FeatureExtractor
     from dirjax_torch.utils.checkpoints import load_checkpoint
 
     db = datasets.create(f"Synthetic('{bench}')")
     images = np.stack([np.asarray(db.get_image(i).convert("RGB")) for i in range(n)])
-    gpu = FeatureExtractor(load_checkpoint(ckpt).model, device)
-    cpu = FeatureExtractor(load_checkpoint(ckpt).model, "cpu")
-    a = gpu(images).cpu().numpy()
-    b = cpu(images).numpy()
-    cos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
-    print(f"cuda vs cpu fp32 descriptors of {n} images {images.shape}: cosine min "
-          f"{cos.min():.7f}, max_abs_err {np.abs(a - b).max():.3e}")
-    if not (a.shape == b.shape == (n, gpu.model.cfg.out_dim)
-            and np.isfinite(a).all()):
-        raise AssertionError(f"bad descriptors: {a.shape}")
+    ck = load_checkpoint(ckpt)
+    return FeatureExtractor(ck.model, "cpu", preprocess=ck.preprocess)(images).numpy()
+
+
+def check_against_cpu(tag: str, got: np.ndarray, want: np.ndarray) -> float:
+    """Cosine of the main path's descriptors against the CPU reference."""
+    cos = np.sum(got * want, axis=1) / (np.linalg.norm(got, axis=1)
+                                        * np.linalg.norm(want, axis=1))
+    print(f"main path {tag} vs cpu fp32, descriptors of {len(want)} database "
+          f"images: cosine min {cos.min():.7f}, max_abs_err "
+          f"{np.abs(got - want).max():.3e} (bound cosine > {COS_BOUND[tag]})")
+    if got.shape != want.shape or not cos.min() > COS_BOUND[tag]:
+        raise AssertionError(f"{tag} descriptors disagree with the CPU path: "
+                             f"shape {got.shape} vs {want.shape}, cosine {cos}")
     return float(cos.min())
 
 
-def main() -> int:
+_K1_KERNELS = ("gem_pool_kernel", "project_kernel", "l2norm_kernel")
+_CONV_OPS = ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution")
+
+
+def device_breakdown(trace_path: str) -> dict:
+    """Device time of a torch.profiler chrome trace, in ms: ``busy`` is the
+    union of every kernel, copy and memset interval; the parts sum the
+    intervals by kind. A kernel is K1 by name, a convolution when an aten
+    convolution op launched it (cuDNN's GEMM, FFT and layout kernels), and
+    elementwise when ATen's elementwise templates run it."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    parts = defaultdict(float)
+    spans = []
+    k1_launches = 0
+    for e in events:
+        cat = e.get("cat")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        name = e["name"]
+        if cat != "kernel":
+            kind = "copies"
+        elif any(k in name for k in _K1_KERNELS):
+            kind = "K1"
+            k1_launches += "gem_pool_kernel" in name
+        elif ops.get(e.get("args", {}).get("External id")) in _CONV_OPS:
+            kind = "convolution"
+        elif "elementwise" in name:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        parts[kind] += e["dur"] / 1e3
+    busy, reach = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            busy += hi - max(lo, reach)
+            reach = hi
+    return {"busy_ms": busy / 1e3, "k1_launches": k1_launches,
+            **{f"{k}_ms": v for k, v in sorted(parts.items())}}
+
+
+def profile_phase(bench: str, ckpt: str, device, out_dir: str, card: str):
+    """Where a warm database extraction's time goes, fp32 and bf16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dirjax_torch import datasets
+    from dirjax_torch.extraction import FeatureExtractor, extract_image_features
+    from dirjax_torch.utils.checkpoints import load_checkpoint
+
+    os.makedirs(out_dir, exist_ok=True)
+    db = datasets.create(f"Synthetic('{bench}')")
+    batch = np.stack([np.asarray(db.get_image(i).convert("RGB")) for i in range(8)])
+    summary = {"card": card, "images": len(db), "batch_size": 8}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        ck = load_checkpoint(ckpt)
+        ex = FeatureExtractor(ck.model, device, dtype=dtype, preprocess=ck.preprocess)
+
+        def extract() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            extract_image_features(db, "", ex)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        extract()  # warm-up: cuDNN picks its algorithms, the allocator fills
+        walls = [extract(), extract()]
+        torch.cuda.reset_peak_memory_stats(device)
+        fwd_ms = _time_ms(lambda: ex(batch), iters=10)
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_wall = extract()
+        trace = os.path.join(out_dir, f"trace_extract_{tag}.json")
+        prof.export_chrome_trace(trace)
+        b = device_breakdown(trace)
+        row = {"wall_ms": walls, "img_per_s": [len(db) * 1e3 / w for w in walls],
+               "forward_ms_per_batch": fwd_ms, "forward_img_per_s": 8e3 / fwd_ms,
+               "peak_gib": peak_gib, "profiled_wall_ms": prof_wall,
+               "idle_share": 1.0 - b["busy_ms"] / prof_wall, **b}
+        summary[tag] = row
+        print(f"profile {tag}: " + json.dumps(row))
+    with open(os.path.join(out_dir, "profile_summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", default="", metavar="DIR",
+                        help="also profile an extraction; traces go to DIR")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
@@ -253,26 +374,29 @@ def main() -> int:
         bench, ckpt = write_inputs(work, "resnet101_rmac", (1024, 768),
                                    n_classes=6, per_class=8, n_junk=4,
                                    pca_rows=4096)
-        print(f"inputs written in {time.perf_counter() - t0:.1f} s")
+        ref = cpu_reference(bench, ckpt)
+        print(f"inputs and cpu reference in {time.perf_counter() - t0:.1f} s")
 
-        gem_head.launches = 0
         runs = {}
+        gem_head.launches = 0
         for bf16 in (False, True):
-            before = gem_head.launches
-            res, n_images, sec = run_test_dir(bench, ckpt, 0, bf16)
             tag = "bf16" if bf16 else "fp32"
+            before = gem_head.launches
+            res, bdescs, n_images, sec = run_test_dir(
+                bench, ckpt, 0, bf16, os.path.join(work, f"feats_{tag}"))
             if gem_head.launches <= before:
                 raise AssertionError(f"{tag} test_dir run launched K1 no time")
-            runs[tag] = res
+            runs[tag] = (res, bdescs)
             print(f"main path {tag}: {json.dumps(res)}; {n_images} images in "
                   f"{sec:.2f} s = {n_images / sec:.1f} img/s (host clock, "
                   f"decode and first-call set-up included); K1 launches "
                   f"{gem_head.launches - before}")
         launches = gem_head.launches
+        for tag, (_, bdescs) in runs.items():
+            check_against_cpu(tag, bdescs[:N_REF], ref)
 
-        cos = cpu_vs_cuda_cosine(bench, ckpt, device)
-        if cos <= 0.9999:
-            raise AssertionError(f"cuda vs cpu descriptor cosine {cos} <= 0.9999")
+        if args.profile:
+            profile_phase(bench, ckpt, device, args.profile, card)
 
     entry["launches"] = launches
     print(json.dumps({"kernels": [entry]}))

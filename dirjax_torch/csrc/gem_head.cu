@@ -3,11 +3,12 @@
 // Replaces the TPU kernel dirjax/ops/gem_head.py::_kernel (launched by
 // _fused_call). Per batch row b it computes
 //     pooled[c] = (sum_hw m[hw] * max(x[hw, c], eps)^p / max(sum_hw m[hw], 1))^(1/p)
-//     v[d]      = sum_c pooled[c] * W[c, d] + bias[d]
+//     v[d]      = sum_c pooled[c] * W[d, c] + bias[d]
 //     out[d]    = v[d] * rsqrt(max(sum_d v[d]^2, 1e-24))
 // all in fp32; x may be fp32 or bf16 (widened on load, as the TPU kernel
-// does). x is NHWC and contiguous, W is (C, D) row-major, mask is (B, H*W)
-// fp32 or null (every cell valid), p is one fp32 on the device.
+// does). x is NHWC and contiguous, W is (D, C) row-major (torch.nn.Linear's
+// own weight, so the model passes it without a transposed copy), mask is
+// (B, H*W) fp32 or null (every cell valid), p is one fp32 on the device.
 //
 // What bounds it: at the main-path shape (B=8, H*W=32*24, C=D=2048) one read
 // of x (50 MB in fp32) and one read of W (16.8 MB) against ~34 MFLOP of
@@ -17,16 +18,14 @@
 //       walks the H*W cells, so a warp reads 128 contiguous bytes of a cell.
 //       128 channels per block gives B*C/128 = 128 blocks at the main-path
 //       shape, about one per SM; the H*W walk is not split across blocks.
-//   (b) project_kernel: grid (ceil(D/32), ceil(B/8), ceil(C/256)); a block
-//       stages 8 pooled rows x 256 channels in shared memory, each warp walks
-//       a strided slice of those channels reading 32 neighbouring columns of
-//       W (128 contiguous bytes), and the per-chunk sums go to scratch. W is
-//       read once for every 8 batch rows. The split over C keeps 512 blocks
-//       in flight at the main-path shape and sums in a fixed order, so the
-//       result does not change from run to run.
-//   (c) bias_l2norm_kernel: grid (B); sums the C-chunk partials and the
-//       bias, then L2-normalises the row.
-// Any D is taken: ragged column tiles are masked here, so the TPU kernel's
+//   (b) project_kernel: grid (ceil(D/8), ceil(B/8)); a warp owns one output
+//       column d and its lanes walk row d of W (128 contiguous bytes per
+//       step) against 8 pooled rows that the block stages in shared memory
+//       1024 channels at a time. W is read once for every 8 batch rows; the
+//       lane sums meet in a fixed butterfly, so the result does not change
+//       from run to run. 256 blocks at the main-path shape.
+//   (c) l2norm_kernel: grid (B); L2-normalises each row in place.
+// Any D is taken: the columns past D are masked here, so the TPU kernel's
 // D % 128 rule (a Mosaic limit) has no counterpart.
 
 #include <cuda_bf16.h>
@@ -37,14 +36,10 @@
 namespace {
 
 constexpr int kPoolThreads = 128;  // channels per pooling block
-constexpr int kProjCols = 32;      // output columns per projection block
-constexpr int kProjWarps = 8;      // warps sharing a block's C chunk
+constexpr int kProjWarps = 8;      // output columns per projection block
 constexpr int kProjRows = 8;       // batch rows per projection block
-constexpr int kProjChunk = 256;    // channels per projection block
+constexpr int kProjChunk = 1024;   // pooled channels staged at a time (32 KB)
 constexpr int kNormThreads = 256;
-
-static_assert(kProjRows == kProjWarps,
-              "the final reduction maps one thread to each (row, column)");
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -77,66 +72,56 @@ __global__ void gem_pool_kernel(const T* __restrict__ x,
 
 __global__ void project_kernel(const float* __restrict__ pooled,
                                const float* __restrict__ w,
-                               float* __restrict__ partial, int batch, int c,
+                               const float* __restrict__ bias,
+                               float* __restrict__ out, int batch, int c,
                                int d) {
   __shared__ float rows[kProjRows][kProjChunk];
-  __shared__ float red[kProjWarps][kProjRows][kProjCols];
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
-  const int tid = warp * kProjCols + lane;
+  const int tid = warp * 32 + lane;
   const int row0 = blockIdx.y * kProjRows;
-  const int c0 = blockIdx.z * kProjChunk;
-  const int clen = min(kProjChunk, c - c0);
-  const int col = blockIdx.x * kProjCols + lane;
-
-  for (int i = tid; i < kProjRows * kProjChunk; i += kProjWarps * kProjCols) {
-    const int r = i / kProjChunk;
-    const int k = i % kProjChunk;
-    rows[r][k] = (row0 + r < batch && k < clen)
-                     ? pooled[(size_t)(row0 + r) * c + c0 + k]
-                     : 0.f;
-  }
-  __syncthreads();
+  const int col = blockIdx.x * kProjWarps + warp;
+  const float* wd = w + (size_t)col * c;
 
   float acc[kProjRows];
 #pragma unroll
   for (int r = 0; r < kProjRows; ++r) acc[r] = 0.f;
-  if (col < d) {
-#pragma unroll 4
-    for (int k = warp; k < clen; k += kProjWarps) {
-      const float wv = w[(size_t)(c0 + k) * d + col];
+  for (int c0 = 0; c0 < c; c0 += kProjChunk) {
+    const int clen = min(kProjChunk, c - c0);
+    __syncthreads();  // every warp is done with the previous chunk
+    for (int i = tid; i < kProjRows * kProjChunk; i += kProjWarps * 32) {
+      const int r = i / kProjChunk;
+      const int k = i % kProjChunk;
+      rows[r][k] = (row0 + r < batch && k < clen)
+                       ? pooled[(size_t)(row0 + r) * c + c0 + k]
+                       : 0.f;
+    }
+    __syncthreads();
+    if (col < d) {
+#pragma unroll 8
+      for (int k = lane; k < clen; k += 32) {
+        const float wv = wd[c0 + k];
 #pragma unroll
-      for (int r = 0; r < kProjRows; ++r) acc[r] += rows[r][k] * wv;
+        for (int r = 0; r < kProjRows; ++r) acc[r] += rows[r][k] * wv;
+      }
     }
   }
+  if (col >= d) return;
 #pragma unroll
-  for (int r = 0; r < kProjRows; ++r) red[warp][r][lane] = acc[r];
-  __syncthreads();
-
-  const int r = tid / kProjCols;
-  const int out_col = blockIdx.x * kProjCols + tid % kProjCols;
-  if (row0 + r < batch && out_col < d) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kProjWarps; ++k) s += red[k][r][tid % kProjCols];
-    partial[((size_t)blockIdx.z * batch + row0 + r) * d + out_col] = s;
+  for (int r = 0; r < kProjRows; ++r) {
+    float s = acc[r];
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0 && row0 + r < batch) {
+      out[(size_t)(row0 + r) * d + col] = s + bias[col];
+    }
   }
 }
 
-__global__ void bias_l2norm_kernel(const float* __restrict__ partial,
-                                   const float* __restrict__ bias,
-                                   float* __restrict__ out, int batch, int d,
-                                   int splits) {
+__global__ void l2norm_kernel(float* __restrict__ out, int d) {
   __shared__ float warp_sums[kNormThreads / 32];
-  const int b = blockIdx.x;
-  float* ob = out + (size_t)b * d;
+  float* ob = out + (size_t)blockIdx.x * d;
   float sq = 0.f;
-  for (int j = threadIdx.x; j < d; j += kNormThreads) {
-    float v = bias[j];
-    for (int s = 0; s < splits; ++s) v += partial[((size_t)s * batch + b) * d + j];
-    ob[j] = v;
-    sq += v * v;
-  }
+  for (int j = threadIdx.x; j < d; j += kNormThreads) sq += ob[j] * ob[j];
   for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = sq;
   __syncthreads();
@@ -147,28 +132,18 @@ __global__ void bias_l2norm_kernel(const float* __restrict__ partial,
   for (int j = threadIdx.x; j < d; j += kNormThreads) ob[j] *= inv;
 }
 
-int c_splits(int c) { return (c + kProjChunk - 1) / kProjChunk; }
-
 }  // namespace
 
-// Floats of device scratch dirjax_gem_head needs: pooled (B, C) followed by
-// the per-chunk partial sums (ceil(C/256), B, D).
-extern "C" long long dirjax_gem_head_scratch_floats(int batch, int c, int d) {
-  return (long long)batch * c + (long long)c_splits(c) * batch * d;
-}
-
-// Launches the three stages on `stream`; returns the first launch error
-// (cudaSuccess == 0). Does not synchronise.
+// Launches the three stages on `stream`; `pooled` is (B, C) fp32 device
+// scratch. Returns the first launch error (cudaSuccess == 0). Does not
+// synchronise.
 extern "C" int dirjax_gem_head(const void* x, int x_is_bf16, const float* mask,
                                const float* p, const float* w,
-                               const float* bias, float* scratch, float* out,
+                               const float* bias, float* pooled, float* out,
                                int batch, int hw, int c, int d, float eps,
                                void* stream) {
   if (batch <= 0 || c <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pooled = scratch;
-  float* partial = scratch + (size_t)batch * c;
-  const int splits = c_splits(c);
 
   const dim3 pool_grid(batch, (c + kPoolThreads - 1) / kPoolThreads);
   if (x_is_bf16) {
@@ -181,14 +156,13 @@ extern "C" int dirjax_gem_head(const void* x, int x_is_bf16, const float* mask,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 proj_grid((d + kProjCols - 1) / kProjCols,
-                       (batch + kProjRows - 1) / kProjRows, splits);
-  project_kernel<<<proj_grid, dim3(kProjCols, kProjWarps), 0, s>>>(
-      pooled, w, partial, batch, c, d);
+  const dim3 proj_grid((d + kProjWarps - 1) / kProjWarps,
+                       (batch + kProjRows - 1) / kProjRows);
+  project_kernel<<<proj_grid, dim3(32, kProjWarps), 0, s>>>(pooled, w, bias,
+                                                            out, batch, c, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bias_l2norm_kernel<<<batch, kNormThreads, 0, s>>>(partial, bias, out, batch,
-                                                     d, splits);
+  l2norm_kernel<<<batch, kNormThreads, 0, s>>>(out, d);
   return (int)cudaGetLastError();
 }

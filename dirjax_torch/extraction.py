@@ -49,19 +49,15 @@ class FeatureExtractor:
     """Descriptor forward of ``model`` on ``device``.
 
     ``dtype`` is the backbone's compute dtype (fp32, or bf16 for speed).
-    ``fused_head`` defaults to on for a CUDA device, where the descriptor
-    head runs the hand-written kernel. ``preprocess`` is the checkpoint's
-    mean/std dict; it defaults to the architecture's ImageNet constants.
+    ``preprocess`` is the checkpoint's mean/std dict; it defaults to the
+    architecture's ImageNet constants.
     """
 
     def __init__(self, model: RMACDescriptor, device, dtype=torch.float32,
-                 fused_head: Optional[bool] = None,
                  preprocess: Optional[dict] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.dtype = dtype
-        self.fused_head = (self.device.type == "cuda" if fused_head is None
-                           else fused_head)
         self.preprocess = dict(model.cfg.preprocess)
         if preprocess:
             self.preprocess.update(preprocess)
@@ -82,7 +78,7 @@ class FeatureExtractor:
         x = x.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
         m = None if mask is None else torch.from_numpy(
             np.ascontiguousarray(mask)).to(self.device)
-        return self.model(x, mask=m, dtype=self.dtype, fused_head=self.fused_head)
+        return self.model(x, mask=m, dtype=self.dtype)
 
 
 def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor,

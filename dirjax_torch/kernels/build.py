@@ -94,6 +94,4 @@ def load_library() -> ctypes.CDLL:
     lib.dirjax_gem_head.argtypes = [vp, i, vp, vp, vp, vp, vp, vp,
                                     i, i, i, i, f, vp]
     lib.dirjax_gem_head.restype = i
-    lib.dirjax_gem_head_scratch_floats.argtypes = [i, i, i]
-    lib.dirjax_gem_head_scratch_floats.restype = ctypes.c_longlong
     return lib

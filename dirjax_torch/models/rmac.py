@@ -3,10 +3,13 @@
 (GeM with learnable p / MAC / avg) -> (feature L2) -> FC -> L2-norm, giving
 a (B, out_dim) unit descriptor.
 
-The GeM -> FC -> L2 tail goes to :func:`~dirjax_torch.ops.gem_head.fused_gem_head`
-under the same gate as ``dirjax/models/rmac.py:152-154``; the other head
-variants take the plain composition, which is different math and not a
-fallback. FPN heads are not ported yet.
+The GeM -> FC -> L2 tail always goes to
+:func:`~dirjax_torch.ops.gem_head.fused_gem_head` when the config admits it
+(the gate of ``dirjax/models/rmac.py:152-154``: GeM, no center bias, no
+feature L2, an FC layer); that function runs the CUDA kernel on the card
+and its plain version on the CPU. The other head variants take the plain
+composition, which is different math and not a fallback. FPN heads are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -85,8 +88,7 @@ class RMACDescriptor(ResNet):
             self.fc = nn.Linear(cfg.fc_in_dim, cfg.out_dim)
 
     def forward(self, images: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32,
-                fused_head: bool = False) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """``images``: NCHW float, already normalized. ``mask``: optional
         (B, H, W) bool validity map at input resolution for padded bucket
         batches. Returns (B, out_dim) fp32 unit descriptors."""
@@ -97,11 +99,11 @@ class RMACDescriptor(ResNet):
         if mask is not None:
             feat_mask = downsample_mask(mask, 32, x.shape[2], x.shape[3])
         p = self.adpool.p if cfg.pooling.startswith("gem") else cfg.gemp
-        if (fused_head and cfg.pooling.startswith("gem") and cfg.center_bias == 0
+        if (cfg.pooling.startswith("gem") and cfg.center_bias == 0
                 and not cfg.norm_features and not cfg.without_fc):
-            # the kernel widens bf16 itself, so x goes in as the backbone wrote it
-            return fused_gem_head(nhwc, p, self.fc.weight.T.contiguous(),
-                                  self.fc.bias, mask=feat_mask)
+            # the kernel widens bf16 itself and reads fc.weight in place
+            return fused_gem_head(nhwc, p, self.fc.weight.T, self.fc.bias,
+                                  mask=feat_mask)
         if cfg.center_bias > 0:
             bias = center_bias_mask(nhwc.shape[1], nhwc.shape[2], cfg.center_bias,
                                     dtype=nhwc.dtype, device=nhwc.device)

@@ -6,6 +6,10 @@
 kernel of ``csrc/gem_head.cu`` or raises; on a CPU tensor it runs
 :func:`gem_head_reference`, the plain PyTorch version that is also the
 kernel's oracle. No other path exists.
+
+The kernel reads W in ``torch.nn.Linear``'s own (D, C) row-major storage, so
+on the card W must be the transposed view ``linear.weight.T``: the model
+passes its weight without a copy, and any other layout raises.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ def fused_gem_head(x: torch.Tensor, p, w: torch.Tensor, b: torch.Tensor,
                    mask: Optional[torch.Tensor] = None,
                    eps: float = _EPS) -> torch.Tensor:
     """GeM-pool an NHWC map over its ``mask``ed (B, H, W) cells, project
-    with (C, D) weights + bias, L2-normalize -> (B, D) fp32."""
+    with (C, D) weights + bias, L2-normalize -> (B, D) fp32. On the card,
+    ``w`` is ``linear.weight.T`` (see the module docstring)."""
     if x.device.type == "cpu":
         return gem_head_reference(x.float(), mask, p, w, b, eps)
     if x.device.type != "cuda":
@@ -58,9 +63,10 @@ def _launch(x, p, w, b, mask, eps) -> torch.Tensor:
     if w.shape[0] != C or w.dim() != 2 or b.shape != (w.shape[1],):
         raise ValueError(f"W must be ({C}, D) and b (D,), got {tuple(w.shape)} "
                          f"and {tuple(b.shape)}")
-    for name, t in (("w", w), ("b", b)):
+    for name, t in (("w.T", w.T), ("b", b)):
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous fp32 on {x.device}")
+            raise ValueError(f"{name} must be contiguous fp32 on {x.device} "
+                             "(pass W as linear.weight.T)")
     if mask is not None:
         if mask.shape != (B, H, W) or mask.device != x.device:
             raise ValueError(f"mask must be ({B}, {H}, {W}) on {x.device}, got "
@@ -76,12 +82,11 @@ def _launch(x, p, w, b, mask, eps) -> torch.Tensor:
 
     lib = load_library()
     with torch.cuda.device(x.device):
-        scratch = torch.empty(lib.dirjax_gem_head_scratch_floats(B, C, D),
-                              dtype=torch.float32, device=x.device)
+        pooled = torch.empty((B, C), dtype=torch.float32, device=x.device)
         err = lib.dirjax_gem_head(
             x.data_ptr(), int(x.dtype == torch.bfloat16),
             None if mask is None else mask.data_ptr(), p.data_ptr(),
-            w.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            w.data_ptr(), b.data_ptr(), pooled.data_ptr(), out.data_ptr(),
             B, H * W, C, D, eps, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gem_head kernel launch failed: cudaError {err}")

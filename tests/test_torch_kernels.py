@@ -37,13 +37,14 @@ def rng():
 
 
 def _head_inputs(rng, device, B, H, W, C, D):
+    """x, W as the (C, D) view of an nn.Linear (D, C) weight, b, mask."""
     x = torch.from_numpy((rng.random((B, H, W, C)) + 0.05).astype(np.float32))
-    w = torch.from_numpy((rng.normal(size=(C, D)) * 0.02).astype(np.float32))
+    weight = torch.from_numpy((rng.normal(size=(D, C)) * 0.02).astype(np.float32))
     b = torch.from_numpy((rng.normal(size=(D,)) * 0.01).astype(np.float32))
     mask = torch.zeros((B, H, W), dtype=torch.bool)
     mask[0, :max(1, H - 3), :max(1, W - 2)] = True
     mask[1:] = True
-    return x.to(device), w.to(device), b.to(device), mask.to(device)
+    return x.to(device), weight.to(device).T, b.to(device), mask.to(device)
 
 
 def _close(got, want):
@@ -78,3 +79,5 @@ class TestGemHeadKernel:
             gem_head.fused_gem_head(x.permute(0, 3, 1, 2), 3.0, w, b)
         with pytest.raises(ValueError, match="fp32"):
             gem_head.fused_gem_head(x, 3.0, w.double(), b)
+        with pytest.raises(ValueError, match="linear.weight.T"):
+            gem_head.fused_gem_head(x, 3.0, w.contiguous(), b)

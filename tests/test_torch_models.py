@@ -61,11 +61,11 @@ def _jax_descs(jmodel, params, images, mask=None):
         precision=jax.lax.Precision.HIGHEST))
 
 
-def _torch_descs(model, images, mask=None, fused_head=False):
+def _torch_descs(model, images, mask=None):
     with torch.inference_mode():
         x = torch.from_numpy(images).permute(0, 3, 1, 2)
         m = None if mask is None else torch.from_numpy(mask)
-        return model(x, mask=m, fused_head=fused_head).numpy()
+        return model(x, mask=m).numpy()
 
 
 def _assert_parity(got, want):
@@ -86,22 +86,20 @@ def _bucket_batch(rng):
 
 
 class TestDescriptorParity:
-    @pytest.mark.parametrize("fused_head", [False, True])
-    def test_plain_batch(self, jmodel_params, fused_head):
+    def test_plain_batch(self, jmodel_params):
         jmodel, params = jmodel_params
         model = create_model("resnet18_rmac", out_dim=OUT_DIM)
         tckpt.load_state(model, tckpt.state_dict_from_jax_params(params, model.cfg))
         images = np.random.default_rng(2).normal(size=(2, 64, 48, 3)).astype(np.float32)
-        _assert_parity(_torch_descs(model, images, fused_head=fused_head),
+        _assert_parity(_torch_descs(model, images),
                        _jax_descs(jmodel, params, images))
 
-    @pytest.mark.parametrize("fused_head", [False, True])
-    def test_bucket_masked_batch(self, jmodel_params, fused_head):
+    def test_bucket_masked_batch(self, jmodel_params):
         jmodel, params = jmodel_params
         model = create_model("resnet18_rmac", out_dim=OUT_DIM)
         tckpt.load_state(model, tckpt.state_dict_from_jax_params(params, model.cfg))
         images, mask = _bucket_batch(np.random.default_rng(3))
-        _assert_parity(_torch_descs(model, images, mask, fused_head=fused_head),
+        _assert_parity(_torch_descs(model, images, mask),
                        _jax_descs(jmodel, params, images, mask))
 
     @pytest.mark.parametrize("pooling", ["max", "avg"])
@@ -111,7 +109,7 @@ class TestDescriptorParity:
         model = create_model("resnet18_rmac", out_dim=OUT_DIM, pooling=pooling)
         tckpt.load_state(model, tckpt.state_dict_from_jax_params(params, model.cfg))
         images, mask = _bucket_batch(np.random.default_rng(5))
-        _assert_parity(_torch_descs(model, images, mask, fused_head=True),
+        _assert_parity(_torch_descs(model, images, mask),
                        _jax_descs(jmodel, params, images, mask))
 
     def test_params_roundtrip(self, jmodel_params):
@@ -124,6 +122,37 @@ class TestDescriptorParity:
         assert tree_a == tree_b
         for a, b in zip(flat_a, flat_b):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kw,fused", [
+    ({}, True),
+    ({"center_bias": 0.5}, False),
+    ({"norm_features": True}, False),
+    ({"without_fc": True}, False),
+    ({"pooling": "max"}, False),
+])
+def test_head_gate(monkeypatch, kw, fused):
+    """Only GeM with no center bias, no feature L2 and an FC layer goes
+    through fused_gem_head (dirjax/models/rmac.py:152-154), whatever the
+    device; it gets the fc weight as a view, not a copy."""
+    from dirjax_torch.models import rmac
+
+    seen = []
+    real = rmac.fused_gem_head
+
+    def spy(x, p, w, b, mask=None):
+        seen.append(w)
+        return real(x, p, w, b, mask=mask)
+
+    model = create_model("resnet18_rmac", out_dim=OUT_DIM, **kw)
+    monkeypatch.setattr(rmac, "fused_gem_head", spy, raising=True)
+    images = np.random.default_rng(10).normal(size=(2, 64, 48, 3)).astype(np.float32)
+    out = _torch_descs(model, images)
+    assert out.shape[0] == 2 and np.isfinite(out).all()
+    assert len(seen) == int(fused)
+    if fused:
+        assert seen[0].data_ptr() == model.fc.weight.data_ptr()
+        assert seen[0].T.is_contiguous()
 
 
 @pytest.mark.parametrize("h,w", [(96, 64), (100, 70), (33, 31), (20, 12)])
