@@ -1,17 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dirjax_torch) once through its main path on
+"""Drive the PyTorch/CUDA port (dirjax_torch) once through its main paths on
 one NVIDIA GPU, and check what comes out.
 
     python3 chip_smoke.py      # from the repository root; needs one CUDA card
 
 Phases, each of which raises on failure:
 
-1. build  — nvcc builds dirjax_torch/csrc/*.cu for sm_90a.
+1. build  — nvcc builds dirjax_torch/csrc/*.cu for sm_90a, one process per
+   source, all started together.
 2. kernel — K1, the fused GeM -> FC -> L2 head (csrc/gem_head.cu), against
    its plain PyTorch version on the card at the main-path shape
    (8, 32, 24, 2048) -> 2048: unmasked, bucket-masked, a ragged D and bf16
    input, within rtol 2e-4 / atol 2e-5, TF32 off; both timed with CUDA events.
-3. main path — a synthetic Revisited benchmark at 1024x768 and a
+3. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
+   serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
+   int8 with per-row scales), nq = 256, 37 and 1, and a ragged 1,048,573
+   rows. K2 at k = 10 on fp32 and bf16; K3 and K4 on bf16, int8 and
+   int8 x int8 queries. Scores within atol 1e-5 (int8 x int8 exactly equal),
+   an index may differ only at a near-tie within 1e-5; K4's maximum over
+   each fetched block equals K3's bit for bit; rank_topk_fused against a
+   dense plain top-k (k = 10 and 100). Each kernel timed against its plain
+   version with CUDA events, plain/kernel/kernel/plain.
+4. serving — RetrievalIndex in bf16 and in int8 over the same rows, each
+   behind a dirjax.server IndexServer on a Unix socket; several Clients send
+   concurrent requests of 1-16 queries at k = 10 (K2) and k = 100 (K3 + K4),
+   int8 with and without int8_queries, and AQE. The launch counters of K2,
+   K3 and K4 are zeroed just before and must have risen just after; every
+   answer must equal the index's own direct search (values within 1e-5, an
+   index differing only at a near-tie). Requests, batches, latency
+   percentiles and QPS are printed as information.
+5. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
@@ -21,14 +39,20 @@ Phases, each of which raises on failure:
    bf16 one. The mAPs are only checked to be finite in [0, 1]: the synthetic
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path.
+6. index CLI — ``python -m dirjax_torch.index build --int8`` then ``query
+   -k 100 --gpu 0`` as subprocesses on 65,536 rows; the JSON answer must
+   equal the in-process search exactly.
 
-    python3 chip_smoke.py --profile DIR   # also phase 4
+    python3 chip_smoke.py --profile DIR   # also phase 7
 
-4. profile — where a warm database extraction's time goes, fp32 and bf16:
+7. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
-   other. Writes the traces and ``profile_summary.json`` into DIR.
+   other. Writes the traces and ``profile_summary.json`` into DIR. And where
+   one direct search's time goes, per serving signature at nq = 1, 16 and
+   64: host ms per search and device ms by kernel
+   (``serving_profile.json``).
 
 Prints the card's name and power limit, then one JSON line with each
 kernel's launches, error and times, and last a JSON line with "ok": true.
@@ -41,11 +65,14 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,6 +82,11 @@ MAIN_SHAPE = (8, 32, 24, 2048)   # R101 C5 at 1024x768, batch 8
 MAIN_D = 2048
 N_REF = 4                        # database images held against the CPU path
 COS_BOUND = {"fp32": 0.9999, "bf16": 0.999}
+SERVE_N, SERVE_D, SERVE_NQ = 1_048_576, 2048, 256   # the serving shape
+TOPK_ATOL = 1e-5
+TILE_ROWS = 1024                 # rank_topk_fused's default level-0 group
+CLI_N = 65_536
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def card_line() -> str:
@@ -69,8 +101,9 @@ def build_phase():
 
     res = build()
     load_library()
+    for cmd in res.command:
+        print("nvcc:", cmd)
     if res.command:
-        print("nvcc:", " ".join(res.command))
         print(res.log.strip())
     print(f"build: {res.path} in {res.seconds:.1f} s")
     return res
@@ -126,24 +159,382 @@ def kernel_phase(device) -> dict:
 
     w = (torch.randn((MAIN_D, C), generator=g, device=device) * C ** -0.5).T
     b = torch.zeros((MAIN_D,), device=device)
-
-    def plain():
-        return gem_head.gem_head_reference(x, mask, p, w, b)
-
-    def kernel():
-        return gem_head.fused_gem_head(x, p, w, b, mask=mask)
-
-    # plain, kernel, kernel, plain: one card, in turns
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        times[which].append(_time_ms(plain if which == "plain" else kernel))
-    ms, plain_ms = float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
-    print(f"kernel gem_head timing {MAIN_SHAPE}->{MAIN_D} masked fp32: kernel "
-          f"{times['kernel']} ms, plain {times['plain']} ms")
+    ms, plain_ms = time_in_turns(
+        f"gem_head {MAIN_SHAPE}->{MAIN_D} masked fp32",
+        lambda: gem_head.gem_head_reference(x, mask, p, w, b),
+        lambda: gem_head.fused_gem_head(x, p, w, b, mask=mask))
     return {"name": "gem_head", "route": "cuda",
             "source": "dirjax_torch/csrc/gem_head.cu",
             "replaces": "dirjax/ops/gem_head.py:45",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def time_in_turns(tag: str, plain, kernel, iters: int = 20):
+    """Mean ms of the kernel and of its plain version, timed in turns
+    plain/kernel/kernel/plain on one card; returns (kernel_ms, plain_ms)."""
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(_time_ms(plain if which == "plain" else kernel, iters))
+    print(f"timing {tag}: kernel {times['kernel']} ms, plain {times['plain']} ms")
+    return float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+
+
+# --- K2-K4: the dense top-k kernels at the serving shape --------------------
+
+def unit_rows(n: int, d: int, device, seed: int, chunk: int = 65536) -> torch.Tensor:
+    """(n, d) fp32 L2-normalised Gaussian rows from a seeded generator on the
+    device, made chunk by chunk."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = torch.empty((n, d), device=device)
+    for start in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - start), d), generator=g, device=device)
+        out[start:start + len(x)] = x / x.norm(dim=1, keepdim=True)
+    return out
+
+
+def pair_scores(q, db, scales, qi, rows) -> torch.Tensor:
+    """Plain scores of the (query qi, row) pairs, under the kernels' operand
+    rules, scaled as the finish step scales them."""
+    if q.dtype == torch.int8:
+        s = (q[qi].double() * db[rows].double()).sum(1).float()
+    else:
+        s = (q[qi].float() * db[rows].float()).sum(1)
+    return s if scales is None else s * scales[rows]
+
+
+def check_scores(tag: str, got, want, exact: bool) -> float:
+    """Equal -inf/NaN pattern; finite scores within TOPK_ATOL, or equal."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{tag}: non-finite entries differ")
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    if (exact and not torch.equal(got[fin], want[fin])) or err > TOPK_ATOL:
+        raise AssertionError(f"{tag}: max abs err {err:.3e} (bound "
+                             f"{'exact' if exact else TOPK_ATOL})")
+    return err
+
+
+def check_ranking(tag: str, got, want, score) -> float:
+    """Values within TOPK_ATOL of the plain top-k's; where an index differs,
+    the plain score of the returned row lies within TOPK_ATOL of the plain
+    value at that rank (a near-tie). ``score(qi, rows)`` gives plain scores."""
+    (got_v, got_i), (want_v, want_i) = got, want
+    err = check_scores(tag + " values", got_v, want_v, exact=False)
+    diff = (got_i != want_i) & torch.isfinite(want_v)
+    if diff.any():
+        qi, pos = diff.nonzero(as_tuple=True)
+        tie = float((score(qi, got_i[qi, pos]) - want_v[qi, pos]).abs().max())
+        if tie > TOPK_ATOL:
+            raise AssertionError(f"{tag}: {int(diff.sum())} indices differ, "
+                                 f"not at near-ties ({tie:.3e})")
+    return err
+
+
+def dense_topk(q, db, scales, qscales, k: int):
+    """Plain top-k over the whole database, chunk by chunk: the oracle of
+    rank_topk_fused."""
+    from dirjax_torch.ops import topk
+
+    best = None
+    for start in range(0, db.shape[0], 65536):
+        s = topk._scores(q, db[start:start + 65536])
+        if scales is not None:
+            s = s * scales[start:start + 65536]
+        if qscales is not None:
+            s = s * qscales[:, None]
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        cand = (v, i + start) if best is None else (
+            torch.cat([best[0], v], 1), torch.cat([best[1], i + start], 1))
+        v, pos = torch.topk(cand[0], k, dim=1)
+        best = (v, torch.gather(cand[1], 1, pos))
+    return best
+
+
+def topk_kernel_phase(device):
+    """K2-K4 against their plain versions at the serving shape; returns their
+    JSON entries without ``launches``, and the bf16 database."""
+    from dirjax_torch.ops import topk
+
+    t0 = time.perf_counter()
+    db32 = unit_rows(SERVE_N, SERVE_D, device, seed=1)
+    db16 = db32.bfloat16()
+    db8, s8 = topk.quantize_db(db16)
+    s8 = s8.reshape(-1)
+    qf = unit_rows(SERVE_NQ, SERVE_D, device, seed=2)
+    q8, qs8 = topk._quantize_block(qf)
+    modes = {"fp32": (qf, db32, None), "bf16": (qf.bfloat16(), db16, None),
+             "int8": (qf.bfloat16(), db8, s8), "int8x8": (q8, db8, s8)}
+    torch.cuda.synchronize()
+    print(f"top-k inputs: {SERVE_N} x {SERVE_D} unit rows in fp32, bf16 and "
+          f"int8 in {time.perf_counter() - t0:.1f} s")
+    cases = [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N)]
+    err = {"fused_topk": 0.0, "finemax": 0.0, "gather_scores": 0.0}
+
+    for mode in ("bf16", "fp32"):
+        for nq, n in cases:
+            q, db, _ = modes[mode]
+            q, db = q[:nq], db[:n]
+            got = topk.fused_topk(q, db, 10)
+            want = topk.fused_topk_reference(q, db, 10)
+            e = check_ranking(f"fused_topk {mode} nq={nq} n={n}", got, want,
+                              lambda qi, rows: pair_scores(q, db, None, qi, rows))
+            err["fused_topk"] = max(err["fused_topk"], e)
+            print(f"kernel fused_topk {mode} nq={nq} n={n} k=10: max_abs_err {e:.3e}")
+
+    for mode in ("bf16", "int8", "int8x8"):
+        for nq, n in cases:
+            q, db, s = modes[mode]
+            q, db, s = q[:nq], db[:n], None if s is None else s[:n]
+            tag = f"{mode} nq={nq} n={n}"
+            blocks = -(-n // TILE_ROWS) * (TILE_ROWS // 8)
+            fmax = topk.finemax(q, db, s, blocks)
+            exact = mode == "int8x8"
+            e3 = check_scores(f"finemax {tag}", fmax,
+                              topk.finemax_reference(q, db, s, blocks), exact)
+            bids, _ = topk._hier_select(fmax, 100, TILE_ROWS, n)
+            raw = topk.gather_scores(q, db, bids)
+            want = topk.gather_scores_reference(q, db, bids)
+            if s is not None:   # scores as the finish step scales them
+                rows = (bids[:, :, None] * 8 + torch.arange(8, device=device)).reshape(nq, -1)
+                raw, want = raw * s[rows], want * s[rows]
+            e4 = check_scores(f"gather_scores {tag}", raw, want, exact)
+            if not torch.equal(raw.reshape(nq, -1, 8).amax(dim=2),
+                               torch.gather(fmax, 1, bids)):
+                raise AssertionError(f"{tag}: K4's block maxima are not K3's")
+            err["finemax"] = max(err["finemax"], e3)
+            err["gather_scores"] = max(err["gather_scores"], e4)
+            print(f"kernel finemax {tag}: max_abs_err {e3:.3e}; gather_scores "
+                  f"k=100 ({bids.shape[1]} blocks): max_abs_err {e4:.3e}; "
+                  f"block maxima bit-identical")
+
+    for mode, k in (("fp32", 10), ("bf16", 10), ("bf16", 100), ("int8", 100),
+                    ("int8x8", 100)):
+        q, db, s = modes[mode]
+        opts = {} if s is None else {"db_scales": s.reshape(1, -1),
+                                     "quantize_queries": mode == "int8x8"}
+        got = topk.rank_topk_fused(qf, db, k, **opts)
+        qs = qs8 if mode == "int8x8" else None
+        want = dense_topk(q, db, s, qs, k)
+        kth = want[0][:, -1:]
+        inset = (got[1][:, :, None] == want[1][:, None, :]).any(-1)
+        qi, pos = (~inset).nonzero(as_tuple=True)
+        outside = pair_scores(q, db, s, qi, got[1][qi, pos])
+        if qs is not None:
+            outside = outside * qs[qi]
+        if len(qi) and float((kth[qi, 0] - outside).max()) > TOPK_ATOL:
+            raise AssertionError(f"rank_topk_fused {mode} k={k}: a returned row "
+                                 "outside the plain top-k is no near-tie")
+        e = check_scores(f"rank_topk_fused {mode} k={k}", got[0], want[0], False)
+        print(f"rank_topk_fused {mode} nq={SERVE_NQ} k={k} vs dense plain top-k: "
+              f"max_abs_err {e:.3e}, {len(qi)} of {got[1].numel()} rows outside "
+              "the plain set (near-ties)")
+
+    q, db, _ = modes["bf16"]
+    blocks = -(-SERVE_N // TILE_ROWS) * (TILE_ROWS // 8)
+    bids, _ = topk._hier_select(topk.finemax(q, db, None, blocks), 100, TILE_ROWS, SERVE_N)
+    shape = f"{SERVE_N}x{SERVE_D} bf16 nq={SERVE_NQ}"
+    timed = {
+        "fused_topk": time_in_turns(
+            f"fused_topk {shape} k=10", lambda: topk.fused_topk_reference(q, db, 10),
+            lambda: topk.fused_topk(q, db, 10), iters=5),
+        "finemax": time_in_turns(
+            f"finemax {shape}", lambda: topk.finemax_reference(q, db, None, blocks),
+            lambda: topk.finemax(q, db, None, blocks), iters=5),
+        "gather_scores": time_in_turns(
+            f"gather_scores {shape} k=100", lambda: topk.gather_scores_reference(q, db, bids),
+            lambda: topk.gather_scores(q, db, bids), iters=5),
+    }
+    for mode in ("int8", "int8x8"):
+        q, db, s = modes[mode]
+        time_in_turns(f"finemax {SERVE_N}x{SERVE_D} {mode} nq={SERVE_NQ}",
+                      lambda: topk.finemax_reference(q, db, s, blocks),
+                      lambda: topk.finemax(q, db, s, blocks), iters=5)
+    replaces = {"fused_topk": "dirjax/ops/topk_pallas.py:56",
+                "finemax": "dirjax/ops/topk_pallas.py:166",
+                "gather_scores": "dirjax/ops/topk_pallas.py:299"}
+    entries = [{"name": name, "route": "cuda", "source": "dirjax_torch/csrc/topk.cu",
+                "replaces": replaces[name], "max_abs_err": err[name],
+                "ms": timed[name][0], "plain_ms": timed[name][1]}
+               for name in ("fused_topk", "finemax", "gather_scores")]
+    return entries, db16
+
+
+# --- serving: IndexServer + Clients over the port's RetrievalIndex ----------
+
+CLIENTS_PER_INDEX = 4
+REQUESTS_PER_CLIENT = 6
+SIGNATURES = {   # (k, options) each index is asked with
+    "bf16": [(10, {}), (100, {}), (10, {"aqe": {"k": 10, "alpha": 3.0}})],
+    "int8": [(10, {}), (100, {}), (100, {"int8_queries": True}),
+             (10, {"aqe": {"k": 10, "alpha": 3.0}})],
+}
+
+
+def same_answer(tag: str, got, want) -> None:
+    """A served answer against the direct search: values within TOPK_ATOL
+    (AQE's cuBLAS sums may round differently at another batch size), and a
+    differing index only where it is tied within TOPK_ATOL."""
+    (gv, gi), (wv, wi) = got, want
+    if gv.shape != wv.shape or not np.abs(gv - wv).max() <= TOPK_ATOL:
+        raise AssertionError(f"{tag}: scores differ from the direct search")
+    for r, c in zip(*np.nonzero(gi != wi)):
+        hit = np.nonzero(wi[r] == gi[r, c])[0]
+        ref = wv[r, hit[0]] if len(hit) else wv[r, -1]
+        if abs(gv[r, c] - ref) > TOPK_ATOL:
+            raise AssertionError(f"{tag}: index {gi[r, c]} is no near-tie")
+
+
+def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
+    """Where one direct search's time goes, per serving signature at nq = 1,
+    16 and 64: host ms per search (5 searches, the result pull included) and
+    the device time of each kernel in a torch.profiler trace of one more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(6)
+    rows = []
+    for name, index in indexes.items():
+        for k, opts in SIGNATURES[name]:
+            for nq in (1, 16, 64):
+                q = rng.standard_normal((nq, SERVE_D)).astype(np.float32)
+                index.search(q, k=k, **opts)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    index.search(q, k=k, **opts)
+                host_ms = (time.perf_counter() - t0) / 5 * 1e3
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    index.search(q, k=k, **opts)
+                trace = os.path.join(out_dir, "trace_search.json")
+                prof.export_chrome_trace(trace)
+                kernels = defaultdict(float)
+                with open(trace) as f:
+                    for e in json.load(f)["traceEvents"]:
+                        if e.get("ph") == "X" and e.get("cat") in (
+                                "kernel", "gpu_memcpy", "gpu_memset"):
+                            kname = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
+                            kernels[kname.split("(")[0][:48]] += e["dur"] / 1e3
+                top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
+                row = {"index": name, "k": k, "opts": opts, "nq": nq,
+                       "host_ms": host_ms, "device_ms": sum(kernels.values()),
+                       "top_device_ms": top}
+                rows.append(row)
+                print("serving profile: " + json.dumps(row))
+    os.unlink(os.path.join(out_dir, "trace_search.json"))
+    with open(os.path.join(out_dir, "serving_profile.json"), "w") as f:
+        json.dump({"card": card, "rows": SERVE_N, "dim": SERVE_D, "searches": rows},
+                  f, indent=1)
+
+
+def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
+                  card: str = "") -> dict:
+    """The serving main path: concurrent Clients against an IndexServer per
+    index; returns the launch counts of K2-K4 during the traffic. With
+    ``profile_dir``, also :func:`serving_profile`."""
+    from dirjax_torch.ops import topk
+    from dirjax_torch.serve import Client, IndexServer
+    from dirjax_torch.serving import RetrievalIndex
+
+    t0 = time.perf_counter()
+    indexes = {"bf16": RetrievalIndex(db16, dtype=torch.bfloat16, device=device),
+               "int8": RetrievalIndex(db16, dtype=torch.int8, device=device)}
+    rng = np.random.default_rng(3)
+    plan = {name: [[] for _ in range(CLIENTS_PER_INDEX)] for name in indexes}
+    for name, per_client in plan.items():
+        for reqs in per_client:
+            for _ in range(REQUESTS_PER_CLIENT):
+                k, opts = SIGNATURES[name][rng.integers(len(SIGNATURES[name]))]
+                q = rng.standard_normal((int(rng.integers(1, 17)), SERVE_D))
+                reqs.append(((q / np.linalg.norm(q, axis=1, keepdims=True))
+                             .astype(np.float32), k, opts))
+    for name, index in indexes.items():   # first calls: cuBLAS and allocator set-up
+        for k, opts in SIGNATURES[name]:
+            index.search(plan[name][0][0][0], k=k, **opts)
+    torch.cuda.synchronize()
+    print(f"serving: bf16 and int8 RetrievalIndex of {SERVE_N} x {SERVE_D} "
+          f"ready in {time.perf_counter() - t0:.1f} s")
+
+    def client_run(address, reqs):
+        """This client's answers, and the host clock at the last of them."""
+        with Client(address) as client:
+            futs = [client.search_async(q, k=k, **opts) for q, k, opts in reqs]
+            answers = [f.result(timeout=300) for f in futs]
+            return answers, time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="dirjax_torch_sock_") as sock_dir:
+        servers = {name: IndexServer(index, os.path.join(sock_dir, f"{name}.sock"),
+                                     max_batch=256, max_wait_ms=2.0, pipeline=3)
+                   for name, index in indexes.items()}
+        threads = [threading.Thread(target=srv.serve_forever, daemon=True)
+                   for srv in servers.values()]
+        for t in threads:
+            t.start()
+        try:
+            for key in topk.launches:
+                topk.launches[key] = 0
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(indexes) * CLIENTS_PER_INDEX) as pool:
+                jobs = {(name, c): pool.submit(client_run, servers[name].address, reqs)
+                        for name, per_client in plan.items()
+                        for c, reqs in enumerate(per_client)}
+                done = {key: job.result() for key, job in jobs.items()}
+            answers = {key: got for key, (got, _) in done.items()}
+            wall = max(last for _, last in done.values()) - t0
+            launches = dict(topk.launches)
+        finally:
+            for srv in servers.values():
+                with Client(srv.address) as c:
+                    c.shutdown_server()
+            for t in threads:
+                t.join(timeout=60)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an IndexServer did not shut down")
+
+    rows = 0
+    for (name, c), got in answers.items():
+        for (q, k, opts), ans in zip(plan[name][c], got):
+            same_answer(f"{name} k={k} {opts} nq={len(q)}", ans,
+                        indexes[name].search(q, k=k, **opts))
+            rows += len(q)
+    for name, srv in servers.items():
+        st, lat = srv.batcher.stats, srv.batcher.latency_stats()
+        print(f"serving {name}: {st['requests']} requests, {st['rows']} query "
+              f"rows in {st['batches']} batches; latency ms " +
+              " ".join(f"{k[:-3]} {v:.2f}" for k, v in lat.items()))
+    print(f"serving: {len(answers) * REQUESTS_PER_CLIENT} requests, {rows} query "
+          f"rows from {len(answers)} concurrent clients in {wall:.3f} s = "
+          f"{rows / wall:.1f} QPS (host clock); launches {launches}; every "
+          "answer equals the direct search")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the serving path launched {missing} no time")
+    if profile_dir:
+        serving_profile(indexes, profile_dir, card)
+    return launches
+
+
+def cli_phase(device, work: str) -> None:
+    """``python -m dirjax_torch.index build --int8`` and ``query`` as
+    subprocesses; their JSON must equal the in-process search."""
+    from dirjax_torch.serving import RetrievalIndex
+
+    descs, queries = (os.path.join(work, f) for f in ("db.npy", "q.npy"))
+    index_path, hits = os.path.join(work, "index.npz"), os.path.join(work, "hits.json")
+    np.save(descs, unit_rows(CLI_N, SERVE_D, device, seed=4).cpu().numpy())
+    np.save(queries, unit_rows(37, SERVE_D, device, seed=5).cpu().numpy())
+    t0 = time.perf_counter()
+    for argv in (["build", "--descs", descs, "--int8", "--out", index_path],
+                 ["query", "--index", index_path, "--descs", queries, "-k", "100",
+                  "--out-json", hits]):
+        subprocess.run([sys.executable, "-m", "dirjax_torch.index", *argv,
+                        "--gpu", "0"], check=True, cwd=REPO, timeout=300)
+    with open(hits) as f:
+        got = json.load(f)
+    vals, idxs = RetrievalIndex.load(index_path, device=device).search(
+        np.load(queries), k=100)
+    if got["scores"] != vals.tolist() or got["indices"] != idxs.tolist():
+        raise AssertionError("index CLI answer differs from the in-process search")
+    print(f"index CLI: build --int8 and query -k 100 on {CLI_N} x {SERVE_D} in "
+          f"{time.perf_counter() - t0:.1f} s; JSON equals the in-process search")
 
 
 def random_state_dict(model, seed: int) -> dict:
@@ -367,7 +758,11 @@ def main(argv=None) -> int:
     print(card)
 
     build_phase()
-    entry = kernel_phase(device)
+    entries = [kernel_phase(device)]
+    topk_entries, db16 = topk_kernel_phase(device)
+    topk_launches = serving_phase(device, db16, args.profile, card)
+    del db16
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
         t0 = time.perf_counter()
@@ -395,11 +790,14 @@ def main(argv=None) -> int:
         for tag, (_, bdescs) in runs.items():
             check_against_cpu(tag, bdescs[:N_REF], ref)
 
+        cli_phase(device, work)
         if args.profile:
             profile_phase(bench, ckpt, device, args.profile, card)
 
-    entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}))
+    entries[0]["launches"] = launches
+    for entry in topk_entries:
+        entry["launches"] = topk_launches[entry["name"]]
+    print(json.dumps({"kernels": entries + topk_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

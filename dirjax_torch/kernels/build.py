@@ -1,10 +1,12 @@
 """Build the port's CUDA sources (``dirjax_torch/csrc/*.cu``) into one shared
 library with ``nvcc`` at first use, and load it with ctypes.
 
-The library is written under ``dirjax_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the sources and the flags, so an edited
-source builds anew and an unchanged one is reused. A missing ``nvcc`` or a
-failed compile raises :class:`BuildError`; nothing here returns a stub.
+Each source compiles in its own ``nvcc`` process, all started together, and
+one more links the objects. The library is written under
+``dirjax_torch/_build/`` (listed in ``.gitignore``), named by a hash of the
+sources and the flags, so an edited source builds anew and an unchanged one
+is reused. A missing ``nvcc`` or a failed compile raises
+:class:`BuildError`; nothing here returns a stub.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 class BuildError(RuntimeError):
@@ -37,7 +40,7 @@ class BuildError(RuntimeError):
 
 class Build(NamedTuple):
     path: str            # the shared library
-    command: List[str]   # the nvcc command line ([] when reused)
+    command: List[str]   # the nvcc command lines, compiles then link ([] when reused)
     log: str             # nvcc's output (ptxas register/shared-memory report)
     seconds: float       # wall time of the compile (0 when reused)
 
@@ -60,7 +63,7 @@ def build() -> Build:
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not srcs:
         raise BuildError(f"no CUDA sources under {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in srcs:
         digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -71,27 +74,53 @@ def build() -> Build:
 
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     start = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [os.path.join(work, f"{i}.o") for i in range(len(srcs))]
+        logs = [os.path.join(work, f"{i}.log") for i in range(len(srcs))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for obj, src in zip(objs, srcs)]
+        procs = []
+        for cmd, log in zip(cmds, logs):   # all compiles run at once
+            with open(log, "w") as out:
+                procs.append(subprocess.Popen(cmd, stdout=out,
+                                              stderr=subprocess.STDOUT))
+        codes = [p.wait() for p in procs]
+        text = []
+        for src, log, code in zip(srcs, logs, codes):
+            with open(log) as f:
+                text.append(f"== {os.path.basename(src)}\n{f.read()}")
+            if code != 0:
+                raise BuildError(f"nvcc failed on {src} ({code}):\n{text[-1]}")
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            raise BuildError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(lib, cmd, proc.stdout + proc.stderr, time.perf_counter() - start)
+        shutil.rmtree(work, ignore_errors=True)
+    command = [" ".join(c) for c in cmds + [link]]
+    return Build(lib, command, "\n".join(text), time.perf_counter() - start)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points' signatures."""
     lib = ctypes.CDLL(build().path)
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dirjax_gem_head.argtypes = [vp, i, vp, vp, vp, vp, vp, vp,
-                                    i, i, i, i, f, vp]
-    lib.dirjax_gem_head.restype = i
+    vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    signatures = {
+        "dirjax_gem_head": [vp, i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, vp],
+        # q, db, mode, nq, n, d, k, vals, idxs, stream
+        "dirjax_fused_topk": [vp, vp, i, ll, ll, i, i, vp, vp, vp],
+        # q, db, scales, mode, nq, n, d, blocks, out, stream
+        "dirjax_finemax": [vp, vp, vp, i, ll, ll, i, ll, vp, vp],
+        # q, db, bids, mode, nq, n, d, kf, out, stream
+        "dirjax_gather_scores": [vp, vp, vp, i, ll, ll, i, ll, vp, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     return lib

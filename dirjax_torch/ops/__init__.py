@@ -10,7 +10,15 @@ from .pooling import (  # noqa: F401
     sympow,
     sympow_pool,
 )
-from .qe import expand_database, expand_queries  # noqa: F401
+from .qe import (  # noqa: F401
+    expand_database,
+    expand_database_chunked,
+    expand_descriptors,
+    expand_queries,
+    expand_queries_chunked,
+    expand_queries_quantized,
+)
 from .ranking import compute_scores, compute_scores_chunked, rank_topk  # noqa: F401
+from .topk import quantize_db, rank_topk_fused  # noqa: F401
 from .whitening import (PCAParams, apply_whitening, fit_pca,  # noqa: F401
                         whitening_matrix)

@@ -1,6 +1,7 @@
 """The port's test_dir main path held against dirjax's on the CPU, plus the
-port's guarantees: it never imports jax, the kernel wrapper takes its plain
-version only for CPU tensors, and the kernel build raises without nvcc."""
+port's guarantees: it never imports jax, the kernel wrappers take their plain
+versions only for CPU tensors and refuse other devices, and the kernel build
+raises without nvcc."""
 
 import os
 import subprocess
@@ -68,6 +69,15 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         f"res = main({_argv(synth_root, ckpt_path)!r})\n"
         "assert 'mAP-medium' in res\n"
         "import dirjax_torch.kernels.build, dirjax_torch.utils.checkpoints\n"
+        "import numpy as np, torch\n"
+        "import dirjax_torch.cli.index, dirjax_torch.index, dirjax_torch.serve\n"
+        "from dirjax_torch.ops.topk import rank_topk_fused\n"
+        "from dirjax_torch.serving import RetrievalIndex\n"
+        "db = np.random.default_rng(0).normal(size=(600, 32)).astype(np.float32)\n"
+        "idx = RetrievalIndex(db, dtype=torch.int8)\n"
+        "assert idx.search(db[:3], k=20, aqe={'k': 3, 'alpha': 3.0})[1].shape == (3, 20)\n"
+        "q, d = torch.from_numpy(db[:2]), torch.from_numpy(db)\n"
+        "assert rank_topk_fused(q, d, 5)[1].shape == (2, 5)\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,
@@ -96,6 +106,19 @@ def test_dispatcher_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_gem_head(x, 3.0, torch.empty(8, 5, device="meta"),
                        torch.empty(5, device="meta"))
+
+
+def test_topk_refuses_other_devices():
+    from dirjax_torch.ops import topk
+
+    q, db = torch.empty(2, 8, device="meta"), torch.empty(300, 8, device="meta")
+    bids = torch.empty(2, 16, dtype=torch.int64, device="meta")
+    for call in (lambda: topk.rank_topk_fused(q, db, 5),
+                 lambda: topk.fused_topk(q, db, 5),
+                 lambda: topk.finemax(q, db),
+                 lambda: topk.gather_scores(q, db, bids)):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
 
 
 def test_gpu_flag_raises_without_cuda(monkeypatch):

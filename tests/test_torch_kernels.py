@@ -6,17 +6,23 @@ with the card and no JAX; there, skip tests/conftest.py (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerance rtol 2e-4 / atol 2e-5, as tests/test_pallas_kernels.py holds the
-TPU kernel to its oracle: the kernel sums H*W cells and C products in
-another order than ATen, and the pow/log/exp chain of GeM amplifies
-last-bit differences by about p.
+Tolerances:
+- K1 (GeM head): rtol 2e-4 / atol 2e-5, as tests/test_pallas_kernels.py
+  holds the TPU kernel to its oracle: the kernel sums H*W cells and C
+  products in another order than ATen, and the pow/log/exp chain of GeM
+  amplifies last-bit differences by about p.
+- K2-K4 (top-k): scores of unit vectors within atol 1e-5 (fp32 sums of at
+  most 2048 exact products, in another order than cuBLAS); int8 x int8
+  scores exactly equal (int32 accumulation on both sides). An index may
+  differ only where the plain scores of both rows lie within 1e-5. K4's
+  maxima over each fetched block equal K3's bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dirjax_torch.ops import gem_head
+from dirjax_torch.ops import gem_head, topk
 
 torch.set_num_threads(1)
 
@@ -81,3 +87,131 @@ class TestGemHeadKernel:
             gem_head.fused_gem_head(x, 3.0, w.double(), b)
         with pytest.raises(ValueError, match="linear.weight.T"):
             gem_head.fused_gem_head(x, 3.0, w.contiguous(), b)
+
+
+TOPK_ATOL = 1e-5
+
+
+def _unit(rng, rows, d):
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
+
+
+def _operands(rng, device, mode, nq, n, d):
+    """(q, db, scales) in one of the kernels' operand modes."""
+    q, db = _unit(rng, nq, d).to(device), _unit(rng, n, d).to(device)
+    if mode == "fp32":
+        return q, db, None
+    if mode == "bf16":
+        return q.bfloat16(), db.bfloat16(), None
+    db8, scales = topk.quantize_db(db)
+    if mode == "int8":
+        return q.bfloat16(), db8, scales.reshape(-1)
+    q8, _ = topk._quantize_block(q)
+    return q8, db8, scales.reshape(-1)
+
+
+def _close_scores(got, want, exact):
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=TOPK_ATOL,
+                                   equal_nan=True)
+
+
+def _same_ranking(got_v, got_i, want_v, want_i, scores):
+    """Values within the tolerance; a differing index only at a near-tie."""
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=TOPK_ATOL)
+    diff = got_i != want_i
+    if diff.any():
+        rows = torch.nonzero(diff)[:, 0]
+        picked = scores[rows, got_i[diff]]
+        assert (picked - want_v[diff]).abs().max() <= TOPK_ATOL
+
+
+@pytest.mark.cuda
+class TestTopkKernels:
+    """K2-K4 (csrc/topk.cu) against their plain versions."""
+
+    @pytest.mark.parametrize("mode,nq,n,d,k", [
+        ("fp32", 1, 1000, 96, 5), ("bf16", 37, 4099, 128, 16),
+        ("fp32", 20, 3000, 2048, 10), ("bf16", 256, 1537, 64, 1)])
+    def test_fused_topk(self, rng, cuda, mode, nq, n, d, k):
+        q, db, _ = _operands(rng, cuda, mode, nq, n, d)
+        before = topk.launches["fused_topk"]
+        vals, idxs = topk.fused_topk(q, db, k)
+        assert topk.launches["fused_topk"] == before + 1
+        want_v, want_i = topk.fused_topk_reference(q, db, k)
+        assert vals.shape == want_v.shape == (nq, -(-n // 512) * k)
+        _same_ranking(vals, idxs, want_v, want_i,
+                      torch.nn.functional.pad(topk._scores(q, db), (0, 1)))
+        assert torch.equal(idxs < 0, want_i < 0)
+
+    @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "int8x8"])
+    @pytest.mark.parametrize("nq,n,d", [(1, 5003, 128), (37, 2048, 200),
+                                        (130, 777, 2048)])
+    def test_finemax_and_gather(self, rng, cuda, mode, nq, n, d):
+        q, db, scales = _operands(rng, cuda, mode, nq, n, d)
+        blocks = -(-n // 1024) * 128
+        before = dict(topk.launches)
+        fmax = topk.finemax(q, db, scales, blocks=blocks)
+        exact = mode == "int8x8"
+        _close_scores(fmax, topk.finemax_reference(q, db, scales, blocks), exact)
+        assert torch.isinf(fmax[:, -(-n // 8):]).all()
+        nb = n // 8
+        bids = torch.from_numpy(rng.integers(0, nb, size=(nq, 32))).to(cuda)
+        raw = topk.gather_scores(q, db, bids)
+        want = topk.gather_scores_reference(q, db, bids)
+        if scales is not None:   # compare scores, as the finish step scales them
+            s = scales[(bids[:, :, None] * 8 + torch.arange(8, device=cuda))
+                       .reshape(nq, -1)]
+            raw, want = raw * s, want * s
+        _close_scores(raw, want, exact)
+        assert topk.launches["finemax"] == before["finemax"] + 1
+        assert topk.launches["gather_scores"] == before["gather_scores"] + 1
+        # containment needs K4's block maxima to be K3's, bit for bit
+        block_max = raw.reshape(nq, -1, 8).amax(dim=2)
+        assert torch.equal(block_max, torch.gather(fmax, 1, bids))
+
+    def test_gather_marks_blocks_outside(self, rng, cuda):
+        q, db, _ = _operands(rng, cuda, "bf16", 3, 100, 64)
+        bids = torch.tensor([[0, 11, 12, 13, -1] + [0] * 11] * 3, device=cuda)
+        raw = topk.gather_scores(q, db, bids).reshape(3, -1, 8)
+        assert torch.isnan(raw[:, 2:5]).all() and not torch.isnan(raw[:, :2]).any()
+
+    @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "int8x8"])
+    @pytest.mark.parametrize("k", [7, 100])
+    def test_rank_topk_fused(self, rng, cuda, mode, k):
+        nq, n, d = 9, 3003, 256
+        q, db, scales = _operands(rng, cuda, mode, nq, n, d)
+        qf = _unit(rng, nq, d).to(cuda)
+        opts = {} if scales is None else {"db_scales": scales.reshape(1, -1),
+                                          "quantize_queries": mode == "int8x8"}
+        vals, idxs = topk.rank_topk_fused(qf, db, k, **opts)
+        want_v, want_i = topk.rank_topk_fused(qf.cpu(), db.cpu(), k,
+                                              **{key: getattr(v, "cpu", lambda: v)()
+                                                 for key, v in opts.items()})
+        if scales is None:
+            plain = topk._scores(qf.to(db.dtype), db)
+        elif mode == "int8":
+            plain = topk._scores(qf.bfloat16(), db) * scales
+        else:
+            q8, qs = topk._quantize_block(qf)
+            plain = topk._scores(q8, db) * scales * qs[:, None]
+        _same_ranking(vals, idxs, want_v.to(cuda), want_i.to(cuda), plain)
+
+    def test_rejects_bad_operands(self, rng, cuda):
+        q, db, _ = _operands(rng, cuda, "bf16", 4, 256, 64)
+        with pytest.raises(ValueError, match="no kernel"):
+            topk.finemax(q.half(), db)
+        with pytest.raises(ValueError, match="no kernel"):
+            topk.fused_topk(q, db.to(torch.int8), 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            topk.finemax(q, db.T.contiguous().T)
+        with pytest.raises(ValueError, match="share D"):
+            topk.fused_topk(q[:, :32].contiguous(), db, 3)
+        with pytest.raises(ValueError, match="int64"):
+            topk.gather_scores(q, db, torch.zeros((4, 16), dtype=torch.int32,
+                                                  device=cuda))
+        with pytest.raises(ValueError, match="scales"):
+            topk.finemax(q, db, torch.ones(255, device=cuda))
