@@ -20,16 +20,29 @@ Phases, each of which raises on failure:
    an index may differ only at a near-tie within 1e-5; K4's maximum over
    each fetched block equals K3's bit for bit; rank_topk_fused against a
    dense plain top-k (k = 10 and 100). Each kernel timed against its plain
+   version with CUDA events, plain/kernel/kernel/plain, and a bf16
+   torch.matmul of the same operands timed as the library yardstick.
+4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu) at the
+   serving shape: the same 1,048,576 rows, an ITQ codec fitted on the card
+   (131,072-row sample, 30 iterations; the fit time is printed) and
+   2048-bit codes. K5 symmetric (exactly equal) and asymmetric (within
+   1e-5) against their plain versions at nq = 256, 37 and 1 and on a ragged
+   1,048,573 rows; the rescore within 1e-5 of its plain version, its block
+   maxima equal to K5's bit for bit; hamming_search_fused at k = 10 and 100
+   against a dense plain top-k (values, and no returned row outside the
+   plain set but at a near-tie). Each kernel timed against its plain
    version with CUDA events, plain/kernel/kernel/plain.
-4. serving — RetrievalIndex in bf16 and in int8 over the same rows, each
-   behind a dirjax.server IndexServer on a Unix socket; several Clients send
-   concurrent requests of 1-16 queries at k = 10 (K2) and k = 100 (K3 + K4),
-   int8 with and without int8_queries, and AQE. The launch counters of K2,
-   K3 and K4 are zeroed just before and must have risen just after; every
-   answer must equal the index's own direct search (values within 1e-5, an
-   index differing only at a near-tie). Requests, batches, latency
-   percentiles and QPS are printed as information.
-5. main path — a synthetic Revisited benchmark at 1024x768 and a
+5. serving — RetrievalIndex in bf16 and in int8 over the same rows, and a
+   BinaryIndex (asymmetric) over their 2048-bit codes, each behind the
+   port's IndexServer (dirjax_torch.server) on a Unix socket; several
+   Clients send concurrent requests of 1-16 queries at k = 10 (K2; binary:
+   K5 + rescore) and k = 100 (K3 + K4), int8 with and without int8_queries,
+   and AQE. The launch counters of K2-K5 and the rescore are zeroed just
+   before and must have risen just after; every answer must equal the
+   index's own direct search (values within 1e-5, an index differing only
+   at a near-tie). Requests, batches, latency percentiles and QPS are
+   printed as information.
+6. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
@@ -38,14 +51,15 @@ Phases, each of which raises on failure:
    port's fp32 CPU path: cosine > 0.9999 for the fp32 run, > 0.999 for the
    bf16 one. The mAPs are only checked to be finite in [0, 1]: the synthetic
    classes differ by colour, so even random weights rank them perfectly and
-   mAP = 1 says nothing about the path.
-6. index CLI — ``python -m dirjax_torch.index build --int8`` then ``query
-   -k 100 --gpu 0`` as subprocesses on 65,536 rows; the JSON answer must
-   equal the in-process search exactly.
+   mAP = 1 says nothing about the path. Prints which host decoder ran (the
+   native one, or PIL where it cannot build).
+7. index CLI — ``python -m dirjax_torch.index build --int8`` and ``build
+   --binary 2048``, each then ``query -k 100 --gpu 0``, as subprocesses on
+   65,536 rows; each JSON answer must equal the in-process search exactly.
 
-    python3 chip_smoke.py --profile DIR   # also phase 7
+    python3 chip_smoke.py --profile DIR   # also phase 8
 
-7. profile — where a warm database extraction's time goes, fp32 and bf16:
+8. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -55,8 +69,12 @@ Phases, each of which raises on failure:
    (``serving_profile.json``).
 
 Prints the card's name and power limit, then one JSON line with each
-kernel's launches, error and times, and last a JSON line with "ok": true.
-Exits non-zero, printing no result, when CUDA is not available.
+kernel's launches on the main paths, error against its plain version, time,
+its plain version's time, its bound (the larger of its bytes over 3.35 TB/s
+and its operations over the peak rate of their type on an H100 SXM) and the
+time of one PyTorch call that computes the same function, where there is
+one; and last a JSON line with "ok": true. Exits non-zero, printing no
+result, when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -87,6 +105,23 @@ TOPK_ATOL = 1e-5
 TILE_ROWS = 1024                 # rank_topk_fused's default level-0 group
 CLI_N = 65_536
 REPO = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the peak
+# of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+BITS = 2048                      # binary code width at the serving shape
+ITQ_ITERS = 30
+NO_LIBRARY = "no single PyTorch call computes this function"
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel moving ``nbytes`` (each
+    input read once, each output written once) and doing ``ops`` operations
+    of type ``kind``."""
+    mem_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
 
 
 def card_line() -> str:
@@ -163,10 +198,15 @@ def kernel_phase(device) -> dict:
         f"gem_head {MAIN_SHAPE}->{MAIN_D} masked fp32",
         lambda: gem_head.gem_head_reference(x, mask, p, w, b),
         lambda: gem_head.fused_gem_head(x, p, w, b, mask=mask))
+    B, H, W, C = MAIN_SHAPE
+    nbytes = 4 * (x.numel() + w.numel() + b.numel() + B * MAIN_D) + mask.numel()
+    ops = 3 * x.numel() + 2 * B * C * MAIN_D   # pow, mean, root; then the FC
     return {"name": "gem_head", "route": "cuda",
             "source": "dirjax_torch/csrc/gem_head.cu",
             "replaces": "dirjax/ops/gem_head.py:45",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, ops, "fp32"), "library_ms": None,
+            "library_note": NO_LIBRARY + " (masked GeM, FC and L2 in one pass)"}
 
 
 def time_in_turns(tag: str, plain, kernel, iters: int = 20):
@@ -230,24 +270,32 @@ def check_ranking(tag: str, got, want, score) -> float:
     return err
 
 
-def dense_topk(q, db, scales, qscales, k: int):
-    """Plain top-k over the whole database, chunk by chunk: the oracle of
-    rank_topk_fused."""
-    from dirjax_torch.ops import topk
-
+def dense_topk(scores, n: int, k: int):
+    """Plain top-k over all ``n`` rows, 65,536 at a time: ``scores(start,
+    stop)`` gives the (nq, stop - start) plain scores of those rows. The
+    oracle of rank_topk_fused and hamming_search_fused."""
     best = None
-    for start in range(0, db.shape[0], 65536):
-        s = topk._scores(q, db[start:start + 65536])
-        if scales is not None:
-            s = s * scales[start:start + 65536]
-        if qscales is not None:
-            s = s * qscales[:, None]
+    for start in range(0, n, 65536):
+        s = scores(start, min(start + 65536, n))
         v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
         cand = (v, i + start) if best is None else (
             torch.cat([best[0], v], 1), torch.cat([best[1], i + start], 1))
         v, pos = torch.topk(cand[0], k, dim=1)
         best = (v, torch.gather(cand[1], 1, pos))
     return best
+
+
+def dense_scores(q, db, scales, qscales):
+    """``scores(start, stop)`` for :func:`dense_topk` under the top-k
+    kernels' operand rules, scaled as the finish step scales them."""
+    from dirjax_torch.ops import topk
+
+    def scores(start, stop):
+        s = topk._scores(q, db[start:stop])
+        if scales is not None:
+            s = s * scales[start:stop]
+        return s if qscales is None else s * qscales[:, None]
+    return scores
 
 
 def topk_kernel_phase(device):
@@ -314,7 +362,7 @@ def topk_kernel_phase(device):
                                      "quantize_queries": mode == "int8x8"}
         got = topk.rank_topk_fused(qf, db, k, **opts)
         qs = qs8 if mode == "int8x8" else None
-        want = dense_topk(q, db, s, qs, k)
+        want = dense_topk(dense_scores(q, db, s, qs), db.shape[0], k)
         kth = want[0][:, -1:]
         inset = (got[1][:, :, None] == want[1][:, None, :]).any(-1)
         qi, pos = (~inset).nonzero(as_tuple=True)
@@ -352,11 +400,145 @@ def topk_kernel_phase(device):
     replaces = {"fused_topk": "dirjax/ops/topk_pallas.py:56",
                 "finemax": "dirjax/ops/topk_pallas.py:166",
                 "gather_scores": "dirjax/ops/topk_pallas.py:299"}
+    # the library yardstick of K2 and K3: one bf16 matmul of the same
+    # operands (it writes the score matrix the kernels never write)
+    q, db, _ = modes["bf16"]
+    library_ms = _time_ms(lambda: torch.matmul(q, db.T), iters=5)
+    nq, n = SERVE_NQ, SERVE_N
+    contraction = 2.0 * nq * n * SERVE_D
+    kf8 = bids.shape[1] * 8
+    bounds = {
+        "fused_topk": bound(db.numel() * 2 + q.numel() * 2 + nq * -(-n // 512) * 10 * 12,
+                            contraction, "bf16"),
+        "finemax": bound(db.numel() * 2 + q.numel() * 2 + nq * blocks * 4,
+                         contraction, "bf16"),
+        "gather_scores": bound(nq * kf8 * SERVE_D * 2 + q.numel() * 2 + bids.numel() * 8
+                               + nq * kf8 * 4, 2.0 * nq * kf8 * SERVE_D, "bf16"),
+    }
+    library = {"fused_topk": (library_ms, "bf16 torch.matmul of the same operands"),
+               "finemax": (library_ms, "bf16 torch.matmul of the same operands"),
+               "gather_scores": (None, NO_LIBRARY + " (a gather of 8-row blocks "
+                                 "per query, then their dot products)")}
+    print(f"library bf16 torch.matmul {shape}: {library_ms:.3f} ms")
     entries = [{"name": name, "route": "cuda", "source": "dirjax_torch/csrc/topk.cu",
                 "replaces": replaces[name], "max_abs_err": err[name],
-                "ms": timed[name][0], "plain_ms": timed[name][1]}
+                "ms": timed[name][0], "plain_ms": timed[name][1], **bounds[name],
+                "library_ms": library[name][0], "library_note": library[name][1]}
                for name in ("fused_topk", "finemax", "gather_scores")]
     return entries, db16
+
+
+# --- K5 and the asymmetric rescore: binary codes at the serving shape -------
+
+def binary_kernel_phase(device):
+    """K5 (sym and asym) and the rescore against their plain versions on
+    2048-bit ITQ codes of the serving rows; returns their JSON entries
+    without ``launches``, the fp32 rows and the codec."""
+    from dirjax_torch.ops import binary
+    from dirjax_torch.ops.topk import _hier_select
+
+    db32 = unit_rows(SERVE_N, SERVE_D, device, seed=1)   # the serving rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codec = binary.fit_itq(db32, BITS, iters=ITQ_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = binary.binarize(db32, codec)
+    torch.cuda.synchronize()
+    print(f"binary: ITQ fit ({BITS} bits, 131072-row sample, {ITQ_ITERS} "
+          f"iterations) {fit_s:.1f} s; {SERVE_N} rows encoded in "
+          f"{time.perf_counter() - t0:.2f} s ({codes.numel() / 2**20:.0f} MiB)")
+    qb, vq = binary.binarize_and_project(unit_rows(SERVE_NQ, SERVE_D, device, seed=2),
+                                         codec)
+    ops = {"sym": qb, "asym": vq.bfloat16().contiguous()}
+    err = {"sym": 0.0, "asym": 0.0, "bits_gather_scores": 0.0}
+    for mode, q_all in ops.items():
+        for nq, n in [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N)]:
+            q, db = q_all[:nq], codes[:n]
+            blocks = -(-n // TILE_ROWS) * (TILE_ROWS // 8)
+            tag = f"{mode} nq={nq} n={n}"
+            fmax = binary.bits_finemax(q, db, blocks)
+            e5 = check_scores(f"bits_finemax {tag}", fmax,
+                              binary.bits_finemax_reference(q, db, blocks),
+                              exact=mode == "sym")
+            err[mode] = max(err[mode], e5)
+            line = f"kernel bits_finemax {tag}: max_abs_err {e5:.3e}"
+            if mode == "asym":
+                bids, _ = _hier_select(fmax, 100, TILE_ROWS, n)
+                raw = binary.bits_gather_scores(q, db, bids)
+                er = check_scores(f"bits_gather_scores {tag}", raw,
+                                  binary.bits_gather_scores_reference(q, db, bids), False)
+                if not torch.equal(raw.reshape(nq, -1, 8).amax(dim=2),
+                                   torch.gather(fmax, 1, bids)):
+                    raise AssertionError(f"{tag}: the rescore's block maxima are not K5's")
+                err["bits_gather_scores"] = max(err["bits_gather_scores"], er)
+                line += (f"; bits_gather_scores k=100 ({bids.shape[1]} blocks): "
+                         f"max_abs_err {er:.3e}; block maxima bit-identical")
+            print(line)
+
+    qf = unit_rows(SERVE_NQ, SERVE_D, device, seed=2)
+    for mode in ("sym", "asym"):
+        q_op = binary.unpack_pm1(qb) if mode == "sym" else vq.bfloat16().float()
+        for k in (10, 100):
+            got = binary.hamming_search_fused(qf, codec, codes, k, asym=mode == "asym")
+            want = dense_topk(lambda lo, hi: q_op @ binary.unpack_pm1(codes[lo:hi]).T,
+                              SERVE_N, k)
+            e = check_scores(f"hamming_search_fused {mode} k={k}", got[0], want[0],
+                             exact=mode == "sym")
+            kth = want[0][:, -1:]
+            inset = (got[1][:, :, None] == want[1][:, None, :]).any(-1)
+            qi, pos = (~inset).nonzero(as_tuple=True)
+            rows = got[1][qi, pos]
+            outside = (q_op[qi] * binary.unpack_pm1(codes[rows])).sum(1)
+            if len(qi) and float((kth[qi, 0] - outside).max()) > TOPK_ATOL:
+                raise AssertionError(f"hamming_search_fused {mode} k={k}: a returned "
+                                     "row outside the plain top-k is no near-tie")
+            print(f"hamming_search_fused {mode} nq={SERVE_NQ} k={k} vs dense plain "
+                  f"top-k: max_abs_err {e:.3e}, {len(qi)} of {got[1].numel()} rows "
+                  "outside the plain set (ties)")
+
+    blocks = -(-SERVE_N // TILE_ROWS) * (TILE_ROWS // 8)
+    q = ops["asym"]
+    bids, _ = _hier_select(binary.bits_finemax(q, codes, blocks), 100, TILE_ROWS, SERVE_N)
+    shape = f"{SERVE_N}x{BITS} bits nq={SERVE_NQ}"
+    timed = {}
+    for mode in ("sym", "asym"):
+        timed[mode] = time_in_turns(
+            f"bits_finemax {mode} {shape}",
+            lambda: binary.bits_finemax_reference(ops[mode], codes, blocks),
+            lambda: binary.bits_finemax(ops[mode], codes, blocks), iters=5)
+    timed["rescore"] = time_in_turns(
+        f"bits_gather_scores {shape} k=100",
+        lambda: binary.bits_gather_scores_reference(q, codes, bids),
+        lambda: binary.bits_gather_scores(q, codes, bids), iters=5)
+    nq, kf8, nb = SERVE_NQ, bids.shape[1] * 8, BITS // 8
+    products = float(SERVE_NQ) * SERVE_N * BITS
+    out_bytes = SERVE_NQ * blocks * 4
+    no_library = (NO_LIBRARY + ": torch has no popcount, and the ±1 contraction "
+                  "needs the codes unpacked first")
+    src, replaces = "dirjax_torch/csrc/binary.cu", "dirjax/ops/binary.py:357"
+    # the main row is the asymmetric mode, which BinaryIndex serves by default
+    entries = [
+        {"name": "bits_finemax", "mode": "asym", "route": "cuda", "source": src,
+         "replaces": replaces, "max_abs_err": err["asym"],
+         "ms": timed["asym"][0], "plain_ms": timed["asym"][1],
+         **bound(codes.numel() + q.numel() * 2 + out_bytes, 2 * products, "bf16"),
+         "library_ms": None, "library_note": no_library,
+         "sym_max_abs_err": err["sym"], "sym_ms": timed["sym"][0],
+         "sym_plain_ms": timed["sym"][1],
+         "sym_bound_ms": bound(codes.numel() + qb.numel() + out_bytes,
+                               2 * products, "int8")["bound_ms"]},
+        {"name": "bits_gather_scores", "route": "cuda", "source": src,
+         "replaces": "dirjax/ops/binary.py:513 (_bits_finish_asym, XLA)",
+         "max_abs_err": err["bits_gather_scores"],
+         "ms": timed["rescore"][0], "plain_ms": timed["rescore"][1],
+         **bound(nq * kf8 * nb + q.numel() * 2 + bids.numel() * 8 + nq * kf8 * 4,
+                 2.0 * nq * kf8 * BITS, "bf16"),
+         "library_ms": None, "library_note": no_library},
+    ]
+    del ops, q, bids
+    return entries, db32, codec
 
 
 # --- serving: IndexServer + Clients over the port's RetrievalIndex ----------
@@ -367,6 +549,7 @@ SIGNATURES = {   # (k, options) each index is asked with
     "bf16": [(10, {}), (100, {}), (10, {"aqe": {"k": 10, "alpha": 3.0}})],
     "int8": [(10, {}), (100, {}), (100, {"int8_queries": True}),
              (10, {"aqe": {"k": 10, "alpha": 3.0}})],
+    "binary": [(10, {}), (100, {})],
 }
 
 
@@ -425,18 +608,19 @@ def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
                   f, indent=1)
 
 
-def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
-                  card: str = "") -> dict:
+def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
+                  profile_dir: str = "", card: str = "") -> dict:
     """The serving main path: concurrent Clients against an IndexServer per
-    index; returns the launch counts of K2-K4 during the traffic. With
-    ``profile_dir``, also :func:`serving_profile`."""
-    from dirjax_torch.ops import topk
-    from dirjax_torch.serve import Client, IndexServer
-    from dirjax_torch.serving import RetrievalIndex
+    index; returns the launch counts of K2-K5 and the rescore during the
+    traffic. With ``profile_dir``, also :func:`serving_profile`."""
+    from dirjax_torch.ops import binary, topk
+    from dirjax_torch.server import Client, IndexServer
+    from dirjax_torch.serving import BinaryIndex, RetrievalIndex
 
     t0 = time.perf_counter()
     indexes = {"bf16": RetrievalIndex(db16, dtype=torch.bfloat16, device=device),
-               "int8": RetrievalIndex(db16, dtype=torch.int8, device=device)}
+               "int8": RetrievalIndex(db16, dtype=torch.int8, device=device),
+               "binary": BinaryIndex(db32, _codec=codec, device=device)}
     rng = np.random.default_rng(3)
     plan = {name: [[] for _ in range(CLIENTS_PER_INDEX)] for name in indexes}
     for name, per_client in plan.items():
@@ -450,8 +634,9 @@ def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
         for k, opts in SIGNATURES[name]:
             index.search(plan[name][0][0][0], k=k, **opts)
     torch.cuda.synchronize()
-    print(f"serving: bf16 and int8 RetrievalIndex of {SERVE_N} x {SERVE_D} "
-          f"ready in {time.perf_counter() - t0:.1f} s")
+    print(f"serving: bf16 and int8 RetrievalIndex and {BITS}-bit asymmetric "
+          f"BinaryIndex of {SERVE_N} x {SERVE_D} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     def client_run(address, reqs):
         """This client's answers, and the host clock at the last of them."""
@@ -469,8 +654,9 @@ def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
         for t in threads:
             t.start()
         try:
-            for key in topk.launches:
-                topk.launches[key] = 0
+            for counts in (topk.launches, binary.launches):
+                for key in counts:
+                    counts[key] = 0
             t0 = time.perf_counter()
             with ThreadPoolExecutor(len(indexes) * CLIENTS_PER_INDEX) as pool:
                 jobs = {(name, c): pool.submit(client_run, servers[name].address, reqs)
@@ -479,7 +665,7 @@ def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
                 done = {key: job.result() for key, job in jobs.items()}
             answers = {key: got for key, (got, _) in done.items()}
             wall = max(last for _, last in done.values()) - t0
-            launches = dict(topk.launches)
+            launches = {**topk.launches, **binary.launches}
         finally:
             for srv in servers.values():
                 with Client(srv.address) as c:
@@ -513,28 +699,33 @@ def serving_phase(device, db16: torch.Tensor, profile_dir: str = "",
 
 
 def cli_phase(device, work: str) -> None:
-    """``python -m dirjax_torch.index build --int8`` and ``query`` as
-    subprocesses; their JSON must equal the in-process search."""
+    """``python -m dirjax_torch.index build --int8`` and ``build --binary
+    2048``, each then ``query``, as subprocesses; their JSON must equal the
+    in-process search."""
     from dirjax_torch.serving import RetrievalIndex
 
     descs, queries = (os.path.join(work, f) for f in ("db.npy", "q.npy"))
-    index_path, hits = os.path.join(work, "index.npz"), os.path.join(work, "hits.json")
     np.save(descs, unit_rows(CLI_N, SERVE_D, device, seed=4).cpu().numpy())
     np.save(queries, unit_rows(37, SERVE_D, device, seed=5).cpu().numpy())
-    t0 = time.perf_counter()
-    for argv in (["build", "--descs", descs, "--int8", "--out", index_path],
-                 ["query", "--index", index_path, "--descs", queries, "-k", "100",
-                  "--out-json", hits]):
-        subprocess.run([sys.executable, "-m", "dirjax_torch.index", *argv,
-                        "--gpu", "0"], check=True, cwd=REPO, timeout=300)
-    with open(hits) as f:
-        got = json.load(f)
-    vals, idxs = RetrievalIndex.load(index_path, device=device).search(
-        np.load(queries), k=100)
-    if got["scores"] != vals.tolist() or got["indices"] != idxs.tolist():
-        raise AssertionError("index CLI answer differs from the in-process search")
-    print(f"index CLI: build --int8 and query -k 100 on {CLI_N} x {SERVE_D} in "
-          f"{time.perf_counter() - t0:.1f} s; JSON equals the in-process search")
+    for kind, flags in (("int8", ["--int8"]), ("binary", ["--binary", str(BITS)])):
+        index_path = os.path.join(work, f"{kind}.npz")
+        hits = os.path.join(work, f"{kind}.json")
+        t0 = time.perf_counter()
+        for argv in (["build", "--descs", descs, *flags, "--out", index_path],
+                     ["query", "--index", index_path, "--descs", queries, "-k", "100",
+                      "--out-json", hits]):
+            subprocess.run([sys.executable, "-m", "dirjax_torch.index", *argv,
+                            "--gpu", "0"], check=True, cwd=REPO, timeout=300)
+        with open(hits) as f:
+            got = json.load(f)
+        vals, idxs = RetrievalIndex.load(index_path, device=device).search(
+            np.load(queries), k=100)
+        if got["scores"] != vals.tolist() or got["indices"] != idxs.tolist():
+            raise AssertionError(f"index CLI answer ({kind}) differs from the "
+                                 "in-process search")
+        print(f"index CLI: build {' '.join(flags)} and query -k 100 on {CLI_N} x "
+              f"{SERVE_D} in {time.perf_counter() - t0:.1f} s; JSON equals the "
+              "in-process search")
 
 
 def random_state_dict(model, seed: int) -> dict:
@@ -760,8 +951,9 @@ def main(argv=None) -> int:
     build_phase()
     entries = [kernel_phase(device)]
     topk_entries, db16 = topk_kernel_phase(device)
-    topk_launches = serving_phase(device, db16, args.profile, card)
-    del db16
+    binary_entries, db32, codec = binary_kernel_phase(device)
+    serving_launches = serving_phase(device, db16, db32, codec, args.profile, card)
+    del db16, db32
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
@@ -771,6 +963,10 @@ def main(argv=None) -> int:
                                    pca_rows=4096)
         ref = cpu_reference(bench, ckpt)
         print(f"inputs and cpu reference in {time.perf_counter() - t0:.1f} s")
+        from dirjax_torch.data import native
+        print("host decode: " + ("native (g++ build of dirjax_torch/data/_native/"
+                                 "native.cpp)" if native.available() else
+                                 "PIL (the native decoder did not build)"))
 
         runs = {}
         gem_head.launches = 0
@@ -795,9 +991,9 @@ def main(argv=None) -> int:
             profile_phase(bench, ckpt, device, args.profile, card)
 
     entries[0]["launches"] = launches
-    for entry in topk_entries:
-        entry["launches"] = topk_launches[entry["name"]]
-    print(json.dumps({"kernels": entries + topk_entries}))
+    for entry in topk_entries + binary_entries:
+        entry["launches"] = serving_launches[entry["name"]]
+    print(json.dumps({"kernels": entries + topk_entries + binary_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

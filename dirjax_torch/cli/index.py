@@ -1,15 +1,16 @@
 """Serving-index CLI (counterpart of ``dirjax/cli/index.py``): build, grow,
-prune and query a dense :class:`~dirjax_torch.serving.RetrievalIndex` from
-``.npy`` descriptor files. Flags, index files and the query JSON are
-dirjax's, so the two CLIs interoperate:
+prune and query a dense :class:`~dirjax_torch.serving.RetrievalIndex` or a
+:class:`~dirjax_torch.serving.BinaryIndex` from ``.npy`` descriptor files.
+Flags, index files and the query JSON are dirjax's, so the two CLIs
+interoperate:
 
     python -m dirjax_torch.index build --descs feats.dbdescs.npy \\
         --keys db.txt --int8 --out index.npz --gpu 0
     python -m dirjax_torch.index query --index index.npz \\
         --descs feats.qdescs.npy -k 10 --aqe 10 3 --out-json hits.json --gpu 0
 
-``--gpu -1`` runs on the CPU. The binary, PQ and IVF kinds and ``tune`` are
-not ported yet and exit with a message naming their ROADMAP item.
+``--gpu -1`` runs on the CPU. The PQ and IVF kinds and ``tune`` are not
+ported yet and exit with a message naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 
-_NOT_PORTED = {"--binary": "M9", "--pq": "M10", "--ivf": "M11", "tune": "M11"}
+_NOT_PORTED = {"--pq": "M10", "--ivf": "M11", "tune": "M11"}
 
 
 def _not_ported(what: str):
@@ -43,7 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--int8", action="store_true",
                    help="store the database int8-quantized (half the bytes "
                         "of bf16)")
-    for flag in ("--binary", "--pq", "--ivf"):
+    b.add_argument("--binary", type=int, default=0, metavar="BITS",
+                   help="ITQ binary-hash the rows to BITS sign bits "
+                        "(multiple of 32; -1 = the descriptor dim): BITS/8 "
+                        "bytes per row, exact asymmetric ranking")
+    b.add_argument("--binary-sym", action="store_true",
+                   help="with --binary: rank by the symmetric Hamming score")
+    for flag in ("--pq", "--ivf"):
         b.add_argument(flag, type=int, default=0,
                        help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     b.add_argument("--out", required=True, help="output .npz index path")
@@ -113,18 +120,32 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..serving import RetrievalIndex
+    from ..serving import BinaryIndex, RetrievalIndex
 
     if args.cmd == "build":
-        for flag in ("--binary", "--pq", "--ivf"):
+        # storage kinds are mutually exclusive, as in dirjax
+        exclusive = [f for f, on in [("--binary", bool(args.binary)),
+                                     ("--pq/--ivf", bool(args.pq or args.ivf)),
+                                     ("--int8", args.int8)] if on]
+        if len(exclusive) > 1:
+            raise SystemExit(
+                f"conflicting storage flags: {' + '.join(exclusive)} — pick "
+                "one (use --pq-rerank to pair int8 rows with a PQ index)")
+        for flag in ("--pq", "--ivf"):
             if getattr(args, flag[2:]):
                 _not_ported(flag)
         descs = np.load(args.descs)
         keys = _read_keys(args.keys, len(descs))
-        index = RetrievalIndex(descs, keys=keys, device=device,
-                               dtype=torch.int8 if args.int8 else torch.bfloat16)
+        if args.binary:
+            index = BinaryIndex(descs, n_bits=None if args.binary < 0 else args.binary,
+                                keys=keys, asym=not args.binary_sym, device=device)
+            kind = (f"binary {index.n_bits} bits"
+                    + (" sym" if args.binary_sym else " +asym-rescore"))
+        else:
+            index = RetrievalIndex(descs, keys=keys, device=device,
+                                   dtype=torch.int8 if args.int8 else torch.bfloat16)
+            kind = "int8" if args.int8 else "bf16"
         index.save(args.out)
-        kind = "int8" if args.int8 else "bf16"
         print(f"built index: {index.n} x {index.dim} "
               f"({kind}{', keyed' if keys else ''}) -> {args.out}")
         return index
@@ -160,8 +181,15 @@ def main(argv=None):
     q = np.load(args.descs)
     aqe = ({"k": args.aqe[0], "alpha": float(args.aqe[1])}
            if args.aqe else None)
-    vals, idxs = index.search(q, k=args.topk, aqe=aqe,
-                              int8_queries=args.int8_queries)
+    if isinstance(index, BinaryIndex):
+        if args.int8_queries or aqe:
+            raise SystemExit("--int8-queries/--aqe don't apply to binary "
+                             "indexes (Hamming scoring; expand queries "
+                             "before hashing instead)")
+        vals, idxs = index.search(q, k=args.topk)
+    else:
+        vals, idxs = index.search(q, k=args.topk, aqe=aqe,
+                                  int8_queries=args.int8_queries)
     out = {"scores": vals.tolist(), "indices": idxs.tolist()}
     if index.keys is not None:
         out["keys"] = index.lookup(idxs)

@@ -1,9 +1,9 @@
 """Descriptor extraction and benchmark evaluation (counterpart of
 ``dirjax/extraction.py``).
 
-The host decodes and batches images through dirjax's jax-free loader
-(``dirjax.data``) as uint8; the device normalizes them with the
-checkpoint's mean/std, runs the descriptor forward, pools the transform
+The host decodes and batches images through the port's copy of dirjax's
+host loader (:mod:`dirjax_torch.data`) as uint8; the device normalizes them
+with the checkpoint's mean/std, runs the descriptor forward, pools the transform
 chains, whitens, expands (AQE/ADBA) and scores. mAP stays on the host.
 """
 
@@ -14,11 +14,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from dirjax.data.loader import get_loader, iterate_batches
-from dirjax.utils import evaluation as ev
 
 from . import ops
+from .data.loader import get_loader, iterate_batches
 from .models import RMACDescriptor
+from .utils import evaluation as ev
 
 __all__ = ["extract_image_features", "eval_model", "FeatureExtractor",
            "adaptive_call"]

@@ -118,6 +118,10 @@ def load_library() -> ctypes.CDLL:
         "dirjax_finemax": [vp, vp, vp, i, ll, ll, i, ll, vp, vp],
         # q, db, bids, mode, nq, n, d, kf, out, stream
         "dirjax_gather_scores": [vp, vp, vp, i, ll, ll, i, ll, vp, vp],
+        # q, db, asym, nq, n, words, blocks, out, stream
+        "dirjax_bits_finemax": [vp, vp, i, ll, ll, i, ll, vp, vp],
+        # q, db, bids, nq, n, words, kf, out, stream
+        "dirjax_bits_gather_scores": [vp, vp, vp, ll, ll, i, ll, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

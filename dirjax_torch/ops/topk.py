@@ -157,8 +157,9 @@ def _device(name: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _run(name: str, device: torch.device, *args) -> None:
-    """Launch ``dirjax_<name>`` on the current stream of ``device``."""
+def _run(name: str, device: torch.device, *args, counts: dict = launches) -> None:
+    """Launch ``dirjax_<name>`` on the current stream of ``device`` and count
+    it in ``counts[name]``."""
     from ..kernels.build import load_library
 
     with torch.cuda.device(device):
@@ -166,7 +167,7 @@ def _run(name: str, device: torch.device, *args) -> None:
             *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
+    counts[name] += 1
 
 
 def fused_topk(q: torch.Tensor, db: torch.Tensor, k: int):

@@ -1,13 +1,12 @@
-"""``python -m dirjax_torch.serve`` — serve a dense index over a Unix socket
+"""``python -m dirjax_torch.serve`` — serve an index over a Unix socket
 (or ``host:port``) with dynamic batching (counterpart of
 ``dirjax/server.py::main``).
 
-The batcher and the socket server are dirjax's own (``dirjax.server``: host
-code that imports no jax), re-exported here, so the wire protocol is the
-same and any client of either package talks to this server. Only the index
-is the port's: a :class:`~dirjax_torch.serving.RetrievalIndex` loaded onto
-``--gpu``. :class:`Client` is dirjax's with a ``close()`` that returns at
-once.
+The batcher, the socket server, the wire protocol and the client are the
+port's own copy of dirjax's (:mod:`dirjax_torch.server`), re-exported here,
+so any client of either package talks to this server. The index is a
+:class:`~dirjax_torch.serving.RetrievalIndex` or
+:class:`~dirjax_torch.serving.BinaryIndex` loaded onto ``--gpu``.
 
     python -m dirjax_torch.index build --descs db.npy --int8 --out index.npz
     python -m dirjax_torch.serve --index index.npz --socket /tmp/dirjax.sock
@@ -21,27 +20,11 @@ Left out: ``--upload-bf16`` (not ported yet, ROADMAP M8).
 from __future__ import annotations
 
 import argparse
-import socket
 from typing import Optional
 
-from dirjax.server import Client as _Client
-from dirjax.server import DynamicBatcher, IndexServer
+from .server import Client, DynamicBatcher, IndexServer
 
 __all__ = ["Client", "DynamicBatcher", "IndexServer", "main"]
-
-
-class Client(_Client):
-    """``dirjax.server.Client`` whose ``close()`` wakes its reader thread:
-    on Linux, closing a socket does not interrupt a ``recv()`` blocked in
-    another thread, so dirjax's ``close()`` waits out its 5 s join. Shutting
-    the socket down first ends that ``recv()`` at once."""
-
-    def close(self) -> None:
-        try:
-            self._sock.shutdown(socket.SHUT_RDWR)
-        except OSError:   # not connected, or the peer already closed it
-            pass
-        super().close()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a dirjax_torch index with dynamic batching")
     parser.add_argument("--index", required=True,
                         help=".npz from `python -m dirjax_torch.index build` "
-                             "(or dirjax's)")
+                             "(or dirjax's): dense or binary")
     parser.add_argument("--socket", required=True,
                         help="Unix-domain socket path, or host:port for TCP")
     parser.add_argument("--max-batch", type=int, default=256,
@@ -78,12 +61,13 @@ def main(argv: Optional[list] = None) -> IndexServer:
     index = RetrievalIndex.load(args.index, device=device)
     server = IndexServer(index, args.socket, max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms, pipeline=args.pipeline)
+    name = type(index).__name__
     if args.warmup_k is not None:
-        print(f"warming RetrievalIndex for k={args.warmup_k} ...", flush=True)
+        print(f"warming {name} for k={args.warmup_k} ...", flush=True)
         server.batcher.warmup(k=args.warmup_k)
-    print(f"serving RetrievalIndex ({index.n} x {index.dim} {index.dtype}) on "
-          f"{server.address} (max_batch={args.max_batch}, "
-          f"max_wait={args.max_wait_ms} ms)", flush=True)
+    print(f"serving {name} ({index.n} x {index.dim}) on {server.address} "
+          f"(max_batch={args.max_batch}, max_wait={args.max_wait_ms} ms)",
+          flush=True)
     server.serve_forever()
     s = server.batcher.stats
     mean = s["batched_rows"] / max(1, s["batches"])

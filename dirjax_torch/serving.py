@@ -1,7 +1,8 @@
-"""Serving: a device-resident dense retrieval index (counterpart of
-``dirjax/serving.py``'s ``RetrievalIndex``).
+"""Serving: device-resident retrieval indexes (counterpart of
+``dirjax/serving.py``'s ``RetrievalIndex`` and ``BinaryIndex``).
 
-* The descriptors live on one device (``device="cuda:0"`` or the CPU) in
+* :class:`RetrievalIndex` keeps the descriptors on one device (``device``,
+  the card unless the caller passes ``"cpu"``) in
   fp32, bf16, or int8 with per-row scales (:func:`.ops.topk.quantize_db`):
   bf16 halves the bytes of fp32, int8 halves them again at ~8-bit ranking
   noise; every mode accumulates in fp32 (int8 x int8 in exact int32).
@@ -13,11 +14,15 @@
 * ``remove`` tombstones rows on the host; searches stay exact by
   over-fetching, and expansion never uses a removed row. ``compact`` drops
   them and returns the old -> new index map.
+* :class:`BinaryIndex` keeps ITQ sign codes, ``n_bits / 8`` bytes per row
+  (256 B at 2048 bits, 8x the int8 corpus per card), and ranks exactly by
+  the asymmetric or the symmetric score (:mod:`.ops.binary`, kernel K5).
 * ``save``/``load`` use dirjax's ``.npz`` layout, so an index file written
-  by either package loads in the other.
+  by either package loads in the other; :meth:`RetrievalIndex.load` opens a
+  binary file as a :class:`BinaryIndex`, as dirjax's does.
 
-Not ported: ``mesh=`` (ROADMAP M13), the binary, PQ and IVF indexes (M9-M11),
-and dirjax's query-count buckets, which exist only because XLA compiles per
+Not ported: ``mesh=`` (ROADMAP M13), the PQ and IVF indexes (M10-M11), and
+dirjax's query-count buckets, which exist only because XLA compiles per
 shape; nothing here does.
 """
 
@@ -28,10 +33,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops.binary import (BinaryCodec, _to_bytes, binarize, fit_itq,
+                         hamming_search_fused)
 from .ops.qe import expand_queries_chunked, expand_queries_quantized
 from .ops.topk import quantize_db, rank_topk_fused
 
-__all__ = ["RetrievalIndex"]
+__all__ = ["RetrievalIndex", "BinaryIndex"]
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
@@ -91,6 +98,23 @@ class _Tombstones:
         self._n_removed += newly
         self._removed_dev = None
         return newly
+
+    def _new_rows(self, descriptors, keys) -> torch.Tensor:
+        """Validate rows (and keys) for ``add``; returns them as a tensor."""
+        new = _as_tensor(descriptors)
+        if new.dim() != 2 or new.shape[1] != self.dim:
+            raise ValueError(f"descriptors must be (N, {self.dim}), got "
+                             f"{tuple(new.shape)}")
+        if self.keys is not None and (keys is None or len(keys) != len(new)):
+            raise ValueError("index carries keys: add() needs one key per new row")
+        return new
+
+    def _append_keys(self, keys, n_new: int) -> None:
+        """Bookkeeping after ``add`` appended ``n_new`` rows."""
+        if self.keys is not None:
+            self.keys.extend(keys)
+        self._tomb_extend(n_new)
+        self.n += n_new
 
     def _tomb_pad(self) -> int:
         return ((self.n_removed + 63) // 64) * 64
@@ -159,7 +183,7 @@ class RetrievalIndex(_Tombstones):
     (per-row quantized, :func:`.ops.topk.quantize_db`)."""
 
     def __init__(self, descriptors, keys: Optional[Sequence[str]] = None,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
         descs = _as_tensor(descriptors)
@@ -223,22 +247,14 @@ class RetrievalIndex(_Tombstones):
     def add(self, descriptors, keys: Optional[Sequence[str]] = None) -> None:
         """Append rows (and keys, for a keyed index). An int8 index quantizes
         the new rows with their own scales; existing rows are untouched."""
-        new = _as_tensor(descriptors)
-        if new.dim() != 2 or new.shape[1] != self.dim:
-            raise ValueError(f"descriptors must be (N, {self.dim}), got "
-                             f"{tuple(new.shape)}")
-        if self.keys is not None and (keys is None or len(keys) != len(new)):
-            raise ValueError("index carries keys: add() needs one key per new row")
+        new = self._new_rows(descriptors, keys)
         if self._scales is not None:
             q8, s8 = quantize_db(new.to(self.device))
             self._db = torch.cat([self._db, q8])
             self._scales = torch.cat([self._scales, s8], dim=1)
         else:
             self._db = torch.cat([self._db, new.to(self.device, self.dtype)])
-        if self.keys is not None:
-            self.keys.extend(keys)
-        self._tomb_extend(len(new))
-        self.n += len(new)
+        self._append_keys(keys, len(new))
 
     def _compact_rows(self, keep_idx: np.ndarray) -> None:
         keep = torch.from_numpy(keep_idx).to(self.device)
@@ -264,14 +280,17 @@ class RetrievalIndex(_Tombstones):
 
     @classmethod
     def load(cls, path: str, dtype: Optional[torch.dtype] = None,
-             device="cpu") -> "RetrievalIndex":
+             device="cuda"):
         """``dtype=None`` keeps the stored representation: an int8 archive
-        loads as int8 without requantizing, an fp32 one as fp32."""
+        loads as int8 without requantizing, an fp32 one as fp32. A binary
+        archive loads as a :class:`BinaryIndex`."""
         with np.load(path, allow_pickle=False) as data:
-            if {"ivf_codes", "pq_codes", "binary_codes"} & set(data.files):
+            if {"ivf_codes", "pq_codes"} & set(data.files):
                 raise NotImplementedError(
-                    f"{path} holds a binary, PQ or IVF index, which "
-                    "dirjax_torch does not port yet (ROADMAP M9-M11)")
+                    f"{path} holds a PQ or IVF index, which dirjax_torch "
+                    "does not port yet (ROADMAP M10-M11)")
+            if "binary_codes" in data.files:
+                return BinaryIndex.load(path, device=device)
             keys = [str(k) for k in data["keys"]] if "keys" in data else None
             quantized = "descriptors_i8" in data
             rows = data["descriptors_i8" if quantized else "descriptors"]
@@ -290,5 +309,106 @@ class RetrievalIndex(_Tombstones):
                 rows = rows.astype(np.float32) * scales.T
             idx = cls(rows, keys=keys, device=device,
                       dtype=torch.float32 if dtype is None else dtype)
+        idx._tomb_restore(removed)
+        return idx
+
+
+class BinaryIndex(_Tombstones):
+    """ITQ binary-hash index on ``device`` (the card unless the caller passes
+    ``"cpu"``): ``n_bits / 8`` bytes per row.
+
+    The codec is learned from the indexed corpus (:func:`.ops.binary.fit_itq`:
+    PCA and an iterative orthogonal rotation; ``itq_iters=0`` gives plain PCA
+    sign hashing), or given as ``_codec``. ``asym=True`` (the default) ranks
+    by the exact asymmetric score, the continuous projected query against
+    the ±1 codes; ``asym=False`` by the symmetric ``n_bits - 2*hamming``
+    (exact integers, so ties are common: tie-broken indices rank the lower
+    candidate first). Codes are stored unpadded in the byte layout."""
+
+    def __init__(self, descriptors, n_bits: Optional[int] = None,
+                 keys: Optional[Sequence[str]] = None, *, itq_iters: int = 30,
+                 asym: bool = True, seed: int = 0, sample: Optional[int] = 131072,
+                 device="cuda", _codec: Optional[BinaryCodec] = None):
+        descs = _as_tensor(descriptors)
+        if descs.dim() != 2:
+            raise ValueError(f"descriptors must be (N, D), got {tuple(descs.shape)}")
+        self.n, self.dim = descs.shape
+        self.keys = list(keys) if keys is not None else None
+        if self.keys is not None and len(self.keys) != self.n:
+            raise ValueError(f"{len(self.keys)} keys for {self.n} descriptors")
+        self.device = torch.device(device)
+        self.asym = bool(asym)
+        descs = descs.to(self.device, torch.float32)
+        if _codec is None:
+            _codec = fit_itq(descs, n_bits, iters=itq_iters, seed=seed, sample=sample)
+        self.codec = BinaryCodec(*(t.to(self.device, torch.float32) for t in _codec))
+        self._codes = binarize(descs, self.codec)
+
+    n_bits = property(lambda self: self.codec.n_bits)
+
+    # --- search ---------------------------------------------------------
+    def search(self, queries, k: int = 10, *, rerank_factor: int = 4
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k (fp32 scores, int32 indices) per query row, as numpy. Every
+        search is exact under its score; ``rerank_factor`` sizes dirjax's
+        mesh shortlist and is ignored, as on dirjax's single chip."""
+        q = _as_tensor(queries)
+        if q.dim() == 1:
+            q = q[None, :]
+        if q.dim() != 2 or q.shape[1] != self.dim:
+            raise ValueError(f"queries must be (nq, {self.dim}), got {tuple(q.shape)}")
+        if k > self.n:
+            raise ValueError(f"k={k} exceeds the {self.n} database rows")
+        pad = self._tomb_pad() if self.n_removed else 0
+        vals, idxs = hamming_search_fused(q.to(self.device, torch.float32),
+                                          self.codec, self._codes,
+                                          min(k + pad, self.n), asym=self.asym)
+        vals, idxs = vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
+        if pad:
+            vals, idxs = self._tomb_filter(vals, idxs, k)
+        return vals, idxs
+
+    # --- mutation -------------------------------------------------------
+    def add(self, descriptors, keys: Optional[Sequence[str]] = None) -> None:
+        """Encode new rows with the existing codec and append them."""
+        new = self._new_rows(descriptors, keys)
+        self._codes = torch.cat([self._codes, binarize(new, self.codec)])
+        self._append_keys(keys, len(new))
+
+    def _compact_rows(self, keep_idx: np.ndarray) -> None:
+        self._codes = self._codes[torch.from_numpy(keep_idx).to(self.device)]
+
+    # --- persistence ----------------------------------------------------
+    def save(self, path: str) -> None:
+        """One npz in dirjax's layout: uint32 code words, the codec, the
+        score mode, keys and tombstones."""
+        arrays = {
+            "binary_codes": self._codes.cpu().numpy().view("<u4"),
+            "binary_mean": self.codec.mean.cpu().numpy(),
+            "binary_proj": self.codec.proj.cpu().numpy(),
+            "binary_asym": np.asarray(int(self.asym)),
+        }
+        self._tomb_save(arrays)
+        if self.keys is not None:
+            arrays["keys"] = np.asarray(self.keys)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "BinaryIndex":
+        with np.load(path, allow_pickle=False) as data:
+            codes = data["binary_codes"]
+            mean, proj = data["binary_mean"], data["binary_proj"]
+            asym = bool(int(data["binary_asym"]))
+            keys = [str(k) for k in data["keys"]] if "keys" in data else None
+            removed = cls._tomb_unpack(data, len(codes))
+        idx = cls.__new__(cls)
+        idx.n, idx.dim = len(codes), int(mean.shape[0])
+        idx.keys = keys
+        idx.asym = asym
+        idx.device = torch.device(device)
+        idx.codec = BinaryCodec(torch.from_numpy(mean).to(idx.device, torch.float32),
+                                torch.from_numpy(proj).to(idx.device, torch.float32))
+        idx._codes = _to_bytes(codes).to(idx.device)
         idx._tomb_restore(removed)
         return idx

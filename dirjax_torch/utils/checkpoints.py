@@ -24,11 +24,12 @@ import numpy as np
 import torch
 
 from ..models import DescriptorConfig, RMACDescriptor, create_model
+from ..ops.binary import BinaryCodec
 from ..ops.whitening import PCAParams
 
 __all__ = ["Checkpoint", "load_checkpoint", "load_native", "save_native",
            "load_torch_checkpoint", "load_state", "state_dict_from_jax_params",
-           "jax_params_from_state_dict"]
+           "jax_params_from_state_dict", "binary_codec_from_jax"]
 
 
 @dataclass
@@ -79,6 +80,15 @@ def state_dict_from_jax_params(params: Dict[str, Any],
         sd["fc.weight"] = np.asarray(params["fc"]["kernel"], np.float32).T.copy()
         sd["fc.bias"] = np.asarray(params["fc"]["bias"], np.float32)
     return sd
+
+
+def binary_codec_from_jax(mean, proj) -> BinaryCodec:
+    """dirjax's binary codec (``mean (D,)``, ``proj (D, n_bits)``, numpy or
+    array-likes) -> the port's :class:`~dirjax_torch.ops.binary.BinaryCodec`
+    of fp32 host tensors (a :class:`~dirjax_torch.serving.BinaryIndex` moves
+    its codec to its device)."""
+    return BinaryCodec(mean=torch.from_numpy(np.array(mean, np.float32)),
+                       proj=torch.from_numpy(np.array(proj, np.float32)))
 
 
 def jax_params_from_state_dict(sd: Dict[str, Any],

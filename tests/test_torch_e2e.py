@@ -64,7 +64,9 @@ def test_test_dir_prints_the_same_map(synth_root, ckpt_path, extra):
 def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
     script = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"  # any `import jax` now raises
+        # any `import jax` or `import dirjax...` now raises
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dirjax'] = None\n"
         "from dirjax_torch.test_dir import main\n"
         f"res = main({_argv(synth_root, ckpt_path)!r})\n"
         "assert 'mAP-medium' in res\n"
@@ -72,18 +74,45 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "import numpy as np, torch\n"
         "import dirjax_torch.cli.index, dirjax_torch.index, dirjax_torch.serve\n"
         "from dirjax_torch.ops.topk import rank_topk_fused\n"
-        "from dirjax_torch.serving import RetrievalIndex\n"
+        "from dirjax_torch.serving import BinaryIndex, RetrievalIndex\n"
         "db = np.random.default_rng(0).normal(size=(600, 32)).astype(np.float32)\n"
-        "idx = RetrievalIndex(db, dtype=torch.int8)\n"
+        "idx = RetrievalIndex(db, dtype=torch.int8, device='cpu')\n"
         "assert idx.search(db[:3], k=20, aqe={'k': 3, 'alpha': 3.0})[1].shape == (3, 20)\n"
         "q, d = torch.from_numpy(db[:2]), torch.from_numpy(db)\n"
         "assert rank_topk_fused(q, d, 5)[1].shape == (2, 5)\n"
+        "for asym in (True, False):\n"
+        "    b = BinaryIndex(db, 32, itq_iters=3, asym=asym, device='cpu')\n"
+        "    assert b.search(db[:3], k=7)[1].shape == (3, 7)\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,
                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout and " * mAP-medium = " in out.stdout
+
+
+def test_port_imports_nothing_of_dirjax():
+    """No module of dirjax_torch, and not chip_smoke.py, imports the JAX
+    package or any module of it (it keeps its own copies)."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "dirjax_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(os.path.relpath(path, REPO), n) for n in names
+                      if n.split(".")[0] in ("dirjax", "jax")]
+    assert len(files) > 40 and not found, found
 
 
 def test_dispatcher_on_cpu_launches_nothing(synth_root, ckpt_path, tmp_path):

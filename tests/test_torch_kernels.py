@@ -16,13 +16,17 @@ Tolerances:
   scores exactly equal (int32 accumulation on both sides). An index may
   differ only where the plain scores of both rows lie within 1e-5. K4's
   maxima over each fetched block equal K3's bit for bit.
+- K5 (binary codes): symmetric maxima exactly equal (integers); asymmetric
+  within atol 1e-5 (projected unit queries, fp32 sums of exact ±bf16 terms
+  in another order); the rescore's block maxima equal K5's bit for bit;
+  hamming_search_fused returns the values of the plain top-k.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dirjax_torch.ops import gem_head, topk
+from dirjax_torch.ops import binary, gem_head, topk
 
 torch.set_num_threads(1)
 
@@ -215,3 +219,75 @@ class TestTopkKernels:
                                                   device=cuda))
         with pytest.raises(ValueError, match="scales"):
             topk.finemax(q, db, torch.ones(255, device=cuda))
+
+
+def _codes_and_queries(rng, device, nq, n, d):
+    """(n, d/8) uint8 codes and a unit-query codec over d = n_bits dims."""
+    proj, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    codec = binary.BinaryCodec(torch.zeros(d, device=device),
+                               torch.from_numpy(proj.astype(np.float32)).to(device))
+    codes = binary.binarize(_unit(rng, n, d).to(device), codec)
+    return codes, _unit(rng, nq, d).to(device), codec
+
+
+@pytest.mark.cuda
+class TestBinaryKernels:
+    """K5 and the asymmetric rescore (csrc/binary.cu) against their plain
+    versions."""
+
+    @pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+    @pytest.mark.parametrize("nq,n,d", [(1, 5003, 32), (37, 2048, 64),
+                                        (130, 777, 2048), (256, 3001, 256)])
+    def test_finemax_and_rescore(self, rng, cuda, asym, nq, n, d):
+        codes, qf, codec = _codes_and_queries(rng, cuda, nq, n, d)
+        qb, vq = binary.binarize_and_project(qf, codec)
+        q = vq.bfloat16().contiguous() if asym else qb
+        blocks = -(-n // 1024) * 128
+        before = dict(binary.launches)
+        fmax = binary.bits_finemax(q, codes, blocks)
+        assert binary.launches["bits_finemax"] == before["bits_finemax"] + 1
+        want = binary.bits_finemax_reference(q, codes, blocks)
+        if asym:
+            torch.testing.assert_close(fmax, want, rtol=0, atol=TOPK_ATOL)
+        else:
+            assert torch.equal(fmax, want)
+        assert torch.isinf(fmax[:, -(-n // 8):]).all()
+        if asym:
+            bids = torch.from_numpy(rng.integers(0, n // 8, size=(nq, 32))).to(cuda)
+            raw = binary.bits_gather_scores(q, codes, bids)
+            assert binary.launches["bits_gather_scores"] == before["bits_gather_scores"] + 1
+            torch.testing.assert_close(raw, binary.bits_gather_scores_reference(q, codes, bids),
+                                       rtol=0, atol=TOPK_ATOL)
+            # containment needs the rescore's block maxima to be K5's, bit for bit
+            assert torch.equal(raw.reshape(nq, -1, 8).amax(dim=2), torch.gather(fmax, 1, bids))
+
+    @pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+    @pytest.mark.parametrize("k", [1, 10, 100])
+    def test_search_returns_the_plain_top_k(self, rng, cuda, asym, k):
+        nq, n, d = 9, 4099, 256
+        codes, qf, codec = _codes_and_queries(rng, cuda, nq, n, d)
+        vals, idxs = binary.hamming_search_fused(qf, codec, codes, k, asym=asym)
+        qb, vq = binary.binarize_and_project(qf, codec)
+        q = vq.bfloat16().float() if asym else binary.unpack_pm1(qb)
+        scores = q @ binary.unpack_pm1(codes).T
+        want, _ = torch.sort(scores, dim=1, descending=True)
+        torch.testing.assert_close(vals, want[:, :k], rtol=0, atol=TOPK_ATOL)
+        torch.testing.assert_close(torch.gather(scores, 1, idxs), vals, rtol=0, atol=TOPK_ATOL)
+
+    def test_gather_marks_blocks_outside(self, rng, cuda):
+        codes, qf, codec = _codes_and_queries(rng, cuda, 3, 100, 64)
+        q = binary.project_queries(qf, codec).bfloat16().contiguous()
+        bids = torch.tensor([[0, 11, 12, 13, -1] + [0] * 11] * 3, device=cuda)
+        raw = binary.bits_gather_scores(q, codes, bids).reshape(3, -1, 8)
+        assert torch.isnan(raw[:, 2:5]).all() and not torch.isnan(raw[:, :2]).any()
+
+    def test_rejects_bad_operands(self, rng, cuda):
+        codes, qf, codec = _codes_and_queries(rng, cuda, 4, 256, 64)
+        qb = binary.binarize(qf, codec)
+        with pytest.raises(ValueError, match="queries must be"):
+            binary.bits_finemax(qf, codes)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            binary.bits_finemax(qb[:, :6].contiguous(), codes[:, :6].contiguous())
+        with pytest.raises(ValueError, match="asymmetric"):
+            binary.bits_gather_scores(qb, codes, torch.zeros((4, 16), dtype=torch.int64,
+                                                              device=cuda))
