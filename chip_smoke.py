@@ -32,17 +32,31 @@ Phases, each of which raises on failure:
    against a dense plain top-k (values, and no returned row outside the
    plain set but at a near-tie). Each kernel timed against its plain
    version with CUDA events, plain/kernel/kernel/plain.
-5. serving — RetrievalIndex in bf16 and in int8 over the same rows, and a
-   BinaryIndex (asymmetric) over their 2048-bit codes, each behind the
+5. PQ/IVF kernels — K6 and its rescore (csrc/pq.cu) on the same rows:
+   m = 32 codebooks at ksub 16 and 256 trained on the card from a
+   262,144-row sample, and OPQ once (the fit times are printed); K6 and the
+   rescore against their plain versions at nq = 256, 37 and 1, on
+   1,048,573 rows too, fp32 and bf16 tables, blocks 64 (ksub 16) and 8
+   (ksub 256): within 1e-5, the number of exactly equal cases printed, the
+   rescore's block maxima equal to K6's bit for bit; pq_topk at k = 10 and
+   100 against a dense plain ADC top-k; an IVF (nlist 1024) whose ivf_topk
+   at nprobe = nvlist, per query and union, is held to the dense plain ADC
+   over reconstructions. Each kernel timed against its plain version with
+   CUDA events, plain/kernel/kernel/plain; one embedding_bag (the ADC
+   scores of all queries) is K6's library yardstick.
+6. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
+   BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
+   ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
    port's IndexServer (dirjax_torch.server) on a Unix socket; several
    Clients send concurrent requests of 1-16 queries at k = 10 (K2; binary:
    K5 + rescore) and k = 100 (K3 + K4), int8 with and without int8_queries,
-   and AQE. The launch counters of K2-K5 and the rescore are zeroed just
-   before and must have risen just after; every answer must equal the
-   index's own direct search (values within 1e-5, an index differing only
-   at a near-tie). Requests, batches, latency percentiles and QPS are
-   printed as information.
-6. main path — a synthetic Revisited benchmark at 1024x768 and a
+   AQE, and PQ/IVF (K6 + its rescore; IVF probing 8 or 16 cells). The
+   launch counters of K2-K6 and the rescores are zeroed just before and
+   must have risen just after; every answer must equal the index's own
+   direct search (values within 1e-5, an index differing only at a
+   near-tie). Requests, batches, latency percentiles and QPS are printed
+   as information.
+7. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
@@ -53,13 +67,14 @@ Phases, each of which raises on failure:
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path. Prints which host decoder ran (the
    native one, or PIL where it cannot build).
-7. index CLI — ``python -m dirjax_torch.index build --int8`` and ``build
-   --binary 2048``, each then ``query -k 100 --gpu 0``, as subprocesses on
-   65,536 rows; each JSON answer must equal the in-process search exactly.
+8. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
+   --binary 2048``, ``build --pq 32`` and ``build --ivf 1024``, each then
+   ``query -k 100 --gpu 0``, as subprocesses on 65,536 rows; each JSON
+   answer must equal the in-process search exactly.
 
-    python3 chip_smoke.py --profile DIR   # also phase 8
+    python3 chip_smoke.py --profile DIR   # also phase 9
 
-8. profile — where a warm database extraction's time goes, fp32 and bf16:
+9. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -541,6 +556,182 @@ def binary_kernel_phase(device):
     return entries, db32, codec
 
 
+# --- K6 and the ADC rescore: PQ and IVF codes of the serving rows ----------
+
+PQ_M = 32
+IVF_NLIST = 1024
+IVF_NPROBE = 8
+
+
+def adc_dense_topk(luts, codes, k: int, bias=None):
+    """Plain dense ADC top-k over all rows (K6's plain version at block 1,
+    plus ``bias[:, cell]`` of each row's ``cell`` for IVF), and the plain
+    score of (query, row) pairs for :func:`check_ranking`. ``bias`` is
+    ``(cs, cell)``."""
+    from dirjax_torch.ops import pq
+
+    def scores(lo, hi):
+        s = pq.adc_finemax_reference(luts, codes[lo:hi], 1)
+        return s if bias is None else bias[0][:, bias[1][lo:hi]] + s
+
+    def pair(qi, rows):
+        lf, c = luts.float(), codes[rows].long()
+        s = torch.zeros(len(qi), device=luts.device)
+        for j in range(lf.shape[1]):
+            s += lf[qi, j, c[:, j]]
+        return s if bias is None else bias[0][qi, bias[1][rows]] + s
+    return dense_topk(scores, codes.shape[0], k), pair
+
+
+def pq_kernel_phase(device, db32):
+    """K6 and the rescore against their plain versions on m = 32 PQ codes
+    (ksub 16 and 256) of the serving rows; pq_topk and ivf_topk (nlist 1024,
+    full probe, per query and union) against dense plain ADC top-k. Returns
+    the JSON entries without ``launches``, the ks16 codebooks and the
+    IVFPQIndex the serving phase reuses."""
+    from dirjax_torch.ops import ivf, pq
+    from dirjax_torch.serving import IVFPQIndex
+
+    fit = {}
+    books = {}
+    for ksub in (16, 256):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        books[ksub] = pq.train_pq(db32, PQ_M, ksub)
+        torch.cuda.synchronize()
+        fit[ksub] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rot, _ = pq.train_opq(db32, PQ_M, 16)
+    torch.cuda.synchronize()
+    fit["opq"] = time.perf_counter() - t0
+    err_rot = float((rot @ rot.T - torch.eye(SERVE_D, device=device)).abs().max())
+    if err_rot > 1e-4:
+        raise AssertionError(f"the OPQ rotation is {err_rot:.1e} from orthogonal")
+    t0 = time.perf_counter()
+    codes = {ksub: pq.encode_pq(db32, books[ksub]) for ksub in books}
+    torch.cuda.synchronize()
+    print(f"pq: m={PQ_M} codebooks from a 262144-row sample, 25 iterations: ksub 16 in "
+          f"{fit[16]:.1f} s, ksub 256 in {fit[256]:.1f} s; OPQ (ksub 16, 131072-row "
+          f"sample, 10 rounds) in {fit['opq']:.1f} s, |R R^T - I| {err_rot:.1e}; "
+          f"{SERVE_N} rows encoded at both in {time.perf_counter() - t0:.2f} s")
+    qf = unit_rows(SERVE_NQ, SERVE_D, device, seed=2)
+    luts = {ksub: pq.pq_lookup(qf, books[ksub]) for ksub in books}
+    err = {"adc_finemax": 0.0, "adc_gather_scores": 0.0}
+    inexact = []
+    for ksub, block in ((16, 64), (256, 8)):
+        for dt in (torch.float32, torch.bfloat16):
+            for nq, n in [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N)]:
+                lut, db = luts[ksub][:nq].to(dt).contiguous(), codes[ksub][:n]
+                tag = f"ksub={ksub} block={block} {str(dt)[6:]} nq={nq} n={n}"
+                fmax = pq.adc_finemax(lut, db, block)
+                want = pq.adc_finemax_reference(lut, db, block)
+                e6 = check_scores(f"adc_finemax {tag}", fmax, want, exact=False)
+                bids, _ = pq._descend_maxima(fmax, 100)
+                bids = bids.contiguous()
+                raw = pq.adc_gather_scores(lut, db, bids, block)
+                er = check_scores(f"adc_gather_scores {tag}", raw,
+                                  pq.adc_gather_scores_reference(lut, db, bids, block), False)
+                if not torch.equal(raw.reshape(nq, -1, block).amax(dim=2),
+                                   torch.gather(fmax, 1, bids)):
+                    raise AssertionError(f"{tag}: the rescore's block maxima are not K6's")
+                if e6 or er:
+                    inexact.append(tag)
+                err["adc_finemax"] = max(err["adc_finemax"], e6)
+                err["adc_gather_scores"] = max(err["adc_gather_scores"], er)
+                print(f"kernel adc_finemax {tag}: max_abs_err {e6:.3e}; adc_gather_scores "
+                      f"k=100 ({bids.shape[1]} blocks): max_abs_err {er:.3e}; block maxima "
+                      "bit-identical")
+    print(f"K6 and the rescore equal their plain versions exactly in "
+          f"{24 - len(inexact)} of 24 cases{'; not in ' + ', '.join(inexact) if inexact else ''}")
+
+    for ksub, dt in ((16, None), (256, torch.bfloat16)):
+        lut = pq._round_luts(luts[ksub], dt)
+        for k in (10, 100):
+            got = pq.pq_topk(luts[ksub], codes[ksub], k, compute_dtype=dt)
+            tag = f"pq_topk ksub={ksub} {'bf16' if dt else 'fp32'} nq={SERVE_NQ} k={k}"
+            e = check_ranking(tag, got, *adc_dense_topk(lut, codes[ksub], k))
+            print(f"{tag} vs dense plain ADC top-k: max_abs_err {e:.3e}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = IVFPQIndex(db32, nlist=IVF_NLIST, m=PQ_M, ksub=16, nprobe=IVF_NPROBE, device=device)
+    torch.cuda.synchronize()
+    arrays = index._ivf
+    print(f"ivf: nlist={IVF_NLIST} (nvlist {arrays.nvlist}, cap {arrays.vlist_tab.shape[1]}, "
+          f"{arrays.codes.shape[0]} slabs of {arrays.slab}) over {SERVE_N} rows built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    assign, rcodes = ivf.unbin_ivf(arrays, SERVE_N)
+    assign = torch.from_numpy(assign).to(device).long()
+    rcodes = torch.from_numpy(rcodes).to(device)
+    ilut = pq.pq_lookup(qf, index.codebooks)
+    cs = (qf.double() @ index._centroids.double().T).float()
+    for union in (False, True):
+        t0 = time.perf_counter()
+        got = ivf.ivf_topk(ilut, qf, arrays, 100, nprobe=arrays.nvlist, union=union)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        tag = (f"ivf_topk {'union' if union else 'per-query'} nprobe=nvlist nq={SERVE_NQ} "
+               "k=100")
+        e = check_ranking(tag, got, *adc_dense_topk(ilut, rcodes, 100, bias=(cs, assign)))
+        print(f"{tag} ({sec:.2f} s) vs dense plain ADC over reconstructions: max_abs_err "
+              f"{e:.3e}")
+
+    lut, db = luts[16], codes[16]
+    blocks = -(-SERVE_N // 64)
+    bids = pq._descend_maxima(pq.adc_finemax(lut, db, 64), 100)[0].contiguous()
+    shape = f"{SERVE_N}x{PQ_M} ksub=16 fp32 nq={SERVE_NQ}"
+    timed = {
+        "adc_finemax": time_in_turns(
+            f"adc_finemax {shape} block=64", lambda: pq.adc_finemax_reference(lut, db, 64),
+            lambda: pq.adc_finemax(lut, db, 64), iters=5),
+        "adc_gather_scores": time_in_turns(
+            f"adc_gather_scores {shape} k=100", lambda: pq.adc_gather_scores_reference(
+                lut, db, bids, 64), lambda: pq.adc_gather_scores(lut, db, bids, 64), iters=5),
+    }
+    extra = {}
+    for name, ksub, block, dt in (("bf16", 16, 64, torch.bfloat16),
+                                  ("ksub256", 256, 8, torch.float32)):
+        l2 = luts[ksub].to(dt).contiguous()
+        extra[name] = time_in_turns(
+            f"adc_finemax {SERVE_N}x{PQ_M} ksub={ksub} block={block} {str(dt)[6:]} "
+            f"nq={SERVE_NQ}", lambda: pq.adc_finemax_reference(l2, codes[ksub], block),
+            lambda: pq.adc_finemax(l2, codes[ksub], block), iters=5)
+    # the library yardstick of K6: one embedding_bag computes every ADC score
+    # (sum of m table rows, all queries at once) and writes the score matrix
+    flat = (db.long() + torch.arange(PQ_M, device=device) * 16).contiguous()
+    table = lut.reshape(SERVE_NQ, -1).T.contiguous()
+    library_ms = _time_ms(lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"),
+                          iters=5)
+    print(f"library embedding_bag (sum) {shape}: {library_ms:.3f} ms")
+    del flat, table
+    nq, kf = SERVE_NQ, bids.shape[1]
+    lookups = float(nq) * SERVE_N * PQ_M
+    onehot = bound(0, 2.0 * lookups * 16, "bf16")["bound_ms"]
+    entries = [
+        {"name": "adc_finemax", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
+         "replaces": "dirjax/ops/pq.py:441", "max_abs_err": err["adc_finemax"],
+         "ms": timed["adc_finemax"][0], "plain_ms": timed["adc_finemax"][1],
+         **bound(db.numel() + lut.numel() * 4 + nq * blocks * 4, lookups, "fp32"),
+         "library_ms": library_ms,
+         "library_note": "torch.nn.functional.embedding_bag(mode='sum') of the same "
+                         "codes and tables (writes the score matrix)",
+         "onehot_bound_ms": onehot, "bf16_ms": extra["bf16"][0],
+         "bf16_plain_ms": extra["bf16"][1], "ksub256_ms": extra["ksub256"][0],
+         "ksub256_plain_ms": extra["ksub256"][1]},
+        {"name": "adc_gather_scores", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
+         "replaces": "dirjax/ops/pq.py:393-421 (_pq_topk_hier phase C, XLA)",
+         "max_abs_err": err["adc_gather_scores"],
+         "ms": timed["adc_gather_scores"][0], "plain_ms": timed["adc_gather_scores"][1],
+         **bound(nq * kf * 64 * PQ_M + lut.numel() * 4 + bids.numel() * 8 + nq * kf * 64 * 4,
+                 float(nq) * kf * 64 * PQ_M, "fp32"),
+         "library_ms": None,
+         "library_note": NO_LIBRARY + " (per query, table sums over its own candidate "
+                         "blocks)"},
+    ]
+    del codes, luts, rcodes
+    return entries, books[16], index
+
+
 # --- serving: IndexServer + Clients over the port's RetrievalIndex ----------
 
 CLIENTS_PER_INDEX = 4
@@ -550,6 +741,8 @@ SIGNATURES = {   # (k, options) each index is asked with
     "int8": [(10, {}), (100, {}), (100, {"int8_queries": True}),
              (10, {"aqe": {"k": 10, "alpha": 3.0}})],
     "binary": [(10, {}), (100, {})],
+    "pq": [(10, {}), (100, {}), (10, {"aqe": {"k": 10, "alpha": 3.0}})],
+    "ivf": [(10, {}), (100, {}), (10, {"nprobe": 16})],
 }
 
 
@@ -608,19 +801,21 @@ def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
                   f, indent=1)
 
 
-def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
-                  profile_dir: str = "", card: str = "") -> dict:
+def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_books,
+                  ivf_index, profile_dir: str = "", card: str = "") -> dict:
     """The serving main path: concurrent Clients against an IndexServer per
-    index; returns the launch counts of K2-K5 and the rescore during the
+    index; returns the launch counts of K2-K6 and the rescores during the
     traffic. With ``profile_dir``, also :func:`serving_profile`."""
-    from dirjax_torch.ops import binary, topk
+    from dirjax_torch.ops import binary, pq, topk
     from dirjax_torch.server import Client, IndexServer
-    from dirjax_torch.serving import BinaryIndex, RetrievalIndex
+    from dirjax_torch.serving import BinaryIndex, PQIndex, RetrievalIndex
 
     t0 = time.perf_counter()
     indexes = {"bf16": RetrievalIndex(db16, dtype=torch.bfloat16, device=device),
                "int8": RetrievalIndex(db16, dtype=torch.int8, device=device),
-               "binary": BinaryIndex(db32, _codec=codec, device=device)}
+               "binary": BinaryIndex(db32, _codec=codec, device=device),
+               "pq": PQIndex(db32, rerank=True, device=device, _trained=(None, pq_books)),
+               "ivf": ivf_index}
     rng = np.random.default_rng(3)
     plan = {name: [[] for _ in range(CLIENTS_PER_INDEX)] for name in indexes}
     for name, per_client in plan.items():
@@ -634,8 +829,9 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
         for k, opts in SIGNATURES[name]:
             index.search(plan[name][0][0][0], k=k, **opts)
     torch.cuda.synchronize()
-    print(f"serving: bf16 and int8 RetrievalIndex and {BITS}-bit asymmetric "
-          f"BinaryIndex of {SERVE_N} x {SERVE_D} ready in "
+    print(f"serving: bf16 and int8 RetrievalIndex, {BITS}-bit asymmetric "
+          f"BinaryIndex, PQIndex (m={PQ_M}, ksub 16, int8 rerank) and IVFPQIndex "
+          f"(nlist {IVF_NLIST}, nprobe {IVF_NPROBE}) of {SERVE_N} x {SERVE_D} ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
     def client_run(address, reqs):
@@ -654,7 +850,7 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
         for t in threads:
             t.start()
         try:
-            for counts in (topk.launches, binary.launches):
+            for counts in (topk.launches, binary.launches, pq.launches):
                 for key in counts:
                     counts[key] = 0
             t0 = time.perf_counter()
@@ -665,7 +861,7 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
                 done = {key: job.result() for key, job in jobs.items()}
             answers = {key: got for key, (got, _) in done.items()}
             wall = max(last for _, last in done.values()) - t0
-            launches = {**topk.launches, **binary.launches}
+            launches = {**topk.launches, **binary.launches, **pq.launches}
         finally:
             for srv in servers.values():
                 with Client(srv.address) as c:
@@ -699,15 +895,16 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec,
 
 
 def cli_phase(device, work: str) -> None:
-    """``python -m dirjax_torch.index build --int8`` and ``build --binary
-    2048``, each then ``query``, as subprocesses; their JSON must equal the
-    in-process search."""
+    """``python -m dirjax_torch.index build --int8``, ``--binary 2048``,
+    ``--pq 32`` and ``--ivf 1024``, each then ``query``, as subprocesses;
+    their JSON must equal the in-process search."""
     from dirjax_torch.serving import RetrievalIndex
 
     descs, queries = (os.path.join(work, f) for f in ("db.npy", "q.npy"))
     np.save(descs, unit_rows(CLI_N, SERVE_D, device, seed=4).cpu().numpy())
     np.save(queries, unit_rows(37, SERVE_D, device, seed=5).cpu().numpy())
-    for kind, flags in (("int8", ["--int8"]), ("binary", ["--binary", str(BITS)])):
+    for kind, flags in (("int8", ["--int8"]), ("binary", ["--binary", str(BITS)]),
+                        ("pq", ["--pq", str(PQ_M)]), ("ivf", ["--ivf", str(IVF_NLIST)])):
         index_path = os.path.join(work, f"{kind}.npz")
         hits = os.path.join(work, f"{kind}.json")
         t0 = time.perf_counter()
@@ -952,8 +1149,10 @@ def main(argv=None) -> int:
     entries = [kernel_phase(device)]
     topk_entries, db16 = topk_kernel_phase(device)
     binary_entries, db32, codec = binary_kernel_phase(device)
-    serving_launches = serving_phase(device, db16, db32, codec, args.profile, card)
-    del db16, db32
+    pq_entries, pq_books, ivf_index = pq_kernel_phase(device, db32)
+    serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index,
+                                     args.profile, card)
+    del db16, db32, ivf_index
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
@@ -991,9 +1190,9 @@ def main(argv=None) -> int:
             profile_phase(bench, ckpt, device, args.profile, card)
 
     entries[0]["launches"] = launches
-    for entry in topk_entries + binary_entries:
+    for entry in topk_entries + binary_entries + pq_entries:
         entry["launches"] = serving_launches[entry["name"]]
-    print(json.dumps({"kernels": entries + topk_entries + binary_entries}))
+    print(json.dumps({"kernels": entries + topk_entries + binary_entries + pq_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,29 +1,28 @@
 """Serving-index CLI (counterpart of ``dirjax/cli/index.py``): build, grow,
-prune and query a dense :class:`~dirjax_torch.serving.RetrievalIndex` or a
-:class:`~dirjax_torch.serving.BinaryIndex` from ``.npy`` descriptor files.
+prune, tune and query a :class:`~dirjax_torch.serving.RetrievalIndex`,
+:class:`~dirjax_torch.serving.BinaryIndex`, :class:`~dirjax_torch.serving.PQIndex`
+or :class:`~dirjax_torch.serving.IVFPQIndex` from ``.npy`` descriptor files.
 Flags, index files and the query JSON are dirjax's, so the two CLIs
 interoperate:
 
     python -m dirjax_torch.index build --descs feats.dbdescs.npy \\
         --keys db.txt --int8 --out index.npz --gpu 0
+    python -m dirjax_torch.index build --descs feats.dbdescs.npy --pq 32 \\
+        --pq-rerank --out pq.npz --gpu 0
+    python -m dirjax_torch.index build --descs feats.dbdescs.npy --ivf 1024 \\
+        --out ivf.npz --gpu 0
+    python -m dirjax_torch.index tune --index ivf.npz --descs q.npy \\
+        --db-descs feats.dbdescs.npy --target 0.9 --apply --gpu 0
     python -m dirjax_torch.index query --index index.npz \\
         --descs feats.qdescs.npy -k 10 --aqe 10 3 --out-json hits.json --gpu 0
 
-``--gpu -1`` runs on the CPU. The PQ and IVF kinds and ``tune`` are not
-ported yet and exit with a message naming their ROADMAP item.
+``--gpu -1`` runs on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-_NOT_PORTED = {"--pq": "M10", "--ivf": "M11", "tune": "M11"}
-
-
-def _not_ported(what: str):
-    raise SystemExit(f"{what} is not ported to dirjax_torch yet (ROADMAP "
-                     f"{_NOT_PORTED[what]}); use python -m dirjax.index")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,9 +49,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "bytes per row, exact asymmetric ranking")
     b.add_argument("--binary-sym", action="store_true",
                    help="with --binary: rank by the symmetric Hamming score")
-    for flag in ("--pq", "--ivf"):
-        b.add_argument(flag, type=int, default=0,
-                       help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
+    b.add_argument("--pq", type=int, default=0, metavar="M",
+                   help="product-quantize to M uint8 codes per row "
+                        "(approximate ADC ranking); --pq-rerank keeps int8 "
+                        "rows too for exact rescoring")
+    b.add_argument("--pq-ksub", type=int, default=16, metavar="K",
+                   help="centroids per PQ subspace (<= 256)")
+    b.add_argument("--ivf", type=int, default=0, metavar="NLIST",
+                   help="add an inverted file with NLIST coarse cells on top "
+                        "of PQ codes (IVFADC): queries scan only --nprobe "
+                        "cells. Implies --pq (default m=32)")
+    b.add_argument("--nprobe", type=int, default=8,
+                   help="with --ivf: default cells probed per query (recall "
+                        "knob; query-time --nprobe overrides)")
+    b.add_argument("--opq", action="store_true",
+                   help="with --pq/--ivf: learn an OPQ rotation first")
+    b.add_argument("--pq-rerank", action="store_true",
+                   help="with --pq/--ivf: also keep int8 rows and exactly "
+                        "rescore the ADC shortlist at query time")
     b.add_argument("--out", required=True, help="output .npz index path")
 
     a = sub.add_parser("add", parents=[common],
@@ -80,13 +94,31 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--out", default="",
                    help="output path (default: rewrite --index in place)")
 
-    sub.add_parser("tune", help="not ported yet (ROADMAP M11)")
+    t = sub.add_parser("tune", parents=[common],
+                       help="pick the cheapest recall knobs (nprobe / "
+                            "rerank_factor) meeting a recall@k target")
+    t.add_argument("--index", required=True, help=".npz from `build`")
+    t.add_argument("--descs", required=True,
+                   help="(Nq, D) .npy query-descriptor sample to tune on")
+    t.add_argument("--db-descs", default="",
+                   help="raw (N, D) build-time matrix: exact ground truth is "
+                        "computed from it (or pass --gt)")
+    t.add_argument("--gt", default="", help="precomputed (Nq, k) exact-neighbour .npy")
+    t.add_argument("-k", "--topk", type=int, default=10)
+    t.add_argument("--target", type=float, default=0.95, help="recall@k target")
+    t.add_argument("--apply", action="store_true",
+                   help="write the tuned nprobe back into the index file")
 
     q = sub.add_parser("query", parents=[common], help="query an index")
     q.add_argument("--index", required=True, help=".npz from `build`")
     q.add_argument("--descs", required=True,
                    help="(Nq, D) .npy query descriptors (qdescs)")
     q.add_argument("-k", "--topk", type=int, default=10)
+    q.add_argument("--nprobe", type=int, default=0,
+                   help="IVF indexes: cells probed per query (0 = the index's "
+                        "build-time default)")
+    q.add_argument("--adc-bf16", action="store_true",
+                   help="PQ/IVF indexes: round the ADC tables to bfloat16")
     q.add_argument("--aqe", type=int, nargs=2, metavar=("K", "ALPHA"),
                    default=None, help="alpha-query-expansion before ranking")
     q.add_argument("--int8-queries", action="store_true",
@@ -107,12 +139,7 @@ def _read_keys(path: str, n: int):
 
 
 def main(argv=None):
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd == "tune":
-        _not_ported("tune")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     from .common import setup_device
 
     device = setup_device(args.gpu)
@@ -120,7 +147,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..serving import BinaryIndex, RetrievalIndex
+    from ..serving import BinaryIndex, IVFPQIndex, PQIndex, RetrievalIndex
 
     if args.cmd == "build":
         # storage kinds are mutually exclusive, as in dirjax
@@ -131,16 +158,27 @@ def main(argv=None):
             raise SystemExit(
                 f"conflicting storage flags: {' + '.join(exclusive)} — pick "
                 "one (use --pq-rerank to pair int8 rows with a PQ index)")
-        for flag in ("--pq", "--ivf"):
-            if getattr(args, flag[2:]):
-                _not_ported(flag)
         descs = np.load(args.descs)
         keys = _read_keys(args.keys, len(descs))
-        if args.binary:
+        if args.ivf:
+            index = IVFPQIndex(descs, nlist=args.ivf, m=args.pq or 32, ksub=args.pq_ksub,
+                               nprobe=args.nprobe, keys=keys, opq=args.opq,
+                               rerank=args.pq_rerank, device=device)
+            kind = (f"ivf nlist={args.ivf} nprobe={args.nprobe} "
+                    f"pq m={index.m} ksub={args.pq_ksub}"
+                    + (" opq" if args.opq else "")
+                    + (" +int8-rerank" if args.pq_rerank else ""))
+        elif args.binary:
             index = BinaryIndex(descs, n_bits=None if args.binary < 0 else args.binary,
                                 keys=keys, asym=not args.binary_sym, device=device)
             kind = (f"binary {index.n_bits} bits"
                     + (" sym" if args.binary_sym else " +asym-rescore"))
+        elif args.pq:
+            index = PQIndex(descs, m=args.pq, ksub=args.pq_ksub, keys=keys, opq=args.opq,
+                            rerank=args.pq_rerank, device=device)
+            kind = (f"pq m={args.pq} ksub={args.pq_ksub}"
+                    + (" opq" if args.opq else "")
+                    + (" +int8-rerank" if args.pq_rerank else ""))
         else:
             index = RetrievalIndex(descs, keys=keys, device=device,
                                    dtype=torch.int8 if args.int8 else torch.bfloat16)
@@ -151,6 +189,23 @@ def main(argv=None):
         return index
 
     index = RetrievalIndex.load(args.index, device=device)
+    if args.cmd == "tune":
+        from ..tuning import tune
+
+        res = tune(index, np.load(args.descs), np.load(args.gt) if args.gt else None,
+                   k=args.topk, target=args.target,
+                   descriptors=np.load(args.db_descs) if args.db_descs else None)
+        for params, r in res.trials:
+            print(f"  {params or '(no knobs)'}: recall@{args.topk} = {r:.4f}")
+        state = "meets" if res.met else "BEST EFFORT, misses"
+        print(f"tuned: {res.params or '(no knobs)'} -> recall {res.recall:.4f} "
+              f"({state} target {args.target})")
+        if args.apply and "nprobe" in res.params:
+            res.apply(index)
+            index.save(args.index)
+            print(f"applied nprobe={res.params['nprobe']} -> {args.index}")
+        return res
+
     if args.cmd == "add":
         descs = np.load(args.descs)
         index.add(descs, keys=_read_keys(args.keys, len(descs)))
@@ -178,10 +233,21 @@ def main(argv=None):
         print(msg + f") -> {out}")
         return index
 
+    if args.adc_bf16:
+        if not isinstance(index, (PQIndex, IVFPQIndex)):
+            raise SystemExit("--adc-bf16 applies to PQ/IVF (ADC) indexes")
+        index.compute_dtype = torch.bfloat16
     q = np.load(args.descs)
     aqe = ({"k": args.aqe[0], "alpha": float(args.aqe[1])}
            if args.aqe else None)
-    if isinstance(index, BinaryIndex):
+    if isinstance(index, (PQIndex, IVFPQIndex)) and args.int8_queries:
+        raise SystemExit("--int8-queries applies to int8 indexes; this is a "
+                         f"{type(index).__name__} (ADC scoring)")
+    if isinstance(index, IVFPQIndex):
+        vals, idxs = index.search(q, k=args.topk, aqe=aqe, nprobe=args.nprobe or None)
+    elif isinstance(index, PQIndex):
+        vals, idxs = index.search(q, k=args.topk, aqe=aqe)
+    elif isinstance(index, BinaryIndex):
         if args.int8_queries or aqe:
             raise SystemExit("--int8-queries/--aqe don't apply to binary "
                              "indexes (Hamming scoring; expand queries "

@@ -122,6 +122,10 @@ def load_library() -> ctypes.CDLL:
         "dirjax_bits_finemax": [vp, vp, i, ll, ll, i, ll, vp, vp],
         # q, db, bids, nq, n, words, kf, out, stream
         "dirjax_bits_gather_scores": [vp, vp, vp, ll, ll, i, ll, vp, vp],
+        # luts, lut_bf16, codes, nq, n, m, ksub, block, out, stream
+        "dirjax_adc_finemax": [vp, i, vp, ll, ll, i, i, ll, vp, vp],
+        # luts, lut_bf16, codes, bids, nq, n, m, ksub, block, kf, out, stream
+        "dirjax_adc_gather_scores": [vp, i, vp, vp, ll, ll, i, i, ll, ll, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

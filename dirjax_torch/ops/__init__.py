@@ -1,4 +1,6 @@
 from .gem_head import fused_gem_head, gem_head_reference  # noqa: F401
+from .ivf import (IVFArrays, bin_ivf, build_ivf, ivf_assign,  # noqa: F401
+                  ivf_topk, train_ivf, unbin_ivf)
 from .normalize import l2_normalize  # noqa: F401
 from .pooling import (  # noqa: F401
     avg_pool,
@@ -10,6 +12,8 @@ from .pooling import (  # noqa: F401
     sympow,
     sympow_pool,
 )
+from .pq import (encode_pq, pq_lookup, pq_pad_codes, pq_scores,  # noqa: F401
+                 pq_topk, reconstruct_pq, train_opq, train_pq)
 from .qe import (  # noqa: F401
     expand_database,
     expand_database_chunked,

@@ -5,8 +5,11 @@
 The batcher, the socket server, the wire protocol and the client are the
 port's own copy of dirjax's (:mod:`dirjax_torch.server`), re-exported here,
 so any client of either package talks to this server. The index is a
-:class:`~dirjax_torch.serving.RetrievalIndex` or
-:class:`~dirjax_torch.serving.BinaryIndex` loaded onto ``--gpu``.
+:class:`~dirjax_torch.serving.RetrievalIndex`,
+:class:`~dirjax_torch.serving.BinaryIndex`,
+:class:`~dirjax_torch.serving.PQIndex` or
+:class:`~dirjax_torch.serving.IVFPQIndex` loaded onto ``--gpu``; per-request
+options (``aqe``, ``nprobe``, ``rerank_factor``, ...) pass through.
 
     python -m dirjax_torch.index build --descs db.npy --int8 --out index.npz
     python -m dirjax_torch.serve --index index.npz --socket /tmp/dirjax.sock
@@ -32,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a dirjax_torch index with dynamic batching")
     parser.add_argument("--index", required=True,
                         help=".npz from `python -m dirjax_torch.index build` "
-                             "(or dirjax's): dense or binary")
+                             "(or dirjax's): dense, binary, PQ or IVF")
     parser.add_argument("--socket", required=True,
                         help="Unix-domain socket path, or host:port for TCP")
     parser.add_argument("--max-batch", type=int, default=256,

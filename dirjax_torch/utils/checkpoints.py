@@ -18,18 +18,20 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models import DescriptorConfig, RMACDescriptor, create_model
 from ..ops.binary import BinaryCodec
+from ..ops.ivf import IVFArrays
 from ..ops.whitening import PCAParams
 
 __all__ = ["Checkpoint", "load_checkpoint", "load_native", "save_native",
            "load_torch_checkpoint", "load_state", "state_dict_from_jax_params",
-           "jax_params_from_state_dict", "binary_codec_from_jax"]
+           "jax_params_from_state_dict", "binary_codec_from_jax", "pq_from_jax",
+           "ivf_arrays_from_jax"]
 
 
 @dataclass
@@ -89,6 +91,22 @@ def binary_codec_from_jax(mean, proj) -> BinaryCodec:
     its codec to its device)."""
     return BinaryCodec(mean=torch.from_numpy(np.array(mean, np.float32)),
                        proj=torch.from_numpy(np.array(proj, np.float32)))
+
+
+def pq_from_jax(codebooks, rotation=None) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """dirjax's trained PQ state (``codebooks (m, ksub, D/m)``, an optional
+    OPQ ``rotation (D, D)``, numpy or array-likes) -> the port's
+    ``(rotation or None, codebooks)`` fp32 host tensors: the ``_trained``
+    argument of :class:`~dirjax_torch.serving.PQIndex`."""
+    rot = None if rotation is None else torch.from_numpy(np.array(rotation, np.float32))
+    return rot, torch.from_numpy(np.array(codebooks, np.float32))
+
+
+def ivf_arrays_from_jax(ivf) -> IVFArrays:
+    """dirjax's ``IVFArrays`` (its six fields in order, numpy or
+    array-likes) -> the port's :class:`~dirjax_torch.ops.ivf.IVFArrays` of
+    host tensors, the same values and dtypes."""
+    return IVFArrays(*(torch.from_numpy(np.array(a)) for a in ivf))
 
 
 def jax_params_from_state_dict(sd: Dict[str, Any],

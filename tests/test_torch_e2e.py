@@ -83,6 +83,12 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "for asym in (True, False):\n"
         "    b = BinaryIndex(db, 32, itq_iters=3, asym=asym, device='cpu')\n"
         "    assert b.search(db[:3], k=7)[1].shape == (3, 7)\n"
+        "from dirjax_torch.serving import IVFPQIndex, PQIndex\n"
+        "import dirjax_torch.tuning\n"
+        "p = PQIndex(db, m=8, ksub=16, rerank=True, train_iters=3, device='cpu')\n"
+        "assert p.search(db[:3], k=9, aqe={'k': 3, 'alpha': 3.0})[1].shape == (3, 9)\n"
+        "v = IVFPQIndex(db, nlist=4, m=8, ksub=16, train_iters=3, device='cpu')\n"
+        "assert v.search(db[:3], k=9, nprobe=2)[1].shape == (3, 9)\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,

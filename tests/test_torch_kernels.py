@@ -20,13 +20,18 @@ Tolerances:
   within atol 1e-5 (projected unit queries, fp32 sums of exact ±bf16 terms
   in another order); the rescore's block maxima equal K5's bit for bit;
   hamming_search_fused returns the values of the plain top-k.
+- K6 (ADC fine maxima) and its rescore: within atol 1e-6 of their plain
+  versions, which add the same fp32 table values in the same order (so they
+  are expected to agree exactly); the rescore's block maxima equal K6's bit
+  for bit; pq_topk and ivf_topk at full probe return the dense plain ADC
+  top-k's values.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dirjax_torch.ops import binary, gem_head, topk
+from dirjax_torch.ops import binary, gem_head, ivf, pq, topk
 
 torch.set_num_threads(1)
 
@@ -291,3 +296,115 @@ class TestBinaryKernels:
         with pytest.raises(ValueError, match="asymmetric"):
             binary.bits_gather_scores(qb, codes, torch.zeros((4, 16), dtype=torch.int64,
                                                               device=cuda))
+
+
+def _adc_operands(rng, device, nq, n, m, ksub, dt):
+    luts = torch.from_numpy(rng.normal(size=(nq, m, ksub)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, ksub, size=(n, m)).astype(np.uint8))
+    return luts.to(device, dt).contiguous(), codes.to(device)
+
+
+@pytest.mark.cuda
+class TestADCKernels:
+    """K6 and the ADC rescore (csrc/pq.cu) against their plain versions."""
+
+    @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("m,ksub", [(32, 16), (8, 256), (64, 256), (128, 256)])
+    @pytest.mark.parametrize("block", [8, 64])
+    @pytest.mark.parametrize("nq,n", [(1, 5003), (37, 4096), (256, 3001)])
+    def test_finemax_and_rescore(self, rng, cuda, dt, m, ksub, block, nq, n):
+        luts, codes = _adc_operands(rng, cuda, nq, n, m, ksub, dt)
+        before = dict(pq.launches)
+        fmax = pq.adc_finemax(luts, codes, block)
+        assert pq.launches["adc_finemax"] == before["adc_finemax"] + 1
+        nb = -(-n // block)
+        assert fmax.shape == (nq, nb)
+        torch.testing.assert_close(fmax, pq.adc_finemax_reference(luts, codes, block),
+                                   rtol=0, atol=1e-6)
+        bids = torch.from_numpy(rng.integers(0, nb, size=(nq, 24))).to(cuda)
+        bids[:, 0] = nb - 1                    # the ragged last block
+        raw = pq.adc_gather_scores(luts, codes, bids, block)
+        assert pq.launches["adc_gather_scores"] == before["adc_gather_scores"] + 1
+        torch.testing.assert_close(raw, pq.adc_gather_scores_reference(luts, codes, bids, block),
+                                   rtol=0, atol=1e-6, equal_nan=True)
+        # containment needs the rescore's block maxima to be K6's, bit for bit
+        assert torch.equal(raw.reshape(nq, -1, block).amax(dim=2), torch.gather(fmax, 1, bids))
+
+    @pytest.mark.parametrize("block", [1, 64, 100, 300])
+    def test_any_block(self, rng, cuda, block):
+        luts, codes = _adc_operands(rng, cuda, 5, 1000, 16, 16, torch.float32)
+        fmax = pq.adc_finemax(luts, codes, block)
+        assert fmax.shape == (5, -(-1000 // block))
+        torch.testing.assert_close(fmax, pq.adc_finemax_reference(luts, codes, block),
+                                   rtol=0, atol=1e-6)
+
+    def test_more_query_groups_than_grid_rows(self, cuda):
+        """At m = 64, ksub = 256 a CTA holds one query's tables, so 70,001
+        queries are more groups than a grid has rows (65,535): the CTAs walk
+        the groups."""
+        nq, n, m, ksub, block = 70_001, 300, 64, 256, 8
+        g = torch.Generator(device=cuda).manual_seed(0)
+        luts = torch.randn((nq, m, ksub), generator=g, device=cuda).bfloat16()
+        codes = torch.randint(0, ksub, (n, m), generator=g, device=cuda).to(torch.uint8)
+        fmax = pq.adc_finemax(luts, codes, block)
+        assert torch.equal(fmax, pq.adc_finemax_reference(luts, codes, block))
+        bids = torch.randint(0, -(-n // block), (nq, 4), generator=g, device=cuda)
+        raw = pq.adc_gather_scores(luts, codes, bids, block)
+        assert torch.equal(raw, pq.adc_gather_scores_reference(luts, codes, bids, block))
+        assert torch.equal(raw.reshape(nq, -1, block).amax(dim=2), torch.gather(fmax, 1, bids))
+
+    def test_gather_marks_blocks_outside(self, rng, cuda):
+        luts, codes = _adc_operands(rng, cuda, 3, 100, 8, 16, torch.float32)
+        raw = pq.adc_gather_scores(luts, codes, torch.tensor([[0, 1, -1, 2]] * 3, device=cuda),
+                                   64).reshape(3, 4, 64)
+        assert torch.isnan(raw[:, 2:]).all() and not torch.isnan(raw[:, :2]).any()
+        assert torch.isinf(raw[:, 1, 36:]).all() and torch.isfinite(raw[:, 1, :36]).all()
+
+    @pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("m,ksub", [(32, 16), (16, 256)])
+    @pytest.mark.parametrize("k", [1, 10, 100])
+    def test_pq_topk_returns_the_plain_top_k(self, rng, cuda, dt, m, ksub, k):
+        luts, codes = _adc_operands(rng, cuda, 9, 40_003, m, ksub, torch.float32)
+        before = dict(pq.launches)
+        vals, idxs = pq.pq_topk(luts, codes, k, compute_dtype=dt)
+        assert pq.launches["adc_finemax"] == before["adc_finemax"] + 1
+        assert pq.launches["adc_gather_scores"] == before["adc_gather_scores"] + 1
+        scores = pq.adc_finemax_reference(pq._round_luts(luts, dt), codes, 1)
+        want, _ = torch.sort(scores, dim=1, descending=True)
+        torch.testing.assert_close(vals, want[:, :k], rtol=0, atol=1e-6)
+        torch.testing.assert_close(torch.gather(scores, 1, idxs), vals, rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("union", [False, True], ids=["per-query", "union"])
+    def test_ivf_full_probe_is_dense_adc(self, rng, cuda, union):
+        x = _unit(rng, 20_000, 64).to(cuda)
+        arrays, cents, books = ivf.build_ivf(x, 32, m=16, ksub=16, pq_iters=3, coarse_iters=3)
+        q = _unit(rng, 7, 64).to(cuda)
+        luts = pq.pq_lookup(q, books)
+        before = dict(pq.launches)
+        vals, idxs = ivf.ivf_topk(luts, q, arrays, 50, nprobe=arrays.nvlist, union=union)
+        key = "adc_finemax" if union else "adc_gather_scores"
+        assert pq.launches[key] > before[key]
+        assign, codes = ivf.unbin_ivf(arrays, 20_000)
+        bias = (q.double() @ cents.double().T).float()[:, torch.from_numpy(assign).long().to(cuda)]
+        scores = bias + pq.adc_finemax_reference(luts, torch.from_numpy(codes).to(cuda), 1)
+        want, _ = torch.sort(scores, dim=1, descending=True)
+        torch.testing.assert_close(vals, want[:, :50], rtol=0, atol=1e-6)
+        torch.testing.assert_close(torch.gather(scores, 1, idxs), vals, rtol=0, atol=1e-6)
+
+    def test_rejects_bad_operands(self, rng, cuda):
+        luts, codes = _adc_operands(rng, cuda, 4, 256, 8, 16, torch.float32)
+        bids = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
+        with pytest.raises(ValueError, match="fp32 or bf16"):
+            pq.adc_finemax(luts.half(), codes, 64)
+        with pytest.raises(ValueError, match="uint8"):
+            pq.adc_finemax(luts, codes.int(), 64)
+        with pytest.raises(ValueError, match="uint8"):
+            pq.adc_finemax(luts, codes[:, :4].contiguous(), 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            pq.adc_finemax(luts.transpose(1, 2).contiguous().transpose(1, 2), codes, 64)
+        with pytest.raises(ValueError, match="block must be positive"):
+            pq.adc_finemax(luts, codes, 0)
+        with pytest.raises(ValueError, match="bids"):
+            pq.adc_gather_scores(luts, codes, bids.int(), 64)
+        with pytest.raises(ValueError, match="block"):
+            pq.adc_gather_scores(luts, codes, bids, 0)

@@ -205,10 +205,15 @@ def test_index_files_cross_between_packages(data, mode, tmp_path):
 
 
 def test_load_refuses_compressed_archives(tmp_path):
-    path = str(tmp_path / "pq.npz")
-    np.savez(path, pq_codes=np.zeros((4, 2), np.uint8))
-    with pytest.raises(NotImplementedError, match="M10-M11"):
-        TS.RetrievalIndex.load(path, device="cpu")
+    """A PQ or IVF archive goes to its own loader, which refuses one that
+    lacks its codebooks."""
+    for name, arrays in (("pq", {"pq_codes": np.zeros((4, 2), np.uint8)}),
+                         ("ivf", {"ivf_codes": np.zeros((1, 64, 2), np.uint8),
+                                  "ivf_meta": np.asarray([4, 8], np.int64)})):
+        path = str(tmp_path / f"{name}.npz")
+        np.savez(path, **arrays)
+        with pytest.raises(KeyError, match="pq_codebooks"):
+            TS.RetrievalIndex.load(path, device="cpu")
 
 
 def test_batcher_and_server_over_port_index(data, tmp_path):
@@ -328,13 +333,24 @@ def test_index_cli_matches_dirjax(data, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["build", "--descs", "x.npy", "--out", "y.npz", "--pq", "8"], "M10"),
-    (["build", "--descs", "x.npy", "--out", "y.npz", "--ivf", "64"], "M11"),
-    (["tune", "--index", "y.npz"], "M11")])
+    (["build", "--descs", "x.npy", "--out", "y.npz", "--ivf", "16"], "M11"),
+    (["tune", "--index", "y.npz", "--descs", "x.npy", "--db-descs", "x.npy"], "M11")])
 def test_cli_names_roadmap_item_of_unported_kinds(argv, item, tmp_path):
-    np.save(tmp_path / "x.npy", np.zeros((4, 8), np.float32))
+    """The kinds the CLI once refused, naming their ROADMAP item (PQ: M10;
+    IVF and tune: M11), are ported: each runs on the CPU."""
+    x = _unit(np.random.default_rng(9), 600, 32)
+    np.save(tmp_path / "x.npy", x)
     argv = [str(tmp_path / a) if a.endswith((".npy", ".npz")) else a for a in argv]
-    with pytest.raises(SystemExit, match=item):
-        tindex(argv + (["--gpu", "-1"] if argv[0] == "build" else []))
+    if argv[0] == "tune":
+        tindex(["build", "--descs", argv[4], "--ivf", "8", "--pq", "4", "--out", argv[2],
+                "--gpu", "-1"])
+    out = tindex(argv + ["--gpu", "-1"])
+    if argv[0] == "tune":
+        assert out.trials and 0.0 <= out.recall <= 1.0, item
+    else:
+        kind = TS.PQIndex if "--pq" in argv else TS.IVFPQIndex
+        assert type(out) is kind and type(TS.RetrievalIndex.load(
+            str(tmp_path / "y.npz"), device="cpu")) is kind, item
 
 
 # --- BinaryIndex -----------------------------------------------------------
@@ -437,7 +453,9 @@ def test_indexes_default_to_the_card():
     import inspect
 
     for fn in (TS.RetrievalIndex.__init__, TS.RetrievalIndex.load,
-               TS.BinaryIndex.__init__, TS.BinaryIndex.load):
+               TS.BinaryIndex.__init__, TS.BinaryIndex.load, TS.PQIndex.__init__,
+               TS.PQIndex.load, TS.PQIndex.from_codes, TS.IVFPQIndex.__init__,
+               TS.IVFPQIndex.load):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -512,3 +530,49 @@ def test_serve_binary_index_to_both_clients(data, tmp_path):
         assert hit_keys == tidx.lookup(want10[1])
         np.testing.assert_array_equal(v100, want100[0])
         np.testing.assert_array_equal(i100, want100[1])
+
+
+@pytest.mark.parametrize("kind", ["pq", "ivf"])
+def test_serve_compressed_index_to_both_clients(data, kind, tmp_path):
+    """``python -m dirjax_torch.serve`` over a PQ or IVF index file: a dirjax
+    Client and the port's Client get the port's direct answers, per-request
+    options (AQE, nprobe) included."""
+    from dirjax.server import Client as JClient
+    from dirjax_torch.serve import main as serve_main
+
+    db, q, keys = data
+    if kind == "pq":
+        index = TS.PQIndex(db, m=8, ksub=16, keys=keys, rerank=True, train_iters=4,
+                           device="cpu")
+        opts = {"aqe": AQE}
+    else:
+        index = TS.IVFPQIndex(db, nlist=8, m=8, ksub=16, keys=keys, nprobe=2,
+                              train_iters=4, device="cpu")
+        opts = {"nprobe": 5}
+    index.save(str(tmp_path / "c.npz"))
+    sock = str(tmp_path / "c.sock")
+    result = {}
+    thread = threading.Thread(target=lambda: result.setdefault("server", serve_main(
+        ["--index", str(tmp_path / "c.npz"), "--socket", sock, "--gpu", "-1",
+         "--max-wait-ms", "1"])), daemon=True)
+    thread.start()
+    answers = []
+    try:
+        for client_cls in (JClient, Client):
+            with client_cls(sock, connect_timeout=60) as client:
+                answers.append(client.search(q, k=10, keys=True))
+                answers.append(client.search_async(q[:2], k=30, **opts).result(timeout=120))
+    finally:
+        with Client(sock) as client:
+            client.shutdown_server()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    served = TS.RetrievalIndex.load(str(tmp_path / "c.npz"), device="cpu")
+    assert type(result["server"].batcher.index) is type(index) is type(served)
+    want10, want30 = served.search(q, k=10), served.search(q[:2], k=30, **opts)
+    for (vals, idxs, hit_keys), (v30, i30) in (answers[:2], answers[2:]):
+        np.testing.assert_array_equal(vals, want10[0])
+        np.testing.assert_array_equal(idxs, want10[1])
+        assert hit_keys == served.lookup(want10[1])
+        np.testing.assert_array_equal(v30, want30[0])
+        np.testing.assert_array_equal(i30, want30[1])
