@@ -14,14 +14,21 @@ Phases, each of which raises on failure:
    input, within rtol 2e-4 / atol 2e-5, TF32 off; both timed with CUDA events.
 3. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
-   int8 with per-row scales), nq = 256, 37 and 1, and a ragged 1,048,573
-   rows. K2 at k = 10 on fp32 and bf16; K3 and K4 on bf16, int8 and
-   int8 x int8 queries. Scores within atol 1e-5 (int8 x int8 exactly equal),
+   int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
+   width of the tensor-core kernels: 8, 16, 32, 64, 128 and 256), and a
+   ragged 1,048,573 rows. K2 at k = 10 on fp32 and bf16; K3 and K4 on bf16,
+   int8 and int8 x int8 queries. Scores within atol 1e-5 (int8 x int8 exactly equal),
    an index may differ only at a near-tie within 1e-5; K4's maximum over
    each fetched block equals K3's bit for bit; rank_topk_fused against a
    dense plain top-k (k = 10 and 100). Each kernel timed against its plain
    version with CUDA events, plain/kernel/kernel/plain, and a bf16
-   torch.matmul of the same operands timed as the library yardstick.
+   torch.matmul of the same operands timed as the library yardstick; K2
+   and K3 also at nq = 16, 1, 64 and 128 (bf16) and in fp32 (the CUDA-core
+   mode) at nq = 256 and 16, K3 in int8 x bf16 and int8 x int8 at nq = 256
+   and 16, K2 at k = 1 and 16, each beside its bound and each first held
+   against its plain version. Then rank_topk_fused's two routes at k = 10
+   (K2 and the merge, against K3 + select + K4 + finish) timed at nq = 1,
+   16 and 256.
 4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu) at the
    serving shape: the same 1,048,576 rows, an ITQ codec fitted on the card
    (131,072-row sample, 30 iterations; the fit time is printed) and
@@ -43,7 +50,7 @@ Phases, each of which raises on failure:
    at nprobe = nvlist, per query and union, is held to the dense plain ADC
    over reconstructions. Each kernel timed against its plain version with
    CUDA events, plain/kernel/kernel/plain; one embedding_bag (the ADC
-   scores of all queries) is K6's library yardstick.
+   scores of all queries) is K6's library yardstick, at ksub 16 and 256.
 6. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
@@ -313,6 +320,36 @@ def dense_scores(q, db, scales, qscales):
     return scores
 
 
+def dispatch_timing(topk, operands) -> dict:
+    """rank_topk_fused's two routes at k = 10 on a bf16 database, timed
+    with CUDA events at nq = 1, 16 and 256: K2 and the merge of its
+    candidates (today's route for k <= 16) against K3, the hierarchical
+    select, K4 and the finish. Both are what rank_topk_fused runs after its
+    checks; their answers agree (checked here)."""
+    q_all, db = operands
+    rows = {}
+    for nq in (1, 16, SERVE_NQ):
+        q = q_all[:nq]
+
+        def fused():
+            vals, idxs = topk.fused_topk(q, db, 10)
+            merged, pos = topk._topk(vals, 10)
+            return merged, torch.gather(idxs, 1, pos)
+
+        def hier():
+            return topk._hierarchical(q, db, 10, TILE_ROWS)
+
+        a, b = fused(), hier()
+        check_scores(f"dispatch k=10 nq={nq}", a[0], b[0], exact=False)
+        times = {"k2": [], "hierarchy": []}
+        for which in ("k2", "hierarchy", "hierarchy", "k2"):
+            times[which].append(_time_ms(fused if which == "k2" else hier, iters=5))
+        rows[str(nq)] = {k: float(np.mean(v)) for k, v in times.items()}
+        print(f"dispatch k=10 bf16 nq={nq}: K2 route {times['k2']} ms, hierarchy "
+              f"(K3 + select + K4 + finish) {times['hierarchy']} ms")
+    return rows
+
+
 def topk_kernel_phase(device):
     """K2-K4 against their plain versions at the serving shape; returns their
     JSON entries without ``launches``, and the bf16 database."""
@@ -330,7 +367,10 @@ def topk_kernel_phase(device):
     torch.cuda.synchronize()
     print(f"top-k inputs: {SERVE_N} x {SERVE_D} unit rows in fp32, bf16 and "
           f"int8 in {time.perf_counter() - t0:.1f} s")
-    cases = [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N)]
+    # nq 1, 16, 24, 37, 100 and 256 take every query width the kernels have
+    # (8, 16, 32, 64, 128, 256), with partial groups and ragged rows
+    cases = [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N), (16, SERVE_N),
+             (24, SERVE_N - 3), (100, SERVE_N)]
     err = {"fused_topk": 0.0, "finemax": 0.0, "gather_scores": 0.0}
 
     for mode in ("bf16", "fp32"):
@@ -392,53 +432,106 @@ def topk_kernel_phase(device):
               f"max_abs_err {e:.3e}, {len(qi)} of {got[1].numel()} rows outside "
               "the plain set (near-ties)")
 
-    q, db, _ = modes["bf16"]
     blocks = -(-SERVE_N // TILE_ROWS) * (TILE_ROWS // 8)
-    bids, _ = topk._hier_select(topk.finemax(q, db, None, blocks), 100, TILE_ROWS, SERVE_N)
-    shape = f"{SERVE_N}x{SERVE_D} bf16 nq={SERVE_NQ}"
+    n = SERVE_N
+
+    def contraction(nq):
+        return 2.0 * nq * n * SERVE_D
+
+    def k2_bound(q, db, _scales, kind, k=10):
+        nq = q.shape[0]
+        return bound(db.numel() * db.element_size() + q.numel() * q.element_size()
+                     + nq * -(-n // 512) * k * 12, contraction(nq), kind)
+
+    def k3_bound(q, db, s, kind):
+        nq = q.shape[0]
+        return bound(db.numel() * db.element_size() + q.numel() * q.element_size()
+                     + (0 if s is None else s.numel() * 4) + nq * blocks * 4,
+                     contraction(nq), kind)
+
+    # each timed reading is first held against its plain version
+    def timed_k2(mode, nq, iters=5, k=10):
+        q, db, _ = modes[mode]
+        q = q[:nq]
+        tag = f"fused_topk {n}x{SERVE_D} {mode} nq={nq} k={k}"
+        err["fused_topk"] = max(err["fused_topk"], check_ranking(
+            tag, topk.fused_topk(q, db, k), topk.fused_topk_reference(q, db, k),
+            lambda qi, rows: pair_scores(q, db, None, qi, rows)))
+        return time_in_turns(tag, lambda: topk.fused_topk_reference(q, db, k),
+                             lambda: topk.fused_topk(q, db, k), iters=iters)
+
+    def timed_k3(mode, nq, iters=5):
+        q, db, s = modes[mode]
+        q = q[:nq].contiguous()
+        tag = f"finemax {n}x{SERVE_D} {mode} nq={nq}"
+        err["finemax"] = max(err["finemax"], check_scores(
+            tag, topk.finemax(q, db, s, blocks), topk.finemax_reference(q, db, s, blocks),
+            exact=mode == "int8x8"))
+        return time_in_turns(tag, lambda: topk.finemax_reference(q, db, s, blocks),
+                             lambda: topk.finemax(q, db, s, blocks), iters=iters)
+
+    q, db, _ = modes["bf16"]
+    bids, _ = topk._hier_select(topk.finemax(q, db, None, blocks), 100, TILE_ROWS, n)
+    shape = f"{n}x{SERVE_D} bf16 nq={SERVE_NQ}"
     timed = {
-        "fused_topk": time_in_turns(
-            f"fused_topk {shape} k=10", lambda: topk.fused_topk_reference(q, db, 10),
-            lambda: topk.fused_topk(q, db, 10), iters=5),
-        "finemax": time_in_turns(
-            f"finemax {shape}", lambda: topk.finemax_reference(q, db, None, blocks),
-            lambda: topk.finemax(q, db, None, blocks), iters=5),
+        "fused_topk": timed_k2("bf16", SERVE_NQ),
+        "finemax": timed_k3("bf16", SERVE_NQ),
         "gather_scores": time_in_turns(
             f"gather_scores {shape} k=100", lambda: topk.gather_scores_reference(q, db, bids),
             lambda: topk.gather_scores(q, db, bids), iters=5),
     }
-    for mode in ("int8", "int8x8"):
-        q, db, s = modes[mode]
-        time_in_turns(f"finemax {SERVE_N}x{SERVE_D} {mode} nq={SERVE_NQ}",
-                      lambda: topk.finemax_reference(q, db, s, blocks),
-                      lambda: topk.finemax(q, db, s, blocks), iters=5)
-    replaces = {"fused_topk": "dirjax/ops/topk_pallas.py:56",
-                "finemax": "dirjax/ops/topk_pallas.py:166",
-                "gather_scores": "dirjax/ops/topk_pallas.py:299"}
     # the library yardstick of K2 and K3: one bf16 matmul of the same
     # operands (it writes the score matrix the kernels never write)
-    q, db, _ = modes["bf16"]
     library_ms = _time_ms(lambda: torch.matmul(q, db.T), iters=5)
-    nq, n = SERVE_NQ, SERVE_N
-    contraction = 2.0 * nq * n * SERVE_D
+    print(f"library bf16 torch.matmul {shape}: {library_ms:.3f} ms")
     kf8 = bids.shape[1] * 8
     bounds = {
-        "fused_topk": bound(db.numel() * 2 + q.numel() * 2 + nq * -(-n // 512) * 10 * 12,
-                            contraction, "bf16"),
-        "finemax": bound(db.numel() * 2 + q.numel() * 2 + nq * blocks * 4,
-                         contraction, "bf16"),
-        "gather_scores": bound(nq * kf8 * SERVE_D * 2 + q.numel() * 2 + bids.numel() * 8
-                               + nq * kf8 * 4, 2.0 * nq * kf8 * SERVE_D, "bf16"),
+        "fused_topk": k2_bound(q, db, None, "bf16"),
+        "finemax": k3_bound(q, db, None, "bf16"),
+        "gather_scores": bound(SERVE_NQ * kf8 * SERVE_D * 2 + q.numel() * 2 + bids.numel() * 8
+                               + SERVE_NQ * kf8 * 4, 2.0 * SERVE_NQ * kf8 * SERVE_D, "bf16"),
     }
+    # more readings of K2 and K3 as extra fields of their rows: bf16 at
+    # nq = 16 and 1, and at 64 and 128 (how the time grows with the query
+    # width), K3's int8 modes at nq = 256 and 16, and the fp32 mode (the
+    # CUDA-core design) at nq = 256 and 16, each beside its bound
+    extra = {"fused_topk": {}, "finemax": {}}
+    for name, timer, bounder in (("fused_topk", timed_k2, k2_bound),
+                                 ("finemax", timed_k3, k3_bound)):
+        readings = [("bf16", 16), ("bf16", 1), ("bf16", 64), ("bf16", 128),
+                    ("fp32", SERVE_NQ), ("fp32", 16)]
+        if name == "finemax":
+            readings += [("int8", SERVE_NQ), ("int8", 16), ("int8x8", SERVE_NQ),
+                         ("int8x8", 16)]
+        for mode, nq in readings:
+            ms, plain_ms = timer(mode, nq, iters=3 if mode == "fp32" else 5)
+            q, db, s = modes[mode]
+            kind = {"bf16": "bf16", "fp32": "fp32", "int8": "bf16", "int8x8": "int8"}[mode]
+            b = bounder(q[:nq], db, s, kind)
+            key = (f"{mode}_" if mode != "bf16" else "") + f"nq{nq}"
+            extra[name].update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                                f"{key}_bound_ms": b["bound_ms"],
+                                f"{key}_bound_by": b["bound_by"]})
+    # K2 at nq = 256 with k = 1 and 16 beside k = 10: the selection's share
+    for k in (1, 16):
+        ms, plain_ms = timed_k2("bf16", SERVE_NQ, k=k)
+        b = k2_bound(modes["bf16"][0], modes["bf16"][1], None, "bf16", k=k)
+        extra["fused_topk"].update({f"k{k}_ms": ms, f"k{k}_plain_ms": plain_ms,
+                                    f"k{k}_bound_ms": b["bound_ms"],
+                                    f"k{k}_bound_by": b["bound_by"]})
+    extra["fused_topk"]["dispatch_k10_ms"] = dispatch_timing(topk, modes["bf16"][:2])
     library = {"fused_topk": (library_ms, "bf16 torch.matmul of the same operands"),
                "finemax": (library_ms, "bf16 torch.matmul of the same operands"),
                "gather_scores": (None, NO_LIBRARY + " (a gather of 8-row blocks "
                                  "per query, then their dot products)")}
-    print(f"library bf16 torch.matmul {shape}: {library_ms:.3f} ms")
+    replaces = {"fused_topk": "dirjax/ops/topk_pallas.py:56",
+                "finemax": "dirjax/ops/topk_pallas.py:166",
+                "gather_scores": "dirjax/ops/topk_pallas.py:299"}
     entries = [{"name": name, "route": "cuda", "source": "dirjax_torch/csrc/topk.cu",
                 "replaces": replaces[name], "max_abs_err": err[name],
                 "ms": timed[name][0], "plain_ms": timed[name][1], **bounds[name],
-                "library_ms": library[name][0], "library_note": library[name][1]}
+                "library_ms": library[name][0], "library_note": library[name][1],
+                **extra.get(name, {})}
                for name in ("fused_topk", "finemax", "gather_scores")]
     return entries, db16
 
@@ -703,6 +796,13 @@ def pq_kernel_phase(device, db32):
     library_ms = _time_ms(lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"),
                           iters=5)
     print(f"library embedding_bag (sum) {shape}: {library_ms:.3f} ms")
+    # and at ksub 256 (block 8), K6's other reading
+    flat = (codes[256].long() + torch.arange(PQ_M, device=device) * 256).contiguous()
+    table = luts[256].reshape(SERVE_NQ, -1).T.contiguous()
+    ks256_library_ms = _time_ms(
+        lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"), iters=5)
+    print(f"library embedding_bag (sum) {SERVE_N}x{PQ_M} ksub=256 fp32 nq={SERVE_NQ}: "
+          f"{ks256_library_ms:.3f} ms")
     del flat, table
     nq, kf = SERVE_NQ, bids.shape[1]
     lookups = float(nq) * SERVE_N * PQ_M
@@ -717,7 +817,11 @@ def pq_kernel_phase(device, db32):
                          "codes and tables (writes the score matrix)",
          "onehot_bound_ms": onehot, "bf16_ms": extra["bf16"][0],
          "bf16_plain_ms": extra["bf16"][1], "ksub256_ms": extra["ksub256"][0],
-         "ksub256_plain_ms": extra["ksub256"][1]},
+         "ksub256_plain_ms": extra["ksub256"][1],
+         **{f"ksub256_{k}": v for k, v in bound(
+             codes[256].numel() + luts[256].numel() * 4 + nq * -(-SERVE_N // 8) * 4,
+             lookups, "fp32").items()},
+         "ksub256_library_ms": ks256_library_ms},
         {"name": "adc_gather_scores", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
          "replaces": "dirjax/ops/pq.py:393-421 (_pq_topk_hier phase C, XLA)",
          "max_abs_err": err["adc_gather_scores"],

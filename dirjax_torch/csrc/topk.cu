@@ -2,10 +2,10 @@
 // and K4.
 //
 // Replaces the TPU kernels of dirjax/ops/topk_pallas.py:
-//   K2 dirjax_fused_topk    <- _kernel (launched by _fused): per database slab,
-//      scores against a group of queries, then k rounds of max -> lowest
-//      index -> knock-out. Writes (nq, slabs*k) values and int64 indices,
-//      -inf/-1 where a slab has fewer than k live rows.
+//   K2 dirjax_fused_topk    <- _kernel (launched by _fused): per database slab
+//      of 512 rows, scores against a group of queries, then the top-k with
+//      ties to the lower index. Writes (nq, slabs*k) values and int64
+//      indices, -inf/-1 where a slab has fewer than k live rows.
 //   K3 dirjax_finemax       <- _finemax_kernel / _scaled_finemax_kernel
 //      (launched by _finemax_phase1): streams the database once and writes
 //      only the maximum score over each 8 consecutive rows (a fine block),
@@ -17,27 +17,68 @@
 //
 // Operand modes (database row x query), as _score_dot fixes them:
 //   0 fp32 x fp32, 1 bf16 x bf16, 2 int8 x bf16 (fp32 accumulation; the
-//   int8 value and every product are exact in fp32), 3 int8 x int8 (exact
-//   int32 accumulation, then one round to fp32).
+//   int8 value and every product are exact), 3 int8 x int8 (exact int32
+//   accumulation, then one round to fp32).
+//
+// What bounds them. At the serving shape (n = 1M rows of D = 2048, nq = 256)
+// K2 and K3 read the rows once (4.3 GB bf16, >= 1.3 ms at 3.35 TB/s; int8
+// half that) against 5.5e11 multiply-adds (1.1 ms of bf16 tensor-core peak,
+// 0.56 ms int8): near the ridge, so both the stream and the contraction
+// must run at rate. At nq <= 16 they are bound by the bytes alone. K4 is
+// bound by the reads of its candidate rows (nq * kf * 8 rows). Within this
+// design, at large nq each stage re-stages its queries from L2 beside the
+// rows (48 KB per 128 x 256 x 64 step), so L2 -> SM traffic rather than HBM
+// or the tensor cores sets K3's pace; K2 takes at most 64 queries a unit
+// (the slab's scores live in shared memory), so at nq = 256 four query
+// groups stream every slab from L2, and its k selection rounds add to that.
+//
+// The design, modes 1-3 (score_tiles and mma_issue below, one routine for
+// all three kernels):
+//   - Tensor cores: wgmma (wgmma.cuh) m64nNk16 bf16 -> fp32 (modes 1, 2)
+//     and m64nNk32 s8 -> s32 (mode 3), both operands read from shared
+//     memory. Database rows are the M side (two warpgroups of 64 rows make
+//     a 128-row tile), queries the N side (N = 8 ... 256 by nq), so both are
+//     K-major as stored. Mode 2 copies the int8 rows at half the bytes and
+//     widens them to bf16 in registers (exact: |v| <= 127) as the A operand
+//     of the same bf16 wgmma, with B still from shared memory.
+//   - Staging: a ring of up to 4 shared-memory stages, each one 128-byte
+//     slice of every row of the tile and of its queries, fed by cp.async
+//     (16 bytes a thread; 8 or 4 with zero-fill where a row's bytes are not
+//     16-byte aligned, e.g. int8 at D = 200; plain loads below 4) and laid
+//     out in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8))
+//     that wgmma reads without bank conflicts. The copies of the next
+//     stages are in flight while a stage multiplies. Rows >= n, queries
+//     >= nq and d >= D are zero-filled by the copy itself; the database is
+//     never padded.
+//   - Grid: persistent CTAs (as many as fit on the SMs) walk work units
+//     (row tile, query group) with the query group fastest, so the groups
+//     of one row tile run side by side and HBM delivers each row once (at
+//     nq <= 256 in modes 1 and 3 there is one group); the ring runs across
+//     unit boundaries. A unit takes the smallest N that holds nq, so small
+//     nq does no wasted tensor work and streams with its 16 KB stages.
+//   - K3: a fine block is 8 rows of one accumulator fragment, so its
+//     maximum is three shuffles; the optional scale is one __fmul_rn after
+//     the dot. K2: a unit is a 512-row slab (4 tiles, N <= 64); each tile's
+//     scores go to shared memory, then one warp per query keeps its 16
+//     scores in registers and takes k rounds of a warp argmax over the
+//     lanes' cached maxima (only the lane that lost its maximum rescans),
+//     with no barrier between rounds. K4: a unit is one query's 16
+//     candidate blocks (128 gathered rows) against that query alone, at its
+//     column q % N of the N that K3 takes at the same nq.
 //
 // Containment (topk_pallas.py:24-29) needs K4's rescored rows to reproduce
-// K3's maxima bit for bit. Both score a (row, query) pair through the one
-// routine `mac` below: one accumulator per pair, starting at 0, fed by fmaf
-// (or an exact int32 multiply-add) over d = 0, 1, ... in increasing order,
-// and padded with zero operands to a multiple of kChunk in both kernels.
-// K3 applies the int8 row scale after the dot as one fp32 multiply, which is
-// what the caller's finish step does to K4's raw scores.
+// K3's maxima bit for bit. In modes 1-3 both score a (row, query) pair
+// through mma_issue: the same wgmma instruction and shape (K4 picks N by
+// K3's rule, by_query_width, and puts the query in K3's column), fed the
+// same operand values, over d in the same 16- (or 32-) wide steps into one
+// fp32 (or int32) accumulator that starts at 0, zero-padded alike past D.
+// K3 applies the int8 row scale after the dot as one fp32 multiply, which
+// is what the caller's finish step does to K4's raw scores.
 //
-// What bounds them: at the serving shape (n = 1M rows of D = 2048 bf16,
-// nq = 256) K3 reads 4.3 GB (>= 1.3 ms at 3.35 TB/s) against 1.07 TFLOP.
-// This first design runs that on the CUDA cores (fp32 FMA, ~67 TFLOP/s peak,
-// so >= 16 ms): each thread owns one fine block (8 rows) x TN queries of
-// accumulators, and the block stages 16-wide d slices of 128 rows and up to
-// 128 queries in shared memory, widened to the compute type. Tensor cores
-// (wmma/wgmma) and a TMA pipeline are later work. K4 is bound by the reads
-// of its candidate rows (nq * kf * 8 rows), and K2 by the same contraction
-// as K3 (queries are taken 16 to a block, so a slab is re-read from L2 once
-// per query group; the grid runs the groups of one slab side by side).
+// Mode 0 stays on the CUDA cores (TileScorer, `mac`: one fmaf per product,
+// d increasing, in all three kernels): no tensor-core input type computes
+// fp32 products within the port's 1e-5 contract without splitting the
+// operands (TF32 keeps about three digits).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,86 +86,62 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int kRowsPerBlock = 8;                         // fine block (_RPB)
+constexpr int kSlab = 512;                               // K2 rows per slab
+constexpr int kMaxGridY = 65535;
+
+enum Mode { kF32 = 0, kBF16 = 1, kI8BF16 = 2, kI8I8 = 3 };
+
+// --------------------------------------------------------------------------
+// Mode 0: fp32 on the CUDA cores
+// --------------------------------------------------------------------------
+
 constexpr int kFineBlocks = 16;                          // fine blocks per tile
 constexpr int kTileRows = kFineBlocks * kRowsPerBlock;   // 128 rows per tile
 constexpr int kQueryGroups = 16;                         // thread rows per tile
 constexpr int kThreads = kFineBlocks * kQueryGroups;     // 256
 constexpr int kChunk = 16;                               // d values per stage
-constexpr int kSlab = 512;                               // K2 rows per slab
 constexpr int kGatherThreads = 128;                      // K4: 16 fine blocks
-constexpr int kMaxGridY = 65535;
 
-enum Mode { kF32 = 0, kBF16 = 1, kI8BF16 = 2, kI8I8 = 3 };
-
-template <int M> struct Traits;
-template <> struct Traits<kF32> {
-  using R = float; using Q = float; using C = float; using Acc = float;
-};
-template <> struct Traits<kBF16> {
-  using R = __nv_bfloat16; using Q = __nv_bfloat16; using C = float; using Acc = float;
-};
-template <> struct Traits<kI8BF16> {
-  using R = int8_t; using Q = __nv_bfloat16; using C = float; using Acc = float;
-};
-template <> struct Traits<kI8I8> {
-  using R = int8_t; using Q = int8_t; using C = int; using Acc = int;
-};
-
-// Exact widening of an operand to the compute type.
-template <typename C> struct Widen;
-template <> struct Widen<float> {
-  __device__ static float of(float v) { return v; }
-  __device__ static float of(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float of(int8_t v) { return static_cast<float>(v); }
-};
-template <> struct Widen<int> {
-  __device__ static int of(int8_t v) { return static_cast<int>(v); }
-};
-
-// The one (row, query) contraction step that K2, K3 and K4 share.
+// The one (row, query) contraction step that K2, K3 and K4 share in mode 0.
 __device__ __forceinline__ void mac(float& acc, float row, float query) {
   acc = fmaf(row, query, acc);
 }
-__device__ __forceinline__ void mac(int& acc, int row, int query) {
-  acc += row * query;
-}
-__device__ __forceinline__ float score_of(float acc) { return acc; }
-__device__ __forceinline__ float score_of(int acc) { return __int2float_rn(acc); }
 
 // acc[i][j] = score of row row0 + tx*8 + i against query q0 + ty*TN + j, for
 // the 128-row x (16*TN)-query tile of one thread block. Rows >= n, queries
 // >= nq and d >= D enter as zero operands. Ends with a barrier, so the
 // staging buffers may be reused at once.
-template <int M, int TN>
+template <int TN>
 struct TileScorer {
-  using R = typename Traits<M>::R;
-  using Q = typename Traits<M>::Q;
-  using C = typename Traits<M>::C;
-  using Acc = typename Traits<M>::Acc;
   static constexpr int kQ = kQueryGroups * TN;
 
   // a[d][(r % 8) * 16 + r / 8]: a thread's 8 rows are 16 words apart, so the
   // 16 fine blocks of a warp read 16 consecutive words. Row stride 129 keeps
   // the transposing stores free of bank conflicts.
   struct Smem {
-    C a[kChunk][kTileRows + 1];
-    C b[kChunk][kQ + 1];
+    float a[kChunk][kTileRows + 1];
+    float b[kChunk][kQ + 1];
   };
 
   __device__ __forceinline__ static void run(
-      Smem& sm, const R* __restrict__ db, const Q* __restrict__ q, long long n,
-      long long nq, int d, long long row0, long long q0,
-      Acc (&acc)[kRowsPerBlock][TN]) {
+      Smem& sm, const float* __restrict__ db, const float* __restrict__ q,
+      long long n, long long nq, int d, long long row0, long long q0,
+      float (&acc)[kRowsPerBlock][TN]) {
     const int tid = threadIdx.x;
     const int tx = tid % kFineBlocks;
     const int ty = tid / kFineBlocks;
 #pragma unroll
     for (int i = 0; i < kRowsPerBlock; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
     for (int d0 = 0; d0 < d; d0 += kChunk) {
       for (int e = tid; e < kTileRows * kChunk; e += kThreads) {
@@ -132,18 +149,18 @@ struct TileScorer {
         const long long row = row0 + rl;
         const int col = d0 + dd;
         sm.a[dd][(rl % kRowsPerBlock) * kFineBlocks + rl / kRowsPerBlock] =
-            (row < n && col < d) ? Widen<C>::of(db[row * d + col]) : C(0);
+            (row < n && col < d) ? db[row * d + col] : 0.f;
       }
       for (int e = tid; e < kQ * kChunk; e += kThreads) {
         const int ql = e / kChunk, dd = e % kChunk;
         const long long qi = q0 + ql;
         const int col = d0 + dd;
-        sm.b[dd][ql] = (qi < nq && col < d) ? Widen<C>::of(q[qi * d + col]) : C(0);
+        sm.b[dd][ql] = (qi < nq && col < d) ? q[qi * d + col] : 0.f;
       }
       __syncthreads();
 #pragma unroll
       for (int dd = 0; dd < kChunk; ++dd) {
-        C a[kRowsPerBlock], b[TN];
+        float a[kRowsPerBlock], b[TN];
 #pragma unroll
         for (int i = 0; i < kRowsPerBlock; ++i) a[i] = sm.a[dd][i * kFineBlocks + tx];
 #pragma unroll
@@ -158,22 +175,22 @@ struct TileScorer {
   }
 };
 
-// K3. Grid (ceil(nq / (16*TN)), min(row tiles, 65535)); blocks stride over
-// the row tiles. out is (nq, blocks) fp32, block b = rows [8b, 8b + 8).
-template <int M, int TN>
+// K3, mode 0. Grid (ceil(nq / (16*TN)), min(row tiles, 65535)); blocks
+// stride over the row tiles. out is (nq, blocks) fp32, block b = rows
+// [8b, 8b + 8).
+template <int TN>
 __global__ void __launch_bounds__(kThreads)
-finemax_kernel(const typename Traits<M>::Q* __restrict__ q,
-               const typename Traits<M>::R* __restrict__ db,
-               const float* __restrict__ scales, long long nq, long long n,
-               int d, long long blocks, float* __restrict__ out) {
-  using S = TileScorer<M, TN>;
+finemax_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                   const float* __restrict__ scales, long long nq, long long n,
+                   int d, long long blocks, float* __restrict__ out) {
+  using S = TileScorer<TN>;
   __shared__ typename S::Smem sm;
   const int tx = threadIdx.x % kFineBlocks;
   const int ty = threadIdx.x / kFineBlocks;
   const long long q0 = (long long)blockIdx.x * S::kQ;
   const long long tiles = (blocks + kFineBlocks - 1) / kFineBlocks;
   for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
-    typename S::Acc acc[kRowsPerBlock][TN];
+    float acc[kRowsPerBlock][TN];
     S::run(sm, db, q, n, nq, d, t * kTileRows, q0, acc);
     const long long blk = t * kFineBlocks + tx;
     if (blk >= blocks) continue;
@@ -186,7 +203,7 @@ finemax_kernel(const typename Traits<M>::Q* __restrict__ q,
       for (int i = 0; i < kRowsPerBlock; ++i) {
         const long long row = blk * kRowsPerBlock + i;
         if (row < n) {
-          float s = score_of(acc[i][j]);
+          float s = acc[i][j];
           if (scales != nullptr) s = __fmul_rn(s, scales[row]);
           m = fmaxf(m, s);
         }
@@ -196,17 +213,15 @@ finemax_kernel(const typename Traits<M>::Q* __restrict__ q,
   }
 }
 
-// K2. Grid (ceil(nq / 16), min(slabs, 65535)): the query groups of one slab
-// are neighbours in launch order, so they share the slab through L2. Each
-// block scores 16 queries against a 512-row slab into shared memory, then
-// each warp selects for 2 of the queries.
-template <int M>
+// K2, mode 0. Grid (ceil(nq / 16), min(slabs, 65535)): the query groups of
+// one slab are neighbours in launch order, so they share the slab through
+// L2. Each block scores 16 queries against a 512-row slab into shared
+// memory, then each warp selects for 2 of the queries.
 __global__ void __launch_bounds__(kThreads)
-fused_topk_kernel(const typename Traits<M>::Q* __restrict__ q,
-                  const typename Traits<M>::R* __restrict__ db, long long nq,
-                  long long n, int d, int k, long long slabs,
-                  float* __restrict__ vals, long long* __restrict__ idxs) {
-  using S = TileScorer<M, 1>;
+fused_topk_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                      long long nq, long long n, int d, int k, long long slabs,
+                      float* __restrict__ vals, long long* __restrict__ idxs) {
+  using S = TileScorer<1>;
   __shared__ typename S::Smem sm;
   __shared__ float scores[kQueryGroups][kSlab + 1];
   const int tid = threadIdx.x;
@@ -218,13 +233,12 @@ fused_topk_kernel(const typename Traits<M>::Q* __restrict__ q,
   for (long long slab = blockIdx.y; slab < slabs; slab += gridDim.y) {
     for (int pass = 0; pass < kSlab / kTileRows; ++pass) {
       const long long row0 = slab * kSlab + pass * kTileRows;
-      typename S::Acc acc[kRowsPerBlock][1];
+      float acc[kRowsPerBlock][1];
       S::run(sm, db, q, n, nq, d, row0, q0, acc);
 #pragma unroll
       for (int i = 0; i < kRowsPerBlock; ++i) {
         const int c = tx * kRowsPerBlock + i;
-        scores[ty][pass * kTileRows + c] =
-            row0 + c < n ? score_of(acc[i][0]) : -INFINITY;
+        scores[ty][pass * kTileRows + c] = row0 + c < n ? acc[i][0] : -INFINITY;
       }
     }
     __syncthreads();
@@ -259,19 +273,17 @@ fused_topk_kernel(const typename Traits<M>::Q* __restrict__ q,
   }
 }
 
-// K4. Grid (nq, ceil(kf / 16)); thread t scores row t % 8 of candidate fine
-// block t / 8 of this block's 16. A block id outside the rows (or one whose
-// 8 rows pass n) yields NaN: the caller never asks for one.
-template <int M>
+// K4, mode 0. Grid (nq, ceil(kf / 16)); thread t scores row t % 8 of
+// candidate fine block t / 8 of this block's 16. A block id outside the
+// rows (or one whose 8 rows pass n) yields NaN: the caller never asks for
+// one.
 __global__ void __launch_bounds__(kGatherThreads)
-gather_scores_kernel(const typename Traits<M>::Q* __restrict__ q,
-                     const typename Traits<M>::R* __restrict__ db,
-                     const long long* __restrict__ bids, long long nq,
-                     long long n, int d, long long kf, float* __restrict__ out) {
-  using C = typename Traits<M>::C;
+gather_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                         const long long* __restrict__ bids, long long nq,
+                         long long n, int d, long long kf, float* __restrict__ out) {
   constexpr int kBlocks = kGatherThreads / kRowsPerBlock;
-  __shared__ C rs[kGatherThreads][kChunk + 1];
-  __shared__ C qs[kChunk];
+  __shared__ float rs[kGatherThreads][kChunk + 1];
+  __shared__ float qs[kChunk];
   __shared__ long long first_row[kBlocks];
   const int t = threadIdx.x;
   const long long qi = blockIdx.x;
@@ -285,16 +297,14 @@ gather_scores_kernel(const typename Traits<M>::Q* __restrict__ q,
     first_row[t] = r;
   }
   __syncthreads();
-  typename Traits<M>::Acc acc = 0;
+  float acc = 0.f;
   for (int d0 = 0; d0 < d; d0 += kChunk) {
-    if (t < kChunk) qs[t] = d0 + t < d ? Widen<C>::of(q[qi * d + d0 + t]) : C(0);
+    if (t < kChunk) qs[t] = d0 + t < d ? q[qi * d + d0 + t] : 0.f;
     for (int e = t; e < kGatherThreads * kChunk; e += kGatherThreads) {
       const int rl = e / kChunk, dd = e % kChunk;
       const long long r0 = first_row[rl / kRowsPerBlock];
       const int col = d0 + dd;
-      rs[rl][dd] = (r0 >= 0 && col < d)
-                       ? Widen<C>::of(db[(r0 + rl % kRowsPerBlock) * d + col])
-                       : C(0);
+      rs[rl][dd] = (r0 >= 0 && col < d) ? db[(r0 + rl % kRowsPerBlock) * d + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -303,61 +313,730 @@ gather_scores_kernel(const typename Traits<M>::Q* __restrict__ q,
   }
   if (c0 + t / kRowsPerBlock < kf) {
     out[qi * kf * kRowsPerBlock + c0 * kRowsPerBlock + t] =
-        first_row[t / kRowsPerBlock] >= 0 ? score_of(acc) : NAN;
+        first_row[t / kRowsPerBlock] >= 0 ? acc : NAN;
   }
+}
+
+// --------------------------------------------------------------------------
+// Modes 1-3: tensor cores, fed by a cp.async ring
+// --------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;    // 8 warps
+constexpr int kTcRows = 128;       // M: database rows per tile
+constexpr int kSliceBytes = 128;   // bytes of one row per stage
+constexpr int kMaxStages = 4;
+constexpr int kMaxRingBytes = 192 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a slice of 128-byte rows.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kSliceBytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy the 16 bytes of `row` at byte `off` into shared `dst`, zero-filling
+// past `len` bytes (and all 16 for a null row). `vec` is the widest copy the
+// row's alignment allows: 16, 8, 4, or 1 (plain loads). A copy of 0 bytes
+// still names a valid address, `base`.
+__device__ __forceinline__ void copy_chunk(char* dst, const char* row, int off,
+                                           int len, int vec, const char* base) {
+  int valid = row == nullptr ? 0 : len - off;
+  valid = valid < 0 ? 0 : (valid > 16 ? 16 : valid);
+  const char* src = valid > 0 ? row + off : base;
+  const uint32_t s = smem_u32(dst);
+  if (vec == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(s), "l"(src), "r"(valid) : "memory");
+  } else if (vec == 8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = valid - 8 * h;
+      v = v < 0 ? 0 : (v > 8 ? 8 : v);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   ::"r"(s + 8 * h), "l"(v > 0 ? src + 8 * h : src), "r"(v) : "memory");
+    }
+  } else if (vec == 4) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      int v = valid - 4 * h;
+      v = v < 0 ? 0 : (v > 4 ? 4 : v);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   ::"r"(s + 4 * h), "l"(v > 0 ? src + 4 * h : src), "r"(v) : "memory");
+    }
+  } else {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    for (int i = 0; i < valid; ++i)
+      w[i >> 2] |= (uint32_t)(uint8_t)src[i] << (8 * (i & 3));
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Orders this thread's generic-proxy shared-memory writes (cp.async
+// landings, plain stores) before the async proxy's wgmma reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// Keeps the compiler off accumulator registers while a wgmma owns them.
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void pin(int& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// Descriptor of a K-major wgmma operand in the 128-byte swizzle: 8-row atoms
+// of 1024 bytes (the stride byte offset; the leading one is unused). `addr`
+// is an atom-aligned tile start plus the k step's byte offset (32 a step).
+__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// Two int8 (bytes 0 and 1 of w) -> one bf16 pair, exactly, on the
+// full-rate ALUs (an int -> float convert runs at a fraction of their rate):
+// byte b ^ 0x80 = b + 128 goes into the mantissa of 2^23, and subtracting
+// 2^23 + 128 leaves b as an exact fp32. An integer |b| <= 128 is exact in
+// bf16, whose bits are the fp32's top 16.
+__device__ __forceinline__ uint32_t widen(uint32_t w) {
+  const uint32_t biased = w ^ 0x8080u;   // bytes [b0 + 128, b1 + 128, 0, 0]
+  const float f0 = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7541)) - 8388736.0f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+__device__ __forceinline__ float score_of(float acc) { return acc; }
+__device__ __forceinline__ float score_of(int acc) { return __int2float_rn(acc); }
+
+// Tile shape of a mode and a query width BN (N of the wgmma). Each of the
+// two warpgroups owns 64 of the 128 rows; warp w holds rows 16w..16w+15 of
+// the tile as NT = BN/8 fragments of 8 queries (wgmma.cuh). A stage holds
+// one 128-byte slice of each row (A) and QMUL slices of each query (B):
+// mode 1 takes 64 d values a stage, modes 2 and 3 take 128.
+template <int M, int BN_>
+struct Tc {
+  static constexpr int BN = BN_;
+  static constexpr int NT = BN / 8;
+  static constexpr int QMUL = M == kI8BF16 ? 2 : 1;
+  static constexpr int KE = M == kBF16 ? 64 : 128;   // d values per stage
+  static constexpr int A_BYTES = kTcRows * kSliceBytes;
+  static constexpr int B_BYTES = BN * kSliceBytes * QMUL;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int FIT = kMaxRingBytes / STAGE_BYTES;
+  static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  using Acc = typename std::conditional<M == kI8I8, int, float>::type;
+  static_assert(STAGES >= 2 && STAGE_BYTES % 1024 == 0, "tile shape");
+};
+
+// What every tensor-core kernel gives the ring: the operands' bytes and the
+// widest copy their alignment allows.
+struct Operands {
+  const char* db;
+  const char* q;
+  long long n, nq;
+  int d, row_bytes, q_bytes, row_vec, q_vec;
+};
+
+// The rows and queries whose chunks this thread copies for one tile: chunk
+// e = threadIdx.x + i * 256 of a slice is 16-byte chunk e % 8 of row e / 8
+// (of query (e / 8) % BN, half e / (8 * BN), for B). Work::row and
+// Work::query name a row or query by its position in the tile, or return
+// null for a zero operand; they run once a tile, not once a stage.
+template <class C>
+struct TileSrc {
+  static constexpr int A_CHUNKS = kTcRows * 8, B_CHUNKS = C::BN * 8 * C::QMUL;
+  static constexpr int A_IT = A_CHUNKS / kTcThreads;
+  static constexpr int B_IT = (B_CHUNKS + kTcThreads - 1) / kTcThreads;
+  const char* a[A_IT];
+  const char* b[B_IT];
+
+  template <class Work>
+  __device__ __forceinline__ void set(const Work& w, long long unit, int tile) {
+#pragma unroll
+    for (int i = 0; i < A_IT; ++i) a[i] = w.row(unit, tile, (threadIdx.x + i * kTcThreads) >> 3);
+#pragma unroll
+    for (int i = 0; i < B_IT; ++i)
+      b[i] = w.query(unit, ((threadIdx.x + i * kTcThreads) >> 3) % C::BN);
+  }
+};
+
+// Stage `kb` (d values [kb*KE, kb*KE + KE)) of the tile `src` names into
+// `stage`.
+template <class C>
+__device__ __forceinline__ void load_stage(char* stage, const TileSrc<C>& src,
+                                           const Operands& o, int kb) {
+  using S = TileSrc<C>;
+#pragma unroll
+  for (int i = 0; i < S::A_IT; ++i) {
+    const int e = threadIdx.x + i * kTcThreads, r = e >> 3, c = e & 7;
+    copy_chunk(stage + swz(r, c), src.a[i], kb * kSliceBytes + c * 16, o.row_bytes,
+               o.row_vec, o.db);
+  }
+#pragma unroll
+  for (int i = 0; i < S::B_IT; ++i) {
+    const int e = threadIdx.x + i * kTcThreads;
+    if (S::B_CHUNKS % kTcThreads != 0 && e >= S::B_CHUNKS) break;
+    const int h = e / (C::BN * 8), r = (e >> 3) % C::BN, c = e & 7;
+    copy_chunk(stage + C::A_BYTES + h * C::BN * kSliceBytes + swz(r, c), src.b[i],
+               (kb * C::QMUL + h) * kSliceBytes + c * 16, o.q_bytes, o.q_vec, o.q);
+  }
+}
+
+// The one scoring routine of K2, K3 and K4 in modes 1-3: starts adding one
+// landed stage's products into the warpgroup's accumulators, one wgmma per
+// 32 bytes of each row, d increasing; mma_wait ends it. In mode 2 each warp
+// widens its 16 int8 rows of the stage into the bf16 A fragments in
+// registers, and the wgmma is the bf16 one with A from registers.
+template <int M, class C>
+__device__ __forceinline__ void mma_issue(const char* stage,
+                                          typename C::Acc (&acc)[C::NT * 4]) {
+  using dirjax_wgmma::Wgmma;
+  const uint32_t b = smem_u32(stage + C::A_BYTES);
+  if constexpr (M == kI8BF16) {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);   // rows r, r + 8
+    uint32_t a[kSliceBytes / 16][4];   // k16 step j: d 16j..16j+15, chunk j
+#pragma unroll
+    for (int j = 0; j < kSliceBytes / 16; ++j) {
+      const char* top = stage + swz(r, j) + 2 * t;
+      const char* bot = stage + swz(r + 8, j) + 2 * t;
+      a[j][0] = widen(*reinterpret_cast<const uint16_t*>(top));       // d 2t, 2t+1
+      a[j][1] = widen(*reinterpret_cast<const uint16_t*>(bot));
+      a[j][2] = widen(*reinterpret_cast<const uint16_t*>(top + 8));   // d 2t+8, 2t+9
+      a[j][3] = widen(*reinterpret_cast<const uint16_t*>(bot + 8));
+    }
+#pragma unroll
+    for (int i = 0; i < C::NT * 4; ++i) pin(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSliceBytes / 16; ++j)   // queries: bf16 halves of 64 d
+      Wgmma<C::BN>::run(acc, a[j], sw128(b + (j >> 2) * C::BN * kSliceBytes + 32 * (j & 3)));
+  } else {
+    const uint32_t a = smem_u32(stage) + (threadIdx.x >> 7) * 64 * kSliceBytes;
+#pragma unroll
+    for (int i = 0; i < C::NT * 4; ++i) pin(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kSliceBytes / 32; ++s)
+      Wgmma<C::BN>::run(acc, sw128(a + 32 * s), sw128(b + 32 * s));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <class T, int K>
+__device__ __forceinline__ void mma_wait(T (&acc)[K]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < K; ++i) pin(acc[i]);
+}
+
+// A position in a CTA's walk: work unit, row tile of the unit, stage.
+template <int kTiles>
+struct Cursor {
+  long long unit;
+  int tile, kb;
+  __device__ __forceinline__ void next(int nkb) {
+    if (++kb == nkb) {
+      kb = 0;
+      if (++tile == kTiles) { tile = 0; unit += gridDim.x; }
+    }
+  }
+};
+
+// Runs the ring over this CTA's work units (unit = blockIdx.x + i*gridDim.x
+// < w.units, each of Work::kTiles row tiles) and calls w.epilogue(unit, tile,
+// acc, warp, lane) once a tile has seen every d. The ring does not drain
+// between tiles or units. Every thread takes the same path, so epilogues
+// may synchronise.
+template <int M, class C, class Work>
+__device__ __forceinline__ void score_tiles(char* ring, Work& w) {
+  const int nkb = (w.ops.d + C::KE - 1) / C::KE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Cursor<Work::kTiles> ld{blockIdx.x, 0, 0}, cp{blockIdx.x, 0, 0};
+  TileSrc<C> src;
+  long long loaded = 0;
+#pragma unroll 1
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (ld.unit < w.units) {
+      if (ld.kb == 0) src.set(w, ld.unit, ld.tile);
+      load_stage<C>(ring + s * C::STAGE_BYTES, src, w.ops, ld.kb);
+      ld.next(nkb);
+      ++loaded;
+    }
+    cp_async_commit();
+  }
+  typename C::Acc acc[C::NT * 4];
+#pragma unroll
+  for (int i = 0; i < C::NT * 4; ++i) acc[i] = 0;
+#pragma unroll 1
+  for (long long it = 0; cp.unit < w.units; ++it) {
+    cp_async_wait<C::STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();   // stage `it` has landed; stage `it - 1` is free
+    mma_issue<M, C>(ring + (it % C::STAGES) * C::STAGE_BYTES, acc);
+    if (ld.unit < w.units) {   // copies into stage `it - 1` while the wgmmas run
+      if (ld.kb == 0) src.set(w, ld.unit, ld.tile);
+      load_stage<C>(ring + (loaded % C::STAGES) * C::STAGE_BYTES, src, w.ops, ld.kb);
+      ld.next(nkb);
+      ++loaded;
+    }
+    cp_async_commit();
+    mma_wait(acc);
+    if (cp.kb == nkb - 1) {
+      w.template epilogue<C>(cp.unit, cp.tile, acc, warp, lane);
+#pragma unroll
+      for (int i = 0; i < C::NT * 4; ++i) acc[i] = 0;
+    }
+    cp.next(nkb);
+  }
+  cp_async_wait<0>();
+}
+
+// K3: a unit is (row tile, query group), the group fastest.
+template <int BN>
+struct FinemaxWork {
+  static constexpr int kTiles = 1;
+  static constexpr int kSharedBytes = 0;   // beside the ring
+  Operands ops;
+  const float* scales;
+  long long blocks, qgroups, units;
+  float* out;
+
+  __device__ __forceinline__ const char* row(long long unit, int, int r) const {
+    const long long i = unit / qgroups * kTcRows + r;
+    return i < ops.n ? ops.db + i * ops.row_bytes : nullptr;
+  }
+  __device__ __forceinline__ const char* query(long long unit, int c) const {
+    const long long i = unit % qgroups * BN + c;
+    return i < ops.nq ? ops.q + i * ops.q_bytes : nullptr;
+  }
+  __device__ __forceinline__ float scaled(float s, long long r) const {
+    if (r >= ops.n) return -INFINITY;
+    return scales != nullptr ? __fmul_rn(s, scales[r]) : s;
+  }
+  // A fine block is 8 rows of one fragment: its maximum takes 3 shuffles.
+  template <class C>
+  __device__ __forceinline__ void epilogue(long long unit, int,
+                                           typename C::Acc (&acc)[C::NT * 4], int warp,
+                                           int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const long long q0 = unit % qgroups * BN + 2 * t;
+    const long long r0 = unit / qgroups * kTcRows + warp * 16;
+    const long long blk = r0 / kRowsPerBlock;   // rows r0..r0+7; blk + 1: r0+8..
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float top = scaled(score_of(acc[nt * 4 + e]), r0 + g);
+        float bot = scaled(score_of(acc[nt * 4 + 2 + e]), r0 + 8 + g);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
+          bot = fmaxf(bot, __shfl_xor_sync(0xffffffffu, bot, off));
+        }
+        const long long qi = q0 + nt * 8 + e;
+        if (g == 0 && qi < ops.nq) {
+          if (blk < blocks) out[qi * blocks + blk] = top;
+          if (blk + 1 < blocks) out[qi * blocks + blk + 1] = bot;
+        }
+      }
+  }
+};
+
+// K4: a unit is one query's 16 candidate blocks; its queries are that one
+// query, at its column q % BN of K3's tile, and zeros. BN is the one K3
+// takes at this nq (by_query_width), so both issue the same wgmma shape.
+template <int BN>
+struct GatherWork {
+  static constexpr int kTiles = 1;
+  static constexpr int kSharedBytes = 0;
+  Operands ops;
+  const long long* bids;
+  long long kf, cgroups, units;
+  float* out;
+
+  // first row of candidate c of query qi, or -1 outside the database
+  __device__ __forceinline__ long long first_row(long long qi, long long c) const {
+    if (c >= kf) return -1;
+    const long long b = bids[qi * kf + c];
+    return b >= 0 && b * kRowsPerBlock + kRowsPerBlock <= ops.n ? b * kRowsPerBlock : -1;
+  }
+  __device__ __forceinline__ const char* row(long long unit, int, int r) const {
+    const long long r0 = first_row(unit / cgroups, unit % cgroups * 16 + r / kRowsPerBlock);
+    return r0 < 0 ? nullptr : ops.db + (r0 + r % kRowsPerBlock) * ops.row_bytes;
+  }
+  __device__ __forceinline__ const char* query(long long unit, int c) const {
+    const long long qi = unit / cgroups;
+    return c == (int)(qi % BN) ? ops.q + qi * ops.q_bytes : nullptr;
+  }
+  template <class C>
+  __device__ __forceinline__ void epilogue(long long unit, int,
+                                           typename C::Acc (&acc)[C::NT * 4], int warp,
+                                           int lane) const {
+    const long long qi = unit / cgroups;
+    const int col = (int)(qi % BN), g = lane >> 2, t = lane & 3;
+    // rows g and g + 8 at column col, held by the lanes with 2t = col % 8
+    // rounded down; picked with static indices, so acc stays in registers
+    typename C::Acc top = 0, bot = 0;
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + 2 * t + e == col) {
+          top = acc[nt * 4 + e];
+          bot = acc[nt * 4 + 2 + e];
+        }
+    if (2 * t != (col & 6)) return;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + half * 8 + g;            // row of the 128
+      const long long c = unit % cgroups * 16 + r / kRowsPerBlock;
+      if (c < kf)
+        out[(qi * kf + c) * kRowsPerBlock + r % kRowsPerBlock] =
+            first_row(qi, c) >= 0 ? score_of(half ? bot : top) : NAN;
+    }
+  }
+};
+
+// K2: a unit is (512-row slab, query group), the group fastest; its 4 tiles
+// leave their scores in shared memory, then each warp selects for every 8th
+// query of the group.
+template <int BN>
+struct FusedTopkWork {
+  static constexpr int kTiles = kSlab / kTcRows;
+  static constexpr int kLd = kSlab + 1;   // scores row stride, in floats
+  static constexpr int kSharedBytes = BN * kLd * (int)sizeof(float);
+  Operands ops;
+  long long slabs, qgroups, units;
+  int k;
+  float* vals;
+  long long* idxs;
+  float* scores;   // shared: [BN][kLd]
+
+  __device__ __forceinline__ const char* row(long long unit, int tile, int r) const {
+    const long long i = unit / qgroups * kSlab + tile * kTcRows + r;
+    return i < ops.n ? ops.db + i * ops.row_bytes : nullptr;
+  }
+  __device__ __forceinline__ const char* query(long long unit, int c) const {
+    const long long i = unit % qgroups * BN + c;
+    return i < ops.nq ? ops.q + i * ops.q_bytes : nullptr;
+  }
+  template <class C>
+  __device__ __forceinline__ void epilogue(long long unit, int tile,
+                                           typename C::Acc (&acc)[C::NT * 4], int warp,
+                                           int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const long long slab = unit / qgroups;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = tile * kTcRows + warp * 16 + half * 8 + g;
+      const bool live = slab * kSlab + c < ops.n;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          scores[(nt * 8 + 2 * t + e) * kLd + c] =
+              live ? score_of(acc[nt * 4 + 2 * half + e]) : -INFINITY;
+    }
+    if (tile != kTiles - 1) return;
+    __syncthreads();
+    constexpr int kWarps = kTcThreads / 32;
+    for (int ql = threadIdx.x >> 5; ql < BN; ql += kWarps * kPair) {
+      int pair[kPair];
+#pragma unroll
+      for (int i = 0; i < kPair; ++i) pair[i] = ql + i * kWarps;
+      select(unit, pair, lane);
+    }
+    __syncthreads();   // the next slab's scores overwrite these
+  }
+
+  // Top-k of 512 scores per query, ties to the lower row, for kPair queries
+  // at once (their shuffle chains interleave): lane l holds rows l + 32j
+  // and a mask of those already taken (the scores themselves are never
+  // written, so they stay in registers); each round the lanes' cached
+  // maxima meet in a warp argmax, and only the lane that gave up its
+  // maximum rescans. Result r is kept by lane r % 32 and written 32 at a
+  // time.
+  static constexpr int kPair = 2;
+  static constexpr int kPer = kSlab / 32;   // scores a lane holds
+
+  __device__ __forceinline__ static void rescan(const float (&v)[kPer], unsigned taken,
+                                                int lane, float& best, int& arg) {
+    best = -INFINITY;
+    arg = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)   // increasing j: ties keep the first
+      if (!(taken >> j & 1u) && v[j] > best) { best = v[j]; arg = lane + 32 * j; }
+  }
+
+  // the queries of this group at positions ql[i] < BN
+  __device__ __forceinline__ void select(long long unit, const int (&ql)[kPair],
+                                         int lane) const {
+    const long long slab = unit / qgroups;
+    float v[kPair][kPer], mine[kPair], keep_v[kPair];
+    int mine_at[kPair], end[kPair];
+    unsigned taken[kPair];
+    long long keep_i[kPair], out0[kPair];
+    bool live[kPair];
+#pragma unroll
+    for (int i = 0; i < kPair; ++i) {
+      const long long qi = unit % qgroups * BN + ql[i];
+      live[i] = ql[i] < BN && qi < ops.nq;
+      out0[i] = (qi * slabs + slab) * k;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        v[i][j] = live[i] ? scores[ql[i] * kLd + lane + 32 * j] : -INFINITY;
+      taken[i] = 0u;
+      rescan(v[i], 0u, lane, mine[i], mine_at[i]);
+      keep_v[i] = -INFINITY;
+      keep_i[i] = -1;
+      end[i] = live[i] ? k : 0;
+    }
+    for (int r = 0; r < k; ++r) {
+      float best[kPair];
+      int arg[kPair];
+#pragma unroll
+      for (int i = 0; i < kPair; ++i) {
+        best[i] = live[i] ? mine[i] : -INFINITY;
+        arg[i] = mine_at[i];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < kPair; ++i) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+          const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
+          if (ob > best[i] || (ob == best[i] && oa < arg[i])) { best[i] = ob; arg[i] = oa; }
+        }
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kPair; ++i) {
+        if (!live[i]) continue;
+        if (!(best[i] > -INFINITY)) {   // the slab has no live row left
+          live[i] = false;
+          end[i] = r;
+          continue;
+        }
+        any = true;
+        if (lane == (r & 31)) { keep_v[i] = best[i]; keep_i[i] = slab * kSlab + arg[i]; }
+        if ((r & 31) == 31) {
+          vals[out0[i] + r - 31 + lane] = keep_v[i];
+          idxs[out0[i] + r - 31 + lane] = keep_i[i];
+        }
+        if (lane == (arg[i] & 31)) {   // take the winner, rescan this lane
+          taken[i] |= 1u << (arg[i] >> 5);
+          rescan(v[i], taken[i], lane, mine[i], mine_at[i]);
+        }
+      }
+      if (!any) break;
+    }
+#pragma unroll
+    for (int i = 0; i < kPair; ++i) {
+      if (!(ql[i] < BN && unit % qgroups * BN + ql[i] < ops.nq)) continue;
+      const int base = end[i] & ~31;   // results [base, end) are still with the lanes
+      if (lane < end[i] - base) {
+        vals[out0[i] + base + lane] = keep_v[i];
+        idxs[out0[i] + base + lane] = keep_i[i];
+      }
+      for (int r = end[i] + lane; r < k; r += 32) {
+        vals[out0[i] + r] = -INFINITY;
+        idxs[out0[i] + r] = -1;
+      }
+    }
+  }
+};
+
+template <int M, int BN, class Work>
+__global__ void __launch_bounds__(kTcThreads)
+tc_kernel(Work w) {
+  extern __shared__ __align__(1024) char smem[];
+  using C = Tc<M, BN>;
+  if constexpr (std::is_same<Work, FusedTopkWork<BN>>::value)
+    w.scores = reinterpret_cast<float*>(smem + C::RING_BYTES);
+  score_tiles<M, C>(smem, w);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Launches tc_kernel<M, BN> with one CTA per free slot of every SM (as many
+// as the occupancy calculator allows at its shared memory), at most one per
+// unit. The opt-in to that shared memory and the slot count depend only on
+// the instantiation and the device, so the first launch on a device works
+// them out and later launches reuse them: a search pays one cudaGetDevice.
+template <int M, int BN, class Work>
+int launch_tc(Work w, cudaStream_t s) {
+  auto* kernel = tc_kernel<M, BN, Work>;
+  constexpr int smem = Tc<M, BN>::RING_BYTES + Work::kSharedBytes;
+  static std::atomic<long long> slots_on[kMaxDevices];   // 0: not yet known
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  long long slots = slots_on[dev].load(std::memory_order_acquire);
+  if (slots == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    slots = (long long)sms * per_sm;
+    slots_on[dev].store(slots, std::memory_order_release);
+  }
+  kernel<<<(unsigned)(w.units < slots ? w.units : slots), kTcThreads, smem, s>>>(w);
+  return (int)cudaGetLastError();
+}
+
+// The widest cp.async (16, 8 or 4 bytes; else 1: plain loads) that every row
+// starting at `base`, `row_bytes` apart, allows.
+int vec_of(const void* base, long long row_bytes) {
+  const unsigned long long a = (unsigned long long)(uintptr_t)base | (unsigned long long)row_bytes;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
+}
+
+template <int M>
+Operands operands(const void* q, const void* db, long long nq, long long n, int d) {
+  Operands o;
+  o.db = static_cast<const char*>(db);
+  o.q = static_cast<const char*>(q);
+  o.n = n;
+  o.nq = nq;
+  o.d = d;
+  o.row_bytes = d * (M == kBF16 ? 2 : 1);   // bf16 or int8 rows
+  o.q_bytes = d * (M == kI8I8 ? 1 : 2);     // int8 or bf16 queries
+  o.row_vec = vec_of(db, o.row_bytes);
+  o.q_vec = vec_of(q, o.q_bytes);
+  return o;
 }
 
 unsigned grid_y(long long units) {
   return (unsigned)(units < kMaxGridY ? units : kMaxGridY);
 }
 
+// A unit's query width at nq: the smallest wgmma N (8, 16, ..., MaxBN) that
+// holds nq. K3 and K4 go up to 256 (128 for int8 x bf16, whose 256-query
+// stages would fit only two at a time in the ring); K2 up to 64, since a
+// slab's scores for its queries live in shared memory.
+template <int M>
+constexpr int kMaxQueryWidth = M == kI8BF16 ? 128 : 256;
+constexpr int kMaxFusedQueryWidth = 64;
+
+template <int MaxBN, int BN = 8, class F>
+int by_query_width(long long nq, F launch) {
+  if constexpr (BN < MaxBN) {
+    if (nq > BN) return by_query_width<MaxBN, 2 * BN>(nq, launch);
+  }
+  return launch(std::integral_constant<int, BN>());
+}
+
+template <int M, int BN>
+int launch_finemax_tc(const Operands& o, const float* scales, long long blocks,
+                      float* out, cudaStream_t s) {
+  FinemaxWork<BN> w;
+  w.ops = o;
+  w.scales = scales;
+  w.blocks = blocks;
+  w.qgroups = (o.nq + BN - 1) / BN;
+  w.units = (blocks * kRowsPerBlock + kTcRows - 1) / kTcRows * w.qgroups;
+  w.out = out;
+  return launch_tc<M, BN>(w, s);
+}
+
 template <int M>
 int launch_finemax(const void* q, const void* db, const float* scales,
                    long long nq, long long n, int d, long long blocks,
                    float* out, cudaStream_t s) {
-  using Q = typename Traits<M>::Q;
-  using R = typename Traits<M>::R;
-  const Q* qp = static_cast<const Q*>(q);
-  const R* dbp = static_cast<const R*>(db);
-  const unsigned gy = grid_y((blocks + kFineBlocks - 1) / kFineBlocks);
-  if (nq <= kQueryGroups) {
-    finemax_kernel<M, 1><<<dim3((unsigned)((nq + 15) / 16), gy), kThreads, 0, s>>>(
-        qp, dbp, scales, nq, n, d, blocks, out);
-  } else if (nq <= 4 * kQueryGroups) {
-    finemax_kernel<M, 4><<<dim3((unsigned)((nq + 63) / 64), gy), kThreads, 0, s>>>(
-        qp, dbp, scales, nq, n, d, blocks, out);
+  if constexpr (M == kF32) {
+    const float* qp = static_cast<const float*>(q);
+    const float* dbp = static_cast<const float*>(db);
+    const unsigned gy = grid_y((blocks + kFineBlocks - 1) / kFineBlocks);
+    if (nq <= kQueryGroups) {
+      finemax_f32_kernel<1><<<dim3((unsigned)((nq + 15) / 16), gy), kThreads, 0, s>>>(
+          qp, dbp, scales, nq, n, d, blocks, out);
+    } else if (nq <= 4 * kQueryGroups) {
+      finemax_f32_kernel<4><<<dim3((unsigned)((nq + 63) / 64), gy), kThreads, 0, s>>>(
+          qp, dbp, scales, nq, n, d, blocks, out);
+    } else {
+      finemax_f32_kernel<8><<<dim3((unsigned)((nq + 127) / 128), gy), kThreads, 0, s>>>(
+          qp, dbp, scales, nq, n, d, blocks, out);
+    }
+    return (int)cudaGetLastError();
   } else {
-    finemax_kernel<M, 8><<<dim3((unsigned)((nq + 127) / 128), gy), kThreads, 0, s>>>(
-        qp, dbp, scales, nq, n, d, blocks, out);
+    const Operands o = operands<M>(q, db, nq, n, d);
+    return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
+      return launch_finemax_tc<M, decltype(bn)::value>(o, scales, blocks, out, s);
+    });
   }
-  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_fused_topk_tc(const Operands& o, int k, float* vals, long long* idxs,
+                         cudaStream_t s) {
+  FusedTopkWork<BN> w;
+  w.ops = o;
+  w.slabs = (o.n + kSlab - 1) / kSlab;
+  w.qgroups = (o.nq + BN - 1) / BN;
+  w.units = w.slabs * w.qgroups;
+  w.k = k;
+  w.vals = vals;
+  w.idxs = idxs;
+  w.scores = nullptr;   // set by the kernel
+  return launch_tc<kBF16, BN>(w, s);
 }
 
 template <int M>
 int launch_fused_topk(const void* q, const void* db, long long nq, long long n,
                       int d, int k, float* vals, long long* idxs,
                       cudaStream_t s) {
-  using Q = typename Traits<M>::Q;
-  using R = typename Traits<M>::R;
-  const long long slabs = (n + kSlab - 1) / kSlab;
-  const dim3 grid((unsigned)((nq + kQueryGroups - 1) / kQueryGroups), grid_y(slabs));
-  fused_topk_kernel<M><<<grid, kThreads, 0, s>>>(
-      static_cast<const Q*>(q), static_cast<const R*>(db), nq, n, d, k, slabs,
-      vals, idxs);
-  return (int)cudaGetLastError();
+  if constexpr (M == kF32) {
+    const long long slabs = (n + kSlab - 1) / kSlab;
+    const dim3 grid((unsigned)((nq + kQueryGroups - 1) / kQueryGroups), grid_y(slabs));
+    fused_topk_f32_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(db), nq, n, d, k,
+        slabs, vals, idxs);
+    return (int)cudaGetLastError();
+  } else {
+    const Operands o = operands<M>(q, db, nq, n, d);
+    return by_query_width<kMaxFusedQueryWidth>(nq, [&](auto bn) {
+      return launch_fused_topk_tc<decltype(bn)::value>(o, k, vals, idxs, s);
+    });
+  }
 }
 
 template <int M>
 int launch_gather_scores(const void* q, const void* db, const long long* bids,
                          long long nq, long long n, int d, long long kf,
                          float* out, cudaStream_t s) {
-  using Q = typename Traits<M>::Q;
-  using R = typename Traits<M>::R;
-  constexpr int kBlocks = kGatherThreads / kRowsPerBlock;
-  const dim3 grid((unsigned)nq, (unsigned)((kf + kBlocks - 1) / kBlocks));
-  gather_scores_kernel<M><<<grid, kGatherThreads, 0, s>>>(
-      static_cast<const Q*>(q), static_cast<const R*>(db), bids, nq, n, d, kf, out);
-  return (int)cudaGetLastError();
+  constexpr int kBlocks = kTcRows / kRowsPerBlock;   // 16 candidates a unit
+  if constexpr (M == kF32) {
+    const dim3 grid((unsigned)nq, (unsigned)((kf + kBlocks - 1) / kBlocks));
+    gather_scores_f32_kernel<<<grid, kGatherThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(db), bids, nq, n, d,
+        kf, out);
+    return (int)cudaGetLastError();
+  } else {
+    return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
+      GatherWork<decltype(bn)::value> w;
+      w.ops = operands<M>(q, db, nq, n, d);
+      w.bids = bids;
+      w.kf = kf;
+      w.cgroups = (kf + kBlocks - 1) / kBlocks;
+      w.units = nq * w.cgroups;
+      w.out = out;
+      return launch_tc<M, decltype(bn)::value>(w, s);
+    });
+  }
 }
 
 }  // namespace
@@ -402,7 +1081,7 @@ extern "C" int dirjax_gather_scores(const void* q, const void* db,
                                     long long nq, long long n, int d,
                                     long long kf, float* out, void* stream) {
   if (nq <= 0 || n <= 0 || d <= 0 || kf <= 0 ||
-      (kf + kGatherThreads / kRowsPerBlock - 1) / (kGatherThreads / kRowsPerBlock) > kMaxGridY)
+      (mode == kF32 && (kf + 15) / 16 > kMaxGridY))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -1,11 +1,12 @@
-"""Build the port's CUDA sources (``dirjax_torch/csrc/*.cu``) into one shared
-library with ``nvcc`` at first use, and load it with ctypes.
+"""Build the port's CUDA sources (``dirjax_torch/csrc/*.cu``, with the headers
+``csrc/*.cuh`` they include) into one shared library with ``nvcc`` at first
+use, and load it with ctypes.
 
 Each source compiles in its own ``nvcc`` process, all started together, and
 one more links the objects. The library is written under
 ``dirjax_torch/_build/`` (listed in ``.gitignore``), named by a hash of the
-sources and the flags, so an edited source builds anew and an unchanged one
-is reused. A missing ``nvcc`` or a failed compile raises
+sources, the headers and the flags, so an edited source or header builds
+anew and an unchanged tree is reused. A missing ``nvcc`` or a failed compile raises
 :class:`BuildError`; nothing here returns a stub.
 """
 
@@ -22,7 +23,7 @@ import tempfile
 import time
 from typing import List, NamedTuple
 
-__all__ = ["BuildError", "Build", "build", "find_nvcc", "load_library"]
+__all__ = ["BuildError", "Build", "build", "find_nvcc", "library_path", "load_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -58,17 +59,25 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_path() -> str:
+    """The library of the current ``csrc/*.cu`` and ``csrc/*.cuh`` and
+    flags: its name hashes them all."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                       + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libdirjax_torch_{digest.hexdigest()[:16]}.so")
+
+
 def build() -> Build:
-    """Compile ``csrc/*.cu`` unless a library of the same sources exists."""
+    """Compile ``csrc/*.cu`` unless a library of the same sources and
+    headers exists."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not srcs:
         raise BuildError(f"no CUDA sources under {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in srcs:
-        digest.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            digest.update(f.read())
-    lib = os.path.join(BUILD_DIR, f"libdirjax_torch_{digest.hexdigest()[:16]}.so")
+    lib = library_path()
     if os.path.exists(lib):
         return Build(lib, [], "", 0.0)
 

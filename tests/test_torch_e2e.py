@@ -180,6 +180,24 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "kbuild")  # nothing, not a stub
 
 
+@pytest.mark.parametrize("edit", ["topk.cu", "wgmma.cuh"])
+def test_build_hashes_sources_and_headers(monkeypatch, tmp_path, edit):
+    """An edited source or header names another library, so a stale one is
+    never reused; the shipped tree's name is stable."""
+    import shutil
+
+    from dirjax_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = build.library_path()
+    assert build.library_path() == before
+    with open(csrc / edit, "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path() != before
+
+
 def test_build_reports_compiler_errors(monkeypatch, tmp_path):
     from dirjax_torch.kernels import build
 

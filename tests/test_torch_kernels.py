@@ -11,11 +11,20 @@ Tolerances:
   holds the TPU kernel to its oracle: the kernel sums H*W cells and C
   products in another order than ATen, and the pow/log/exp chain of GeM
   amplifies last-bit differences by about p.
-- K2-K4 (top-k): scores of unit vectors within atol 1e-5 (fp32 sums of at
-  most 2048 exact products, in another order than cuBLAS); int8 x int8
-  scores exactly equal (int32 accumulation on both sides). An index may
-  differ only where the plain scores of both rows lie within 1e-5. K4's
-  maxima over each fetched block equal K3's bit for bit.
+- K2-K4 (top-k): scores of unit vectors within atol 1e-5. fp32 runs on the
+  CUDA cores (fp32 sums of at most 2048 exact products, in another order
+  than cuBLAS); bf16 and int8 x bf16 run on the tensor cores, whose products
+  are exact and whose fp32 accumulation runs in yet another order, so they
+  are held to the same 1e-5. int8 x int8 scores exactly equal (int32
+  accumulation on both sides). An index may differ only where the plain
+  scores of both rows lie within 1e-5; where K2 returns equal values in a
+  slab (duplicated rows), the lower row comes first. K4's maxima over each
+  fetched block equal K3's bit for bit. The cases take every query width of
+  the tensor-core kernels (8, 16, 32, 64, 128, 256; K2 up to 64) with full
+  and partial query groups (nq 1, 9, 16, 24, 37, 100, 130, 257), each width
+  at D = 2048 too, ragged row tiles and slabs, and D = 64, 96, 200, 201 and
+  2048 (int8 rows of 200 or 201 bytes are not 16-byte aligned and still run
+  on the kernel).
 - K5 (binary codes): symmetric maxima exactly equal (integers); asymmetric
   within atol 1e-5 (projected unit queries, fp32 sums of exact ±bf16 terms
   in another order); the rescore's block maxima equal K5's bit for bit;
@@ -142,11 +151,18 @@ def _same_ranking(got_v, got_i, want_v, want_i, scores):
 class TestTopkKernels:
     """K2-K4 (csrc/topk.cu) against their plain versions."""
 
-    @pytest.mark.parametrize("mode,nq,n,d,k", [
-        ("fp32", 1, 1000, 96, 5), ("bf16", 37, 4099, 128, 16),
-        ("fp32", 20, 3000, 2048, 10), ("bf16", 256, 1537, 64, 1)])
-    def test_fused_topk(self, rng, cuda, mode, nq, n, d, k):
+    @pytest.mark.parametrize("mode,nq,n,d,k,ties", [
+        ("fp32", 1, 1000, 96, 5, False), ("bf16", 37, 4099, 128, 16, False),
+        ("fp32", 20, 3000, 2048, 10, False), ("bf16", 256, 1537, 64, 1, False),
+        ("bf16", 1, 2048, 2048, 10, True), ("bf16", 9, 3001, 200, 1, True),
+        ("bf16", 130, 1029, 96, 16, True), ("bf16", 257, 5000, 2048, 10, False),
+        ("bf16", 16, 700, 201, 16, True), ("bf16", 3, 700, 64, 600, True),
+        ("fp32", 9, 1029, 200, 16, True), ("bf16", 16, 1537, 2048, 16, True),
+        ("bf16", 24, 3001, 2048, 10, True), ("bf16", 100, 2100, 2048, 1, False)])
+    def test_fused_topk(self, rng, cuda, mode, nq, n, d, k, ties):
         q, db, _ = _operands(rng, cuda, mode, nq, n, d)
+        if ties:   # every 5th row from row 3 repeats the row 3 before it
+            db[3::5] = db[0:n - 3:5][:len(db[3::5])]
         before = topk.launches["fused_topk"]
         vals, idxs = topk.fused_topk(q, db, k)
         assert topk.launches["fused_topk"] == before + 1
@@ -155,10 +171,24 @@ class TestTopkKernels:
         _same_ranking(vals, idxs, want_v, want_i,
                       torch.nn.functional.pad(topk._scores(q, db), (0, 1)))
         assert torch.equal(idxs < 0, want_i < 0)
+        # exact ties within a slab come back lower row first
+        v, i = vals.reshape(nq, -1, k), idxs.reshape(nq, -1, k)
+        tied = (v[:, :, 1:] == v[:, :, :-1]) & torch.isfinite(v[:, :, 1:])
+        assert (i[:, :, 1:] > i[:, :, :-1])[tied].all()
+        if ties:   # a repeated row comes after its twin, 3 rows before it
+            dup = (i % 5 == 3) & (i >= 3) & ((i - 3) // 512 == i // 512)
+            twin = i[:, :, None, :] == (i - 3)[:, :, :, None]
+            earlier = torch.ones(k, k, dtype=torch.bool, device=cuda).tril(-1)
+            assert (twin & earlier).any(-1)[dup].all()
 
     @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "int8x8"])
     @pytest.mark.parametrize("nq,n,d", [(1, 5003, 128), (37, 2048, 200),
-                                        (130, 777, 2048)])
+                                        (130, 777, 2048), (9, 4099, 96),
+                                        (257, 3001, 64), (16, 1031, 200),
+                                        (9, 1001, 201), (257, 2100, 2048),
+                                        (16, 1537, 2048), (24, 3001, 2048),
+                                        (100, 2100, 2048), (1, 1029, 2048),
+                                        (37, 1031, 2048)])
     def test_finemax_and_gather(self, rng, cuda, mode, nq, n, d):
         q, db, scales = _operands(rng, cuda, mode, nq, n, d)
         blocks = -(-n // 1024) * 128
