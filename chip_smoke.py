@@ -16,19 +16,24 @@ Phases, each of which raises on failure:
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
    int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
    width of the tensor-core kernels: 8, 16, 32, 64, 128 and 256), and a
-   ragged 1,048,573 rows. K2 at k = 10 on fp32 and bf16; K3 and K4 on bf16,
-   int8 and int8 x int8 queries. Scores within atol 1e-5 (int8 x int8 exactly equal),
-   an index may differ only at a near-tie within 1e-5; K4's maximum over
-   each fetched block equals K3's bit for bit; rank_topk_fused against a
-   dense plain top-k (k = 10 and 100). Each kernel timed against its plain
-   version with CUDA events, plain/kernel/kernel/plain, and a bf16
-   torch.matmul of the same operands timed as the library yardstick; K2
-   and K3 also at nq = 16, 1, 64 and 128 (bf16) and in fp32 (the CUDA-core
-   mode) at nq = 256 and 16, K3 in int8 x bf16 and int8 x int8 at nq = 256
-   and 16, K2 at k = 1 and 16, each beside its bound and each first held
-   against its plain version. Then rank_topk_fused's two routes at k = 10
-   (K2 and the merge, against K3 + select + K4 + finish) timed at nq = 1,
-   16 and 256.
+   ragged 1,048,573 rows. K2 at k = 10 on fp32 and bf16; K3 and K4 on fp32,
+   bf16, int8 and int8 x int8 queries; fp32 also with self-match queries
+   (database rows, nq = 256 and 16). Scores within atol 1e-5 (int8 x int8
+   exactly equal), an index may differ only at a near-tie within 1e-5; K4's
+   maximum over each fetched block equals K3's bit for bit; rank_topk_fused
+   against a dense plain top-k (k = 10 and 100). Each kernel timed against
+   its plain version with CUDA events, plain/kernel/kernel/plain, and a
+   bf16 torch.matmul of the same operands timed as the library yardstick;
+   K2 and K3 also at nq = 16, 1, 64 and 128 (bf16) and in fp32 (the split
+   mode) at nq = 256 and 16 beside an fp32 torch.matmul (TF32 off), K3 in
+   int8 x bf16 and int8 x int8 at nq = 256 and 16, K2 at k = 1 and 16,
+   each beside its bound and each first held against its plain version;
+   K4 also in fp32 at k = 100.
+   Then rank_topk_fused's two routes at k = 10 (K2 and the merge, against
+   K3 + select + K4 + finish) timed at nq = 1, 16 and 256, and the AQE
+   chunk's exact top-k (nq x 131,072 scores, k = 10, ties to the lower
+   index) by the full stable sort the port runs against torch.topk with a
+   tie fill, at nq = 16, 64 and 256.
 4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu) at the
    serving shape: the same 1,048,576 rows, an ITQ codec fitted on the card
    (131,072-row sample, 30 iterations; the fit time is printed) and
@@ -132,6 +137,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # of their type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# the fp32 mode of the top-k kernels: each product as four bf16 products
+# (hi.hi + hi.lo + lo.hi + lo.lo of two-part bf16 splits), on the tensor cores
+FP32_SPLIT = "4x bf16 split"
+FP32_SPLIT_PRODUCTS = 4
 BITS = 2048                      # binary code width at the serving shape
 ITQ_ITERS = 30
 NO_LIBRARY = "no single PyTorch call computes this function"
@@ -350,6 +359,47 @@ def dispatch_timing(topk, operands) -> dict:
     return rows
 
 
+def topk_by_threshold(x: torch.Tensor, k: int):
+    """The top-k of long rows, ties to the lower index, without sorting the
+    rows: torch.topk's k-th value v per row; the entries above v, then the
+    lowest-index entries equal to v (a mask and a cumulative sum), picked by
+    a second torch.topk on their reversed index; a stable sort of the k.
+    The alternative to ops/topk.py's _topk (a full stable sort) that
+    aqe_chunk_timing measures; the port does not run it."""
+    n = x.shape[-1]
+    kth = torch.topk(x, k, dim=-1, sorted=False).values.amin(dim=-1, keepdim=True)
+    above, tied = x > kth, x == kth
+    room = k - above.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    take = above | (tied & (tied.cumsum(dim=-1, dtype=torch.int32) <= room))
+    order = torch.arange(n, 0, -1, device=x.device, dtype=torch.float32)
+    pos = torch.topk(torch.where(take, order, 0.0), k, dim=-1).indices
+    vals, o = torch.sort(torch.gather(x, -1, pos), dim=-1, descending=True, stable=True)
+    return vals, torch.gather(pos, -1, o)
+
+
+def aqe_chunk_timing(topk, qf, db32, k: int = 10) -> dict:
+    """The exact top-k (ties to the lower index) of one AQE chunk's scores,
+    (nq, 131,072) fp32 with exact ties at k = 10, two ways, timed in turns
+    with CUDA events at nq = 16, 64 and 256: the full stable sort that
+    ops/qe.py's _chunk_topk runs (topk._topk) against torch.topk's k-th
+    value and a tie fill (topk_by_threshold). Their answers must be equal."""
+    rows = {}
+    for nq in (16, 64, SERVE_NQ):
+        sims = qf[:nq] @ db32[:131072].T
+        sims[:, 1::7] = sims[:, 0:-1:7]   # exact ties, a seventh of the row
+        a, b = topk_by_threshold(sims, k), topk._topk(sims, k)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"AQE chunk top-k nq={nq}: the two ways differ")
+        times = {"stable_sort": [], "threshold": []}
+        for which in ("stable_sort", "threshold", "threshold", "stable_sort"):
+            fn = topk_by_threshold if which == "threshold" else topk._topk
+            times[which].append(_time_ms(lambda: fn(sims, k), iters=10))
+        rows[str(nq)] = {w: float(np.mean(v)) for w, v in times.items()}
+        print(f"AQE chunk top-k nq={nq} x 131072 k={k}: stable sort "
+              f"{times['stable_sort']} ms, torch.topk + tie fill {times['threshold']} ms")
+    return rows
+
+
 def topk_kernel_phase(device):
     """K2-K4 against their plain versions at the serving shape; returns their
     JSON entries without ``launches``, and the bf16 database."""
@@ -362,7 +412,10 @@ def topk_kernel_phase(device):
     s8 = s8.reshape(-1)
     qf = unit_rows(SERVE_NQ, SERVE_D, device, seed=2)
     q8, qs8 = topk._quantize_block(qf)
-    modes = {"fp32": (qf, db32, None), "bf16": (qf.bfloat16(), db16, None),
+    # self-match queries: database rows, spread over the database
+    qself = db32[::SERVE_N // SERVE_NQ + 3][:SERVE_NQ].contiguous()
+    modes = {"fp32": (qf, db32, None), "fp32_self": (qself, db32, None),
+             "bf16": (qf.bfloat16(), db16, None),
              "int8": (qf.bfloat16(), db8, s8), "int8x8": (q8, db8, s8)}
     torch.cuda.synchronize()
     print(f"top-k inputs: {SERVE_N} x {SERVE_D} unit rows in fp32, bf16 and "
@@ -373,8 +426,9 @@ def topk_kernel_phase(device):
              (24, SERVE_N - 3), (100, SERVE_N)]
     err = {"fused_topk": 0.0, "finemax": 0.0, "gather_scores": 0.0}
 
-    for mode in ("bf16", "fp32"):
-        for nq, n in cases:
+    self_cases = [(SERVE_NQ, SERVE_N), (16, SERVE_N - 3)]
+    for mode, mode_cases in (("bf16", cases), ("fp32", cases), ("fp32_self", self_cases)):
+        for nq, n in mode_cases:
             q, db, _ = modes[mode]
             q, db = q[:nq], db[:n]
             got = topk.fused_topk(q, db, 10)
@@ -384,8 +438,9 @@ def topk_kernel_phase(device):
             err["fused_topk"] = max(err["fused_topk"], e)
             print(f"kernel fused_topk {mode} nq={nq} n={n} k=10: max_abs_err {e:.3e}")
 
-    for mode in ("bf16", "int8", "int8x8"):
-        for nq, n in cases:
+    for mode, mode_cases in (("fp32", cases), ("fp32_self", self_cases), ("bf16", cases),
+                             ("int8", cases), ("int8x8", cases)):
+        for nq, n in mode_cases:
             q, db, s = modes[mode]
             q, db, s = q[:nq], db[:n], None if s is None else s[:n]
             tag = f"{mode} nq={nq} n={n}"
@@ -438,16 +493,18 @@ def topk_kernel_phase(device):
     def contraction(nq):
         return 2.0 * nq * n * SERVE_D
 
-    def k2_bound(q, db, _scales, kind, k=10):
+    # products: tensor-core products per multiply-add (the fp32 mode's split
+    # does each as FP32_SPLIT_PRODUCTS bf16 ones)
+    def k2_bound(q, db, _scales, kind, k=10, products=1):
         nq = q.shape[0]
         return bound(db.numel() * db.element_size() + q.numel() * q.element_size()
-                     + nq * -(-n // 512) * k * 12, contraction(nq), kind)
+                     + nq * -(-n // 512) * k * 12, products * contraction(nq), kind)
 
-    def k3_bound(q, db, s, kind):
+    def k3_bound(q, db, s, kind, products=1):
         nq = q.shape[0]
         return bound(db.numel() * db.element_size() + q.numel() * q.element_size()
                      + (0 if s is None else s.numel() * 4) + nq * blocks * 4,
-                     contraction(nq), kind)
+                     products * contraction(nq), kind)
 
     # each timed reading is first held against its plain version
     def timed_k2(mode, nq, iters=5, k=10):
@@ -491,10 +548,20 @@ def topk_kernel_phase(device):
         "gather_scores": bound(SERVE_NQ * kf8 * SERVE_D * 2 + q.numel() * 2 + bids.numel() * 8
                                + SERVE_NQ * kf8 * 4, 2.0 * SERVE_NQ * kf8 * SERVE_D, "bf16"),
     }
+    # the fp32 library yardstick: one fp32 matmul (TF32 off) of the same
+    # operands, at nq = 256 and 16
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fp32_library_ms = {}
+    for nq in (SERVE_NQ, 16):
+        q32 = modes["fp32"][0][:nq].contiguous()
+        fp32_library_ms[nq] = _time_ms(lambda: torch.matmul(q32, db32.T), iters=5)
+        print(f"library fp32 torch.matmul (TF32 off) {n}x{SERVE_D} nq={nq}: "
+              f"{fp32_library_ms[nq]:.3f} ms")
     # more readings of K2 and K3 as extra fields of their rows: bf16 at
     # nq = 16 and 1, and at 64 and 128 (how the time grows with the query
-    # width), K3's int8 modes at nq = 256 and 16, and the fp32 mode (the
-    # CUDA-core design) at nq = 256 and 16, each beside its bound
+    # width), K3's int8 modes at nq = 256 and 16, and the fp32 mode at
+    # nq = 256 and 16, each beside its bound; fp32 also beside its library
+    # time and the bound of the same work on the CUDA cores
     extra = {"fused_topk": {}, "finemax": {}}
     for name, timer, bounder in (("fused_topk", timed_k2, k2_bound),
                                  ("finemax", timed_k3, k3_bound)):
@@ -504,11 +571,19 @@ def topk_kernel_phase(device):
             readings += [("int8", SERVE_NQ), ("int8", 16), ("int8x8", SERVE_NQ),
                          ("int8x8", 16)]
         for mode, nq in readings:
-            ms, plain_ms = timer(mode, nq, iters=3 if mode == "fp32" else 5)
+            ms, plain_ms = timer(mode, nq)
             q, db, s = modes[mode]
-            kind = {"bf16": "bf16", "fp32": "fp32", "int8": "bf16", "int8x8": "int8"}[mode]
-            b = bounder(q[:nq], db, s, kind)
             key = (f"{mode}_" if mode != "bf16" else "") + f"nq{nq}"
+            if mode == "fp32":
+                b = bounder(q[:nq], db, s, "bf16", products=FP32_SPLIT_PRODUCTS)
+                if b["bound_by"] == "operations":
+                    b["bound_by"] = f"operations ({FP32_SPLIT})"
+                extra[name].update({
+                    f"{key}_library_ms": fp32_library_ms[nq],
+                    f"{key}_cuda_core_bound_ms": bounder(q[:nq], db, s, "fp32")["bound_ms"]})
+            else:
+                kind = {"bf16": "bf16", "int8": "bf16", "int8x8": "int8"}[mode]
+                b = bounder(q[:nq], db, s, kind)
             extra[name].update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
                                 f"{key}_bound_ms": b["bound_ms"],
                                 f"{key}_bound_by": b["bound_by"]})
@@ -519,7 +594,21 @@ def topk_kernel_phase(device):
         extra["fused_topk"].update({f"k{k}_ms": ms, f"k{k}_plain_ms": plain_ms,
                                     f"k{k}_bound_ms": b["bound_ms"],
                                     f"k{k}_bound_by": b["bound_by"]})
+    # K4 in fp32 (the split mode) at k = 100, beside its bound
+    q32, _, _ = modes["fp32"]
+    bids32, _ = topk._hier_select(topk.finemax(q32, db32, None, blocks), 100, TILE_ROWS, n)
+    ms, plain_ms = time_in_turns(
+        f"gather_scores {n}x{SERVE_D} fp32 nq={SERVE_NQ} k=100",
+        lambda: topk.gather_scores_reference(q32, db32, bids32),
+        lambda: topk.gather_scores(q32, db32, bids32), iters=5)
+    kf8 = bids32.shape[1] * 8
+    b = bound(SERVE_NQ * kf8 * SERVE_D * 4 + q32.numel() * 4 + bids32.numel() * 8
+              + SERVE_NQ * kf8 * 4, FP32_SPLIT_PRODUCTS * 2.0 * SERVE_NQ * kf8 * SERVE_D, "bf16")
+    extra["gather_scores"] = {"fp32_k100_ms": ms, "fp32_k100_plain_ms": plain_ms,
+                              "fp32_k100_bound_ms": b["bound_ms"],
+                              "fp32_k100_bound_by": b["bound_by"]}
     extra["fused_topk"]["dispatch_k10_ms"] = dispatch_timing(topk, modes["bf16"][:2])
+    extra["fused_topk"]["aqe_chunk_topk_ms"] = aqe_chunk_timing(topk, qf, db32)
     library = {"fused_topk": (library_ms, "bf16 torch.matmul of the same operands"),
                "finemax": (library_ms, "bf16 torch.matmul of the same operands"),
                "gather_scores": (None, NO_LIBRARY + " (a gather of 8-row blocks "

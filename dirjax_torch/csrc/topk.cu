@@ -22,63 +22,80 @@
 //
 // What bounds them. At the serving shape (n = 1M rows of D = 2048, nq = 256)
 // K2 and K3 read the rows once (4.3 GB bf16, >= 1.3 ms at 3.35 TB/s; int8
-// half that) against 5.5e11 multiply-adds (1.1 ms of bf16 tensor-core peak,
-// 0.56 ms int8): near the ridge, so both the stream and the contraction
-// must run at rate. At nq <= 16 they are bound by the bytes alone. K4 is
-// bound by the reads of its candidate rows (nq * kf * 8 rows). Within this
+// half that; fp32 8.6 GB, 2.6 ms) against 5.5e11 multiply-adds (1.1 ms of
+// bf16 tensor-core peak, 0.56 ms int8, 4.4 ms for the four bf16 products
+// of fp32): near the ridge, so both the stream and the contraction must
+// run at rate. At nq <= 16 they are bound by the bytes alone. K4 is bound
+// by the reads of its candidate rows (nq * kf * 8 rows). Within this
 // design, at large nq each stage re-stages its queries from L2 beside the
 // rows (48 KB per 128 x 256 x 64 step), so L2 -> SM traffic rather than HBM
-// or the tensor cores sets K3's pace; K2 takes at most 64 queries a unit
-// (the slab's scores live in shared memory), so at nq = 256 four query
+// or the tensor cores sets K3's pace in bf16; K2 takes at most 64 queries a
+// unit (the slab's scores live in shared memory), so at nq = 256 four query
 // groups stream every slab from L2, and its k selection rounds add to that.
 //
-// The design, modes 1-3 (score_tiles and mma_issue below, one routine for
-// all three kernels):
-//   - Tensor cores: wgmma (wgmma.cuh) m64nNk16 bf16 -> fp32 (modes 1, 2)
-//     and m64nNk32 s8 -> s32 (mode 3), both operands read from shared
-//     memory. Database rows are the M side (two warpgroups of 64 rows make
-//     a 128-row tile), queries the N side (N = 8 ... 256 by nq), so both are
-//     K-major as stored. Mode 2 copies the int8 rows at half the bytes and
-//     widens them to bf16 in registers (exact: |v| <= 127) as the A operand
-//     of the same bf16 wgmma, with B still from shared memory.
-//   - Staging: a ring of up to 4 shared-memory stages, each one 128-byte
-//     slice of every row of the tile and of its queries, fed by cp.async
-//     (16 bytes a thread; 8 or 4 with zero-fill where a row's bytes are not
-//     16-byte aligned, e.g. int8 at D = 200; plain loads below 4) and laid
-//     out in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8))
-//     that wgmma reads without bank conflicts. The copies of the next
-//     stages are in flight while a stage multiplies. Rows >= n, queries
-//     >= nq and d >= D are zero-filled by the copy itself; the database is
-//     never padded.
+// The design (score_tiles and mma_issue below, one routine for every mode
+// and all three kernels):
+//   - Tensor cores: wgmma (wgmma.cuh) m64nNk16 bf16 -> fp32 (modes 0-2)
+//     and m64nNk32 s8 -> s32 (mode 3). Database rows are the M side (two
+//     warpgroups of 64 rows make a 128-row tile), queries the N side
+//     (N = 8 ... 256 by nq), so both are K-major as stored. Modes 1 and 3
+//     read both operands from shared memory. Mode 2 copies the int8 rows
+//     at half the bytes and widens them to bf16 in registers (exact:
+//     |v| <= 127) as the A operand of the same bf16 wgmma, with B still
+//     from shared memory.
+//   - Mode 0 (fp32) splits both operands in two bf16 parts, x = hi + lo + r
+//     with hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest
+//     (|r| <= 2^-17 |x|). Each warp loads its 16 rows' fp32 values from the
+//     stage (16 bytes a thread, in a layout of their own that no load phase
+//     meets twice in a bank) and splits them in registers (A), one k16 step
+//     while the wgmmas of the step before run; the queries come split by
+//     the wrapper, 32 hi and then 32 lo bf16 in each 128-byte query slice
+//     (B). Every k16 step issues hi.hi, hi.lo, lo.hi and lo.lo, in that
+//     order: each product is exact, and the sum misses a.b by the residuals
+//     alone (< 1e-6 for unit rows at D = 2048, as tests/test_torch_topk.py
+//     models it; dropping lo.lo would not do: its terms all have one sign in
+//     a self-match). The products of each 64 d start from 0 and are added
+//     into the running score with one rounded fp32 add (score_tiles), since
+//     the tensor cores' accumulation drifts with the size of what it adds
+//     onto; that second set of sums caps N at 128. A stage holds 64 d (two
+//     fp32 slices of each row and two query slices), or 32 d where three
+//     such stages would not fit (K2 at N = 64, beside its slab scores).
+//   - Staging: a ring of up to 4 shared-memory stages, each one or two
+//     128-byte slices of every row of the tile and of its queries, fed by
+//     cp.async (16 bytes a thread; 8 or 4 with zero-fill where a row's
+//     bytes are not 16-byte aligned, e.g. int8 at D = 200; plain loads below
+//     4) and laid out in the 128-byte swizzle (16-byte chunk c of row r at
+//     c ^ (r % 8)) that wgmma reads without bank conflicts. The copies of
+//     the next stages are in flight while a stage multiplies. Rows >= n,
+//     queries >= nq and d >= D are zero-filled by the copy itself; the
+//     database is never padded.
 //   - Grid: persistent CTAs (as many as fit on the SMs) walk work units
 //     (row tile, query group) with the query group fastest, so the groups
 //     of one row tile run side by side and HBM delivers each row once (at
 //     nq <= 256 in modes 1 and 3 there is one group); the ring runs across
 //     unit boundaries. A unit takes the smallest N that holds nq, so small
-//     nq does no wasted tensor work and streams with its 16 KB stages.
+//     nq does no wasted tensor work and streams with its small stages.
 //   - K3: a fine block is 8 rows of one accumulator fragment, so its
 //     maximum is three shuffles; the optional scale is one __fmul_rn after
 //     the dot. K2: a unit is a 512-row slab (4 tiles, N <= 64); each tile's
 //     scores go to shared memory, then one warp per query keeps its 16
 //     scores in registers and takes k rounds of a warp argmax over the
 //     lanes' cached maxima (only the lane that lost its maximum rescans),
-//     with no barrier between rounds. K4: a unit is one query's 16
-//     candidate blocks (128 gathered rows) against that query alone, at its
-//     column q % N of the N that K3 takes at the same nq.
+//     with no barrier between rounds; its ring gets what shared memory the
+//     scores leave. K4: a unit is one query's
+//     16 candidate blocks (128 gathered rows) against that query alone, at
+//     its column q % N of the N that K3 takes at the same nq.
 //
 // Containment (topk_pallas.py:24-29) needs K4's rescored rows to reproduce
-// K3's maxima bit for bit. In modes 1-3 both score a (row, query) pair
-// through mma_issue: the same wgmma instruction and shape (K4 picks N by
-// K3's rule, by_query_width, and puts the query in K3's column), fed the
-// same operand values, over d in the same 16- (or 32-) wide steps into one
-// fp32 (or int32) accumulator that starts at 0, zero-padded alike past D.
-// K3 applies the int8 row scale after the dot as one fp32 multiply, which
-// is what the caller's finish step does to K4's raw scores.
-//
-// Mode 0 stays on the CUDA cores (TileScorer, `mac`: one fmaf per product,
-// d increasing, in all three kernels): no tensor-core input type computes
-// fp32 products within the port's 1e-5 contract without splitting the
-// operands (TF32 keeps about three digits).
+// K3's maxima bit for bit. Both score a (row, query) pair through
+// mma_issue: the same wgmma instructions and shape (K4 picks N by K3's
+// rule, by_query_width, and puts the query in K3's column), fed the same
+// operand values (in mode 0 the same split), over d in the same 16- (or
+// 32-) wide steps into one fp32 (or int32) accumulator that starts at 0
+// (in mode 0 one for each 64 d, summed alike: both keep no shared memory
+// beside the ring, so their stages match), zero-padded alike past D. K3 applies the int8 row scale after the dot as
+// one fp32 multiply, which is what the caller's finish step does to K4's
+// raw scores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,230 +112,11 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;                         // fine block (_RPB)
 constexpr int kSlab = 512;                               // K2 rows per slab
-constexpr int kMaxGridY = 65535;
 
 enum Mode { kF32 = 0, kBF16 = 1, kI8BF16 = 2, kI8I8 = 3 };
 
 // --------------------------------------------------------------------------
-// Mode 0: fp32 on the CUDA cores
-// --------------------------------------------------------------------------
-
-constexpr int kFineBlocks = 16;                          // fine blocks per tile
-constexpr int kTileRows = kFineBlocks * kRowsPerBlock;   // 128 rows per tile
-constexpr int kQueryGroups = 16;                         // thread rows per tile
-constexpr int kThreads = kFineBlocks * kQueryGroups;     // 256
-constexpr int kChunk = 16;                               // d values per stage
-constexpr int kGatherThreads = 128;                      // K4: 16 fine blocks
-
-// The one (row, query) contraction step that K2, K3 and K4 share in mode 0.
-__device__ __forceinline__ void mac(float& acc, float row, float query) {
-  acc = fmaf(row, query, acc);
-}
-
-// acc[i][j] = score of row row0 + tx*8 + i against query q0 + ty*TN + j, for
-// the 128-row x (16*TN)-query tile of one thread block. Rows >= n, queries
-// >= nq and d >= D enter as zero operands. Ends with a barrier, so the
-// staging buffers may be reused at once.
-template <int TN>
-struct TileScorer {
-  static constexpr int kQ = kQueryGroups * TN;
-
-  // a[d][(r % 8) * 16 + r / 8]: a thread's 8 rows are 16 words apart, so the
-  // 16 fine blocks of a warp read 16 consecutive words. Row stride 129 keeps
-  // the transposing stores free of bank conflicts.
-  struct Smem {
-    float a[kChunk][kTileRows + 1];
-    float b[kChunk][kQ + 1];
-  };
-
-  __device__ __forceinline__ static void run(
-      Smem& sm, const float* __restrict__ db, const float* __restrict__ q,
-      long long n, long long nq, int d, long long row0, long long q0,
-      float (&acc)[kRowsPerBlock][TN]) {
-    const int tid = threadIdx.x;
-    const int tx = tid % kFineBlocks;
-    const int ty = tid / kFineBlocks;
-#pragma unroll
-    for (int i = 0; i < kRowsPerBlock; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += kChunk) {
-      for (int e = tid; e < kTileRows * kChunk; e += kThreads) {
-        const int rl = e / kChunk, dd = e % kChunk;
-        const long long row = row0 + rl;
-        const int col = d0 + dd;
-        sm.a[dd][(rl % kRowsPerBlock) * kFineBlocks + rl / kRowsPerBlock] =
-            (row < n && col < d) ? db[row * d + col] : 0.f;
-      }
-      for (int e = tid; e < kQ * kChunk; e += kThreads) {
-        const int ql = e / kChunk, dd = e % kChunk;
-        const long long qi = q0 + ql;
-        const int col = d0 + dd;
-        sm.b[dd][ql] = (qi < nq && col < d) ? q[qi * d + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int dd = 0; dd < kChunk; ++dd) {
-        float a[kRowsPerBlock], b[TN];
-#pragma unroll
-        for (int i = 0; i < kRowsPerBlock; ++i) a[i] = sm.a[dd][i * kFineBlocks + tx];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = sm.b[dd][ty * TN + j];
-#pragma unroll
-        for (int i = 0; i < kRowsPerBlock; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) mac(acc[i][j], a[i], b[j]);
-      }
-      __syncthreads();
-    }
-  }
-};
-
-// K3, mode 0. Grid (ceil(nq / (16*TN)), min(row tiles, 65535)); blocks
-// stride over the row tiles. out is (nq, blocks) fp32, block b = rows
-// [8b, 8b + 8).
-template <int TN>
-__global__ void __launch_bounds__(kThreads)
-finemax_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                   const float* __restrict__ scales, long long nq, long long n,
-                   int d, long long blocks, float* __restrict__ out) {
-  using S = TileScorer<TN>;
-  __shared__ typename S::Smem sm;
-  const int tx = threadIdx.x % kFineBlocks;
-  const int ty = threadIdx.x / kFineBlocks;
-  const long long q0 = (long long)blockIdx.x * S::kQ;
-  const long long tiles = (blocks + kFineBlocks - 1) / kFineBlocks;
-  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
-    float acc[kRowsPerBlock][TN];
-    S::run(sm, db, q, n, nq, d, t * kTileRows, q0, acc);
-    const long long blk = t * kFineBlocks + tx;
-    if (blk >= blocks) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long qi = q0 + ty * TN + j;
-      if (qi >= nq) continue;
-      float m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kRowsPerBlock; ++i) {
-        const long long row = blk * kRowsPerBlock + i;
-        if (row < n) {
-          float s = acc[i][j];
-          if (scales != nullptr) s = __fmul_rn(s, scales[row]);
-          m = fmaxf(m, s);
-        }
-      }
-      out[qi * blocks + blk] = m;
-    }
-  }
-}
-
-// K2, mode 0. Grid (ceil(nq / 16), min(slabs, 65535)): the query groups of
-// one slab are neighbours in launch order, so they share the slab through
-// L2. Each block scores 16 queries against a 512-row slab into shared
-// memory, then each warp selects for 2 of the queries.
-__global__ void __launch_bounds__(kThreads)
-fused_topk_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                      long long nq, long long n, int d, int k, long long slabs,
-                      float* __restrict__ vals, long long* __restrict__ idxs) {
-  using S = TileScorer<1>;
-  __shared__ typename S::Smem sm;
-  __shared__ float scores[kQueryGroups][kSlab + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % kFineBlocks;
-  const int ty = tid / kFineBlocks;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long q0 = (long long)blockIdx.x * kQueryGroups;
-  for (long long slab = blockIdx.y; slab < slabs; slab += gridDim.y) {
-    for (int pass = 0; pass < kSlab / kTileRows; ++pass) {
-      const long long row0 = slab * kSlab + pass * kTileRows;
-      float acc[kRowsPerBlock][1];
-      S::run(sm, db, q, n, nq, d, row0, q0, acc);
-#pragma unroll
-      for (int i = 0; i < kRowsPerBlock; ++i) {
-        const int c = tx * kRowsPerBlock + i;
-        scores[ty][pass * kTileRows + c] = row0 + c < n ? acc[i][0] : -INFINITY;
-      }
-    }
-    __syncthreads();
-    for (int ql = warp; ql < kQueryGroups; ql += kThreads / 32) {
-      const long long qi = q0 + ql;
-      if (qi >= nq) continue;
-      float* s = scores[ql];
-      float* v_out = vals + (qi * slabs + slab) * k;
-      long long* i_out = idxs + (qi * slabs + slab) * k;
-      for (int r = 0; r < k; ++r) {
-        float best = -INFINITY;
-        int arg = 0x7fffffff;
-        for (int c = lane; c < kSlab; c += 32) {  // increasing c: ties keep the first
-          const float v = s[c];
-          if (v > best) { best = v; arg = c; }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-          const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-          if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
-        }
-        const bool live = best > -INFINITY;
-        if (lane == 0) {
-          v_out[r] = best;
-          i_out[r] = live ? slab * kSlab + arg : -1;
-        }
-        if (live && lane == (arg & 31)) s[arg] = -INFINITY;  // knock out
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // the next slab overwrites the scores
-  }
-}
-
-// K4, mode 0. Grid (nq, ceil(kf / 16)); thread t scores row t % 8 of
-// candidate fine block t / 8 of this block's 16. A block id outside the
-// rows (or one whose 8 rows pass n) yields NaN: the caller never asks for
-// one.
-__global__ void __launch_bounds__(kGatherThreads)
-gather_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                         const long long* __restrict__ bids, long long nq,
-                         long long n, int d, long long kf, float* __restrict__ out) {
-  constexpr int kBlocks = kGatherThreads / kRowsPerBlock;
-  __shared__ float rs[kGatherThreads][kChunk + 1];
-  __shared__ float qs[kChunk];
-  __shared__ long long first_row[kBlocks];
-  const int t = threadIdx.x;
-  const long long qi = blockIdx.x;
-  const long long c0 = (long long)blockIdx.y * kBlocks;
-  if (t < kBlocks) {
-    long long r = -1;
-    if (c0 + t < kf) {
-      const long long b = bids[qi * kf + c0 + t];
-      if (b >= 0 && b * kRowsPerBlock + kRowsPerBlock <= n) r = b * kRowsPerBlock;
-    }
-    first_row[t] = r;
-  }
-  __syncthreads();
-  float acc = 0.f;
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    if (t < kChunk) qs[t] = d0 + t < d ? q[qi * d + d0 + t] : 0.f;
-    for (int e = t; e < kGatherThreads * kChunk; e += kGatherThreads) {
-      const int rl = e / kChunk, dd = e % kChunk;
-      const long long r0 = first_row[rl / kRowsPerBlock];
-      const int col = d0 + dd;
-      rs[rl][dd] = (r0 >= 0 && col < d) ? db[(r0 + rl % kRowsPerBlock) * d + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int dd = 0; dd < kChunk; ++dd) mac(acc, rs[t][dd], qs[dd]);
-    __syncthreads();
-  }
-  if (c0 + t / kRowsPerBlock < kf) {
-    out[qi * kf * kRowsPerBlock + c0 * kRowsPerBlock + t] =
-        first_row[t / kRowsPerBlock] >= 0 ? acc : NAN;
-  }
-}
-
-// --------------------------------------------------------------------------
-// Modes 1-3: tensor cores, fed by a cp.async ring
+// Tensor cores, fed by a cp.async ring
 // --------------------------------------------------------------------------
 
 constexpr int kTcThreads = 256;    // 8 warps
@@ -326,14 +124,24 @@ constexpr int kTcRows = 128;       // M: database rows per tile
 constexpr int kSliceBytes = 128;   // bytes of one row per stage
 constexpr int kMaxStages = 4;
 constexpr int kMaxRingBytes = 192 * 1024;
+constexpr int kMaxSmemBytes = 232448;   // a block's dynamic shared memory
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk c of row r in a slice of 128-byte rows.
+// Byte offset of 16-byte chunk c of row r in a slice of 128-byte rows: the
+// 128-byte swizzle that wgmma reads.
 __device__ __forceinline__ int swz(int r, int c) {
   return r * kSliceBytes + ((c ^ (r & 7)) << 4);
+}
+
+// The same for mode 0's fp32 row slices, which only the warps read (four d
+// a thread, 16 bytes): odd rows swap their 64-byte halves, so the 8 lanes of
+// a 16-byte load phase (rows g and g + 1, chunks t of a half) meet 8
+// different bank groups.
+__device__ __forceinline__ int swz_f32(int r, int c) {
+  return r * kSliceBytes + ((c ^ ((r & 1) << 2)) << 4);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -389,6 +197,14 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's committed wgmma groups run.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keeps the compiler off accumulator registers while a wgmma owns them.
 __device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 __device__ __forceinline__ void pin(int& x) { asm volatile("" : "+r"(x)::"memory"); }
@@ -413,24 +229,45 @@ __device__ __forceinline__ uint32_t widen(uint32_t w) {
   return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
 }
 
+// Two fp32 -> their bf16 pairs hi = bf16(x) and lo = bf16(x - hi), both
+// rounded to nearest even (x - hi is exact in fp32); x in the low half, as a
+// wgmma A fragment holds its lower k.
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - back.x, y - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 __device__ __forceinline__ float score_of(float acc) { return acc; }
 __device__ __forceinline__ float score_of(int acc) { return __int2float_rn(acc); }
 
-// Tile shape of a mode and a query width BN (N of the wgmma). Each of the
+// Tile shape of a mode and a query width BN (N of the wgmma), beside
+// RESERVED bytes of shared memory the kernel keeps for itself. Each of the
 // two warpgroups owns 64 of the 128 rows; warp w holds rows 16w..16w+15 of
 // the tile as NT = BN/8 fragments of 8 queries (wgmma.cuh). A stage holds
-// one 128-byte slice of each row (A) and QMUL slices of each query (B):
-// mode 1 takes 64 d values a stage, modes 2 and 3 take 128.
-template <int M, int BN_>
+// AMUL 128-byte slices of each row (A) and QMUL consecutive ones of each
+// query (B): modes 1 and 3 one of each (64 and 128 d), mode 2 one of rows
+// and two of queries (128 d). Mode 0 holds 32 d a slice pair
+// (an fp32 row slice; a query slice of 32 hi and then 32 lo bf16), two
+// pairs a stage where three such stages fit beside RESERVED, else one.
+template <int M, int BN_, int RESERVED = 0>
 struct Tc {
+  static constexpr int MODE = M;
   static constexpr int BN = BN_;
   static constexpr int NT = BN / 8;
-  static constexpr int QMUL = M == kI8BF16 ? 2 : 1;
-  static constexpr int KE = M == kBF16 ? 64 : 128;   // d values per stage
-  static constexpr int A_BYTES = kTcRows * kSliceBytes;
+  static constexpr int A_SLICE = kTcRows * kSliceBytes;
+  static constexpr int ROOM = kMaxSmemBytes - RESERVED < kMaxRingBytes
+                                  ? kMaxSmemBytes - RESERVED : kMaxRingBytes;
+  static constexpr int F32_PAIRS = ROOM / (2 * (A_SLICE + BN * kSliceBytes)) >= 3 ? 2 : 1;
+  static constexpr int AMUL = M == kF32 ? F32_PAIRS : 1;
+  static constexpr int QMUL = M == kF32 ? F32_PAIRS : M == kI8BF16 ? 2 : 1;
+  static constexpr int KE = M == kF32 ? 32 * F32_PAIRS : M == kBF16 ? 64 : 128;   // d a stage
+  static constexpr int A_BYTES = A_SLICE * AMUL;
   static constexpr int B_BYTES = BN * kSliceBytes * QMUL;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int FIT = kMaxRingBytes / STAGE_BYTES;
+  static constexpr int FIT = ROOM / STAGE_BYTES;
   static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   using Acc = typename std::conditional<M == kI8I8, int, float>::type;
@@ -447,13 +284,13 @@ struct Operands {
 };
 
 // The rows and queries whose chunks this thread copies for one tile: chunk
-// e = threadIdx.x + i * 256 of a slice is 16-byte chunk e % 8 of row e / 8
-// (of query (e / 8) % BN, half e / (8 * BN), for B). Work::row and
+// e = threadIdx.x + i * 256 of a slice is 16-byte chunk e % 8 of row (or
+// query) e / 8, in every slice of the stage. Work::row and
 // Work::query name a row or query by its position in the tile, or return
 // null for a zero operand; they run once a tile, not once a stage.
 template <class C>
 struct TileSrc {
-  static constexpr int A_CHUNKS = kTcRows * 8, B_CHUNKS = C::BN * 8 * C::QMUL;
+  static constexpr int A_CHUNKS = kTcRows * 8, B_CHUNKS = C::BN * 8;   // a slice
   static constexpr int A_IT = A_CHUNKS / kTcThreads;
   static constexpr int B_IT = (B_CHUNKS + kTcThreads - 1) / kTcThreads;
   const char* a[A_IT];
@@ -476,32 +313,76 @@ __device__ __forceinline__ void load_stage(char* stage, const TileSrc<C>& src,
                                            const Operands& o, int kb) {
   using S = TileSrc<C>;
 #pragma unroll
-  for (int i = 0; i < S::A_IT; ++i) {
-    const int e = threadIdx.x + i * kTcThreads, r = e >> 3, c = e & 7;
-    copy_chunk(stage + swz(r, c), src.a[i], kb * kSliceBytes + c * 16, o.row_bytes,
-               o.row_vec, o.db);
-  }
+  for (int s = 0; s < C::AMUL; ++s)
 #pragma unroll
-  for (int i = 0; i < S::B_IT; ++i) {
-    const int e = threadIdx.x + i * kTcThreads;
-    if (S::B_CHUNKS % kTcThreads != 0 && e >= S::B_CHUNKS) break;
-    const int h = e / (C::BN * 8), r = (e >> 3) % C::BN, c = e & 7;
-    copy_chunk(stage + C::A_BYTES + h * C::BN * kSliceBytes + swz(r, c), src.b[i],
-               (kb * C::QMUL + h) * kSliceBytes + c * 16, o.q_bytes, o.q_vec, o.q);
-  }
+    for (int i = 0; i < S::A_IT; ++i) {
+      const int e = threadIdx.x + i * kTcThreads, r = e >> 3, c = e & 7;
+      const int at = C::MODE == kF32 ? swz_f32(r, c) : swz(r, c);
+      copy_chunk(stage + s * C::A_SLICE + at, src.a[i],
+                 (kb * C::AMUL + s) * kSliceBytes + c * 16, o.row_bytes, o.row_vec, o.db);
+    }
+#pragma unroll
+  for (int h = 0; h < C::QMUL; ++h)
+#pragma unroll
+    for (int i = 0; i < S::B_IT; ++i) {
+      const int e = threadIdx.x + i * kTcThreads;
+      if (S::B_CHUNKS % kTcThreads != 0 && e >= S::B_CHUNKS) break;
+      const int r = e >> 3, c = e & 7;
+      copy_chunk(stage + C::A_BYTES + h * C::BN * kSliceBytes + swz(r, c), src.b[i],
+                 (kb * C::QMUL + h) * kSliceBytes + c * 16, o.q_bytes, o.q_vec, o.q);
+    }
 }
 
-// The one scoring routine of K2, K3 and K4 in modes 1-3: starts adding one
-// landed stage's products into the warpgroup's accumulators, one wgmma per
-// 32 bytes of each row, d increasing; mma_wait ends it. In mode 2 each warp
-// widens its 16 int8 rows of the stage into the bf16 A fragments in
-// registers, and the wgmma is the bf16 one with A from registers.
+// The one scoring routine of K2, K3 and K4: starts adding one landed
+// stage's products into the warpgroup's accumulators, d increasing; mma_wait
+// ends it. Modes 1 and 3 issue one wgmma per 32 bytes of each row. In mode 2
+// each warp widens its 16 int8 rows of the stage into the bf16 A fragments
+// in registers, and the wgmma is the bf16 one with A from registers. In
+// mode 0 each warp splits its 16 fp32 rows into hi and lo A fragments, and
+// each k16 step issues hi.hi, hi.lo, lo.hi, lo.lo (query part second).
 template <int M, class C>
 __device__ __forceinline__ void mma_issue(const char* stage,
                                           typename C::Acc (&acc)[C::NT * 4]) {
   using dirjax_wgmma::Wgmma;
   const uint32_t b = smem_u32(stage + C::A_BYTES);
-  if constexpr (M == kI8BF16) {
+  if constexpr (M == kF32) {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);   // rows r, r + 8
+    constexpr int kSteps = C::KE / 16;
+    // k16 step j (d 16j..16j+15) splits into register set j % 2 while the
+    // wgmmas of step j - 1 run; step j - 2, the set's last reader, is done
+    uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      uint32_t(&h)[4] = hi[j & 1];
+      uint32_t(&l)[4] = lo[j & 1];
+      if (j >= 2) wgmma_wait_group<1>();
+      // Thread t takes d 16j + 4t .. 4t + 3 of its rows (chunk c of fp32
+      // slice j / 2) as the fragment's k 2t, 2t + 1, 2t + 8, 2t + 9; the
+      // wrapper orders each query's 16 d alike (topk.py _split).
+      const char* slice = stage + (j >> 1) * C::A_SLICE;
+      const int c = 4 * (j & 1) + t;
+      // the query slice of the same 32 d: 32 hi, then 32 lo
+      const uint32_t qs = b + (j >> 1) * C::BN * kSliceBytes + 32 * (j & 1);
+      const float4 top = *reinterpret_cast<const float4*>(slice + swz_f32(r, c));
+      const float4 bot = *reinterpret_cast<const float4*>(slice + swz_f32(r + 8, c));
+      split(top.x, top.y, h[0], l[0]);
+      split(bot.x, bot.y, h[1], l[1]);
+      split(top.z, top.w, h[2], l[2]);
+      split(bot.z, bot.w, h[3], l[3]);
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < C::NT * 4; ++i) pin(acc[i]);
+      }
+      wgmma_fence();
+      const uint64_t qhi = sw128(qs), qlo = sw128(qs + 64);
+      Wgmma<C::BN>::run(acc, h, qhi);
+      Wgmma<C::BN>::run(acc, h, qlo);
+      Wgmma<C::BN>::run(acc, l, qhi);
+      Wgmma<C::BN>::run(acc, l, qlo);
+      if (j + 1 < kSteps) wgmma_commit();
+    }
+  } else if constexpr (M == kI8BF16) {
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);   // rows r, r + 8
     uint32_t a[kSliceBytes / 16][4];   // k16 step j: d 16j..16j+15, chunk j
@@ -529,12 +410,12 @@ __device__ __forceinline__ void mma_issue(const char* stage,
     for (int s = 0; s < kSliceBytes / 32; ++s)
       Wgmma<C::BN>::run(acc, sw128(a + 32 * s), sw128(b + 32 * s));
   }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_commit();
 }
 
 template <class T, int K>
 __device__ __forceinline__ void mma_wait(T (&acc)[K]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait_group<0>();
 #pragma unroll
   for (int i = 0; i < K; ++i) pin(acc[i]);
 }
@@ -574,9 +455,17 @@ __device__ __forceinline__ void score_tiles(char* ring, Work& w) {
     }
     cp_async_commit();
   }
-  typename C::Acc acc[C::NT * 4];
+  // Mode 0 adds the products of each 64 d, which start from 0 in `acc`,
+  // into `sum` with one fp32 add rounded to nearest: the tensor cores' own
+  // accumulation loses more the larger the sum it adds onto, and one
+  // accumulator over all 512 wgmmas of a unit self-match at D = 2048 did
+  // not stay within 1e-5 (chip_smoke.py's self-match cases).
+  constexpr bool kStageSums = C::MODE == kF32;
+  typename C::Acc acc[C::NT * 4], sum[kStageSums ? C::NT * 4 : 1];
 #pragma unroll
   for (int i = 0; i < C::NT * 4; ++i) acc[i] = 0;
+#pragma unroll
+  for (int i = 0; i < (kStageSums ? C::NT * 4 : 1); ++i) sum[i] = 0;
 #pragma unroll 1
   for (long long it = 0; cp.unit < w.units; ++it) {
     cp_async_wait<C::STAGES - 2>();
@@ -591,10 +480,26 @@ __device__ __forceinline__ void score_tiles(char* ring, Work& w) {
     }
     cp_async_commit();
     mma_wait(acc);
-    if (cp.kb == nkb - 1) {
-      w.template epilogue<C>(cp.unit, cp.tile, acc, warp, lane);
+    // every 64 d: one stage, or two of one slice pair
+    if constexpr (kStageSums) {
+      if (C::AMUL == 2 || (cp.kb & 1) || cp.kb == nkb - 1) {
 #pragma unroll
-      for (int i = 0; i < C::NT * 4; ++i) acc[i] = 0;
+        for (int i = 0; i < C::NT * 4; ++i) {
+          sum[i] += acc[i];
+          acc[i] = 0;
+        }
+      }
+    }
+    if (cp.kb == nkb - 1) {
+      if constexpr (kStageSums) {
+        w.template epilogue<C>(cp.unit, cp.tile, sum, warp, lane);
+#pragma unroll
+        for (int i = 0; i < C::NT * 4; ++i) sum[i] = 0;
+      } else {
+        w.template epilogue<C>(cp.unit, cp.tile, acc, warp, lane);
+#pragma unroll
+        for (int i = 0; i < C::NT * 4; ++i) acc[i] = 0;
+      }
     }
     cp.next(nkb);
   }
@@ -855,11 +760,16 @@ struct FusedTopkWork {
   }
 };
 
+// The tile shape of a kernel: the ring takes what shared memory the Work's
+// own bytes leave.
+template <int M, int BN, class Work>
+using TcOf = Tc<M, BN, Work::kSharedBytes>;
+
 template <int M, int BN, class Work>
 __global__ void __launch_bounds__(kTcThreads)
 tc_kernel(Work w) {
   extern __shared__ __align__(1024) char smem[];
-  using C = Tc<M, BN>;
+  using C = TcOf<M, BN, Work>;
   if constexpr (std::is_same<Work, FusedTopkWork<BN>>::value)
     w.scores = reinterpret_cast<float*>(smem + C::RING_BYTES);
   score_tiles<M, C>(smem, w);
@@ -875,7 +785,7 @@ constexpr int kMaxDevices = 64;
 template <int M, int BN, class Work>
 int launch_tc(Work w, cudaStream_t s) {
   auto* kernel = tc_kernel<M, BN, Work>;
-  constexpr int smem = Tc<M, BN>::RING_BYTES + Work::kSharedBytes;
+  constexpr int smem = TcOf<M, BN, Work>::RING_BYTES + Work::kSharedBytes;
   static std::atomic<long long> slots_on[kMaxDevices];   // 0: not yet known
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -913,23 +823,22 @@ Operands operands(const void* q, const void* db, long long nq, long long n, int 
   o.n = n;
   o.nq = nq;
   o.d = d;
-  o.row_bytes = d * (M == kBF16 ? 2 : 1);   // bf16 or int8 rows
-  o.q_bytes = d * (M == kI8I8 ? 1 : 2);     // int8 or bf16 queries
+  o.row_bytes = d * (M == kF32 ? 4 : M == kBF16 ? 2 : 1);   // fp32, bf16 or int8 rows
+  // int8 or bf16 queries; in mode 0 a hi and a lo bf16 for each of d
+  // rounded up to 32
+  o.q_bytes = M == kF32 ? (d + 31) / 32 * 128 : d * (M == kI8I8 ? 1 : 2);
   o.row_vec = vec_of(db, o.row_bytes);
   o.q_vec = vec_of(q, o.q_bytes);
   return o;
 }
 
-unsigned grid_y(long long units) {
-  return (unsigned)(units < kMaxGridY ? units : kMaxGridY);
-}
-
 // A unit's query width at nq: the smallest wgmma N (8, 16, ..., MaxBN) that
-// holds nq. K3 and K4 go up to 256 (128 for int8 x bf16, whose 256-query
-// stages would fit only two at a time in the ring); K2 up to 64, since a
-// slab's scores for its queries live in shared memory.
+// holds nq. K3 and K4 go up to 256 (128 for int8 x bf16 and fp32, whose
+// 256-query stages would fit only two at a time in the ring, and fp32 also
+// holds a second set of N/2 sums a thread); K2 up to 64, since a slab's
+// scores for its queries live in shared memory.
 template <int M>
-constexpr int kMaxQueryWidth = M == kI8BF16 ? 128 : 256;
+constexpr int kMaxQueryWidth = M == kI8BF16 || M == kF32 ? 128 : 256;
 constexpr int kMaxFusedQueryWidth = 64;
 
 template <int MaxBN, int BN = 8, class F>
@@ -957,30 +866,13 @@ template <int M>
 int launch_finemax(const void* q, const void* db, const float* scales,
                    long long nq, long long n, int d, long long blocks,
                    float* out, cudaStream_t s) {
-  if constexpr (M == kF32) {
-    const float* qp = static_cast<const float*>(q);
-    const float* dbp = static_cast<const float*>(db);
-    const unsigned gy = grid_y((blocks + kFineBlocks - 1) / kFineBlocks);
-    if (nq <= kQueryGroups) {
-      finemax_f32_kernel<1><<<dim3((unsigned)((nq + 15) / 16), gy), kThreads, 0, s>>>(
-          qp, dbp, scales, nq, n, d, blocks, out);
-    } else if (nq <= 4 * kQueryGroups) {
-      finemax_f32_kernel<4><<<dim3((unsigned)((nq + 63) / 64), gy), kThreads, 0, s>>>(
-          qp, dbp, scales, nq, n, d, blocks, out);
-    } else {
-      finemax_f32_kernel<8><<<dim3((unsigned)((nq + 127) / 128), gy), kThreads, 0, s>>>(
-          qp, dbp, scales, nq, n, d, blocks, out);
-    }
-    return (int)cudaGetLastError();
-  } else {
-    const Operands o = operands<M>(q, db, nq, n, d);
-    return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
-      return launch_finemax_tc<M, decltype(bn)::value>(o, scales, blocks, out, s);
-    });
-  }
+  const Operands o = operands<M>(q, db, nq, n, d);
+  return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
+    return launch_finemax_tc<M, decltype(bn)::value>(o, scales, blocks, out, s);
+  });
 }
 
-template <int BN>
+template <int M, int BN>
 int launch_fused_topk_tc(const Operands& o, int k, float* vals, long long* idxs,
                          cudaStream_t s) {
   FusedTopkWork<BN> w;
@@ -992,26 +884,17 @@ int launch_fused_topk_tc(const Operands& o, int k, float* vals, long long* idxs,
   w.vals = vals;
   w.idxs = idxs;
   w.scores = nullptr;   // set by the kernel
-  return launch_tc<kBF16, BN>(w, s);
+  return launch_tc<M, BN>(w, s);
 }
 
 template <int M>
 int launch_fused_topk(const void* q, const void* db, long long nq, long long n,
                       int d, int k, float* vals, long long* idxs,
                       cudaStream_t s) {
-  if constexpr (M == kF32) {
-    const long long slabs = (n + kSlab - 1) / kSlab;
-    const dim3 grid((unsigned)((nq + kQueryGroups - 1) / kQueryGroups), grid_y(slabs));
-    fused_topk_f32_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(db), nq, n, d, k,
-        slabs, vals, idxs);
-    return (int)cudaGetLastError();
-  } else {
-    const Operands o = operands<M>(q, db, nq, n, d);
-    return by_query_width<kMaxFusedQueryWidth>(nq, [&](auto bn) {
-      return launch_fused_topk_tc<decltype(bn)::value>(o, k, vals, idxs, s);
-    });
-  }
+  const Operands o = operands<M>(q, db, nq, n, d);
+  return by_query_width<kMaxFusedQueryWidth>(nq, [&](auto bn) {
+    return launch_fused_topk_tc<M, decltype(bn)::value>(o, k, vals, idxs, s);
+  });
 }
 
 template <int M>
@@ -1019,24 +902,16 @@ int launch_gather_scores(const void* q, const void* db, const long long* bids,
                          long long nq, long long n, int d, long long kf,
                          float* out, cudaStream_t s) {
   constexpr int kBlocks = kTcRows / kRowsPerBlock;   // 16 candidates a unit
-  if constexpr (M == kF32) {
-    const dim3 grid((unsigned)nq, (unsigned)((kf + kBlocks - 1) / kBlocks));
-    gather_scores_f32_kernel<<<grid, kGatherThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(db), bids, nq, n, d,
-        kf, out);
-    return (int)cudaGetLastError();
-  } else {
-    return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
-      GatherWork<decltype(bn)::value> w;
-      w.ops = operands<M>(q, db, nq, n, d);
-      w.bids = bids;
-      w.kf = kf;
-      w.cgroups = (kf + kBlocks - 1) / kBlocks;
-      w.units = nq * w.cgroups;
-      w.out = out;
-      return launch_tc<M, decltype(bn)::value>(w, s);
-    });
-  }
+  return by_query_width<kMaxQueryWidth<M>>(nq, [&](auto bn) {
+    GatherWork<decltype(bn)::value> w;
+    w.ops = operands<M>(q, db, nq, n, d);
+    w.bids = bids;
+    w.kf = kf;
+    w.cgroups = (kf + kBlocks - 1) / kBlocks;
+    w.units = nq * w.cgroups;
+    w.out = out;
+    return launch_tc<M, decltype(bn)::value>(w, s);
+  });
 }
 
 }  // namespace
@@ -1044,7 +919,10 @@ int launch_gather_scores(const void* q, const void* db, const long long* bids,
 // Each entry point launches on `stream`, does not synchronise, and returns the
 // launch error (cudaSuccess == 0). Arguments are checked by the Python
 // wrappers (dirjax_torch/ops/topk.py); these reject only what would
-// mis-launch.
+// mis-launch. In mode 0, `db` is (n, d) fp32 and `q` the split queries,
+// (nq, d32 / 32, 2, 32) bf16 with d32 = d rounded up to 32 (zeros past d):
+// for each 32 d the hi parts bf16(q), then the lo parts bf16(q - hi), each
+// 16 d in the order [0 1 4 5 8 9 12 13 2 3 6 7 10 11 14 15] (mma_issue).
 
 // K2: vals/idxs are (nq, ceil(n / 512) * k). Modes 0 and 1 only.
 extern "C" int dirjax_fused_topk(const void* q, const void* db, int mode,
@@ -1080,9 +958,7 @@ extern "C" int dirjax_gather_scores(const void* q, const void* db,
                                     const long long* bids, int mode,
                                     long long nq, long long n, int d,
                                     long long kf, float* out, void* stream) {
-  if (nq <= 0 || n <= 0 || d <= 0 || kf <= 0 ||
-      (mode == kF32 && (kf + 15) / 16 > kMaxGridY))
-    return (int)cudaErrorInvalidValue;
+  if (nq <= 0 || n <= 0 || d <= 0 || kf <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kF32: return launch_gather_scores<kF32>(q, db, bids, nq, n, d, kf, out, s);

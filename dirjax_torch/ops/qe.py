@@ -12,7 +12,8 @@ stream the database in ``db_chunk``-row tiles into a running top-k, and
 gather only the k neighbour rows per query, so the matrix never exists;
 :func:`expand_queries_quantized` takes its top-k from the int8 kernels of
 :mod:`.topk`. ``exclude_mask`` drops rows (tombstones) from the neighbour
-set exactly, by over-fetching ``exclude_pad`` extra candidates.
+set exactly, by over-fetching ``exclude_pad`` extra candidates. Every
+top-k ranks ties lower index first, as dirjax's ``lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .normalize import l2_normalize
+from .topk import _topk, rank_topk_fused
 
 __all__ = ["expand_descriptors", "expand_queries", "expand_database",
            "expand_queries_chunked", "expand_database_chunked",
@@ -48,8 +50,7 @@ def _drop_excluded(vals, idxs, exclude_mask, k: int):
     candidate list with ``pad >=`` the excluded count. Excluded and empty
     slots come back as ``(0.0, -1)``."""
     bad = (idxs < 0) | exclude_mask[idxs.clamp_min(0)]
-    vals, pos = torch.topk(vals.masked_fill(bad, float("-inf")),
-                           min(k, vals.shape[1]), dim=1)
+    vals, pos = _topk(vals.masked_fill(bad, float("-inf")), min(k, vals.shape[1]))
     idxs = torch.gather(idxs, 1, pos)
     live = vals > float("-inf")
     return torch.where(live, vals, 0.0), torch.where(live, idxs, -1)
@@ -57,7 +58,7 @@ def _drop_excluded(vals, idxs, exclude_mask, k: int):
 
 def _expand_from_sims(descs, db_descs, sims, alpha: float, k: int):
     k = min(int(k), db_descs.shape[0])
-    top_sims, top_idx = torch.topk(sims, k, dim=1)
+    top_sims, top_idx = _topk(sims, k)
     return _expand_from_topk(descs, db_descs, top_sims, top_idx, alpha, k)
 
 
@@ -91,12 +92,14 @@ def _chunk_topk(q, chunk, start: int, row0, k: int):
         col = start + torch.arange(chunk.shape[0], device=q.device)
         row = row0 + torch.arange(q.shape[0], device=q.device)
         sims = torch.where(col[None, :] == row[:, None], 0.0, sims)
-    vals, idx = torch.topk(sims, k, dim=1)
+    vals, idx = _topk(sims, k)
     return vals, idx + start
 
 
 def _merge_topk(v1, i1, v2, i2, k: int):
-    best, pos = torch.topk(torch.cat([v1, v2], dim=1), k, dim=1)
+    """Top-k of the running (v1, i1) and a chunk's (v2, i2): the running
+    entries come first, so an earlier chunk's row wins a tie."""
+    best, pos = _topk(torch.cat([v1, v2], dim=1), k)
     return best, torch.gather(torch.cat([i1, i2], dim=1), 1, pos)
 
 
@@ -159,8 +162,6 @@ def expand_queries_quantized(qdescs, db_i8, db_scales, alpha: float = 3.0,
     only the k neighbour rows per query are dequantized. Same semantics as
     :func:`expand_queries`; ``exclude_mask``/``exclude_pad`` as in
     :func:`expand_queries_chunked`."""
-    from .topk import rank_topk_fused
-
     qdescs = qdescs.float()
     k = min(int(k), db_i8.shape[0])
     kk = min(k + int(exclude_pad), db_i8.shape[0]) \

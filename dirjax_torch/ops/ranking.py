@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .topk import _topk
+
 __all__ = ["compute_scores", "compute_scores_chunked", "rank_topk"]
 
 
@@ -28,5 +30,6 @@ def compute_scores_chunked(qdescs: torch.Tensor, db_descs,
 
 
 def rank_topk(qdescs: torch.Tensor, db_descs: torch.Tensor, k: int):
-    """Score + top-k: (values, indices) of the k best database rows."""
-    return torch.topk(compute_scores(qdescs, db_descs), k, dim=1)
+    """Score + top-k: (values, indices) of the k best database rows, ties
+    to the lower index (``lax.top_k``)."""
+    return _topk(compute_scores(qdescs, db_descs), k)

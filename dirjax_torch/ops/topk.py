@@ -27,7 +27,10 @@ launches the kernel or raises for a CUDA tensor. Operand rules, as
 ``_score_dot`` fixes them: fp32 x fp32, bf16 x bf16, int8 rows x bf16
 queries (fp32 accumulation), int8 x int8 (exact int32). The plain versions
 contract in fp32 after an exact widening (fp64 for int8 x int8, exact up to
-2**53), so they differ from the kernels only in summation order.
+2**53), so they differ from the kernels only in summation order, and in
+fp32 by the kernels' split of each operand into two bf16 parts (hi.hi +
+hi.lo + lo.hi + lo.lo on the tensor cores: within 1e-6 for unit rows at
+D = 2048; :func:`_split`).
 
 Ties rank the lower index first, as ``lax.top_k`` does (:func:`_topk`).
 Indices come back int64.
@@ -157,6 +160,25 @@ def _device(name: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
+# the fp32 mode's order of each query's 16 d: a kernel thread takes 4
+# consecutive d of a row as the wgmma fragment's k 2t, 2t+1, 2t+8, 2t+9
+_F32_ORDER = [4 * (k % 8 // 2) + 2 * (k // 8) + k % 2 for k in range(16)]
+
+
+def _split(q: torch.Tensor) -> torch.Tensor:
+    """fp32 queries as the fp32 mode of csrc/topk.cu takes them: (nq, D32 /
+    32, 2, 32) bf16 with D32 = D rounded up to 32 (zeros past D); for each
+    32 d the hi parts bf16(q), then the lo parts bf16(q - hi), both rounded
+    to nearest even (q - hi is exact in fp32), each 16 d in ``_F32_ORDER``.
+    The kernel splits its rows alike and sums hi.hi + hi.lo + lo.hi + lo.lo
+    on the tensor cores."""
+    nq, d = q.shape
+    q = torch.nn.functional.pad(q, (0, -d % 32)).reshape(nq, -1, 1, 2, 16)[..., _F32_ORDER]
+    hi = q.to(torch.bfloat16)
+    lo = (q - hi.float()).to(torch.bfloat16)
+    return torch.cat([hi, lo], dim=2).contiguous()
+
+
 def _run(name: str, device: torch.device, *args, counts: dict = launches) -> None:
     """Launch ``dirjax_<name>`` on the current stream of ``device`` and count
     it in ``counts[name]``."""
@@ -182,6 +204,7 @@ def fused_topk(q: torch.Tensor, db: torch.Tensor, k: int):
     vals = torch.empty((nq, slabs * k), device=q.device)
     idxs = torch.empty((nq, slabs * k), dtype=torch.int64, device=q.device)
     if nq:
+        q = _split(q) if mode == 0 else q
         _run("fused_topk", q.device, q.data_ptr(), db.data_ptr(), mode, nq, n,
              db.shape[1], k, vals.data_ptr(), idxs.data_ptr())
     return vals, idxs
@@ -206,6 +229,7 @@ def finemax(q: torch.Tensor, db: torch.Tensor,
                              f"values on {q.device}")
     out = torch.empty((nq, blocks), device=q.device)
     if nq:
+        q = _split(q) if mode == 0 else q
         _run("finemax", q.device, q.data_ptr(), db.data_ptr(),
              None if scales is None else scales.data_ptr(), mode, nq, n,
              db.shape[1], blocks, out.data_ptr())
@@ -226,6 +250,7 @@ def gather_scores(q: torch.Tensor, db: torch.Tensor,
     nq, kf = bids.shape
     out = torch.empty((nq, kf * _RPB), device=q.device)
     if nq and kf:
+        q = _split(q) if mode == 0 else q
         _run("gather_scores", q.device, q.data_ptr(), db.data_ptr(),
              bids.data_ptr(), mode, nq, db.shape[0], db.shape[1], kf,
              out.data_ptr())
@@ -242,12 +267,16 @@ def _kf_pad(kf: int) -> int:
     return ((kf + 15) // 16) * 16
 
 
-def _hier_select(fmax: torch.Tensor, k: int, tile_rows: int, n_valid: int):
+def _hier_select(fmax: torch.Tensor, k: int, tile_rows: int, n_valid: int,
+                 row_order: bool = False):
     """Descend the query-major maxima (nq, tiles*tile_rows/8) to the winning
     fine-block ids: tiles -> 16-block chunks of the k winning tiles -> fine
     blocks of the k winning chunks. Returns ``bids (nq, kf_pad)`` int64,
     zero-padded past kf, and ``vmask (nq, kf_pad)`` marking genuine
-    candidates; every id is gather-safe."""
+    candidates; every id is gather-safe. Each level lists its winners by
+    score, as dirjax's hierarchy does, or with ``row_order`` by row, so that
+    a tie between groups goes to the lower rows at every level and the
+    answer is the dense ``lax.top_k``'s, ties included."""
     fpt = tile_rows // _RPB
     nq = fmax.shape[0]
     tiles = fmax.shape[1] // fpt
@@ -256,18 +285,26 @@ def _hier_select(fmax: torch.Tensor, k: int, tile_rows: int, n_valid: int):
     # the block straddling the ragged tail is scored densely by the finish
     bid = torch.arange(tiles * fpt, device=fmax.device).reshape(1, tiles, fpt)
     F = torch.where(bid < nb_main, F, _NEG)
+
+    def winners(maxima, kk):
+        pos = _topk(maxima, kk)[1]
+        return pos.sort(dim=1).values if row_order else pos
+
     # level 0: whole tiles
     kc = min(k, tiles)
-    _, c_idx = _topk(F.amax(dim=2), kc)                          # (nq, kc)
+    c_idx = winners(F.amax(dim=2), kc)                           # (nq, kc)
     G = torch.gather(F, 1, c_idx[:, :, None].expand(-1, -1, fpt))
     # level 1: 16-fine-block chunks within the winning tiles
     G16 = G.reshape(nq, kc * (fpt // 16), 16)
     ks = min(k, kc * (fpt // 16))
-    _, s_idx = _topk(G16.amax(dim=2), ks)
+    s_idx = winners(G16.amax(dim=2), ks)
     H = torch.gather(G16, 1, s_idx[:, :, None].expand(-1, -1, 16))
     # level 2: fine blocks within the winning chunks
     kf = min(k, ks * 16)
     h_val, h_sel = _topk(H.reshape(nq, ks * 16), kf)
+    if row_order:
+        h_sel, order = h_sel.sort(dim=1)
+        h_val = torch.gather(h_val, 1, order)
     sc = torch.gather(s_idx, 1, h_sel // 16)                     # chunk id
     f = (sc % (fpt // 16)) * 16 + h_sel % 16                     # fine-in-tile
     t_sel = torch.gather(c_idx, 1, sc // (fpt // 16))
@@ -286,8 +323,10 @@ def _hier_select(fmax: torch.Tensor, k: int, tile_rows: int, n_valid: int):
 def _finish_from_raw(q, db, bids, vmask, raw, k: int, n_valid: int,
                      scales=None, qscales=None):
     """Mask non-candidates, rescale int8, score the ragged tail densely,
-    final top-k. ``qscales`` (full-int8) scale the returned values only:
-    a positive per-query constant changes no ranking."""
+    final top-k (candidates in row order, from ``_hier_select(...,
+    row_order=True)``, rank ties lower row first). ``qscales`` (full-int8)
+    scale the returned values only: a positive per-query constant changes
+    no ranking."""
     nq, kf_pad = bids.shape
     nb_main = n_valid // _RPB
     rows = (bids[:, :, None] * _RPB
@@ -319,7 +358,7 @@ def _hierarchical(q, db, k: int, tile_rows: int, scales=None, qscales=None):
     n = db.shape[0]
     tiles = -(-n // tile_rows)
     fmax = finemax(q, db, scales, blocks=tiles * (tile_rows // _RPB))
-    bids, vmask = _hier_select(fmax, k, tile_rows, n)
+    bids, vmask = _hier_select(fmax, k, tile_rows, n, row_order=True)
     raw = gather_scores(q, db, bids)
     return _finish_from_raw(q, db, bids, vmask, raw, k, n, scales, qscales)
 

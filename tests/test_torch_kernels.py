@@ -11,11 +11,14 @@ Tolerances:
   holds the TPU kernel to its oracle: the kernel sums H*W cells and C
   products in another order than ATen, and the pow/log/exp chain of GeM
   amplifies last-bit differences by about p.
-- K2-K4 (top-k): scores of unit vectors within atol 1e-5. fp32 runs on the
-  CUDA cores (fp32 sums of at most 2048 exact products, in another order
-  than cuBLAS); bf16 and int8 x bf16 run on the tensor cores, whose products
-  are exact and whose fp32 accumulation runs in yet another order, so they
-  are held to the same 1e-5. int8 x int8 scores exactly equal (int32
+- K2-K4 (top-k): scores of unit vectors within atol 1e-5. Every mode runs
+  on the tensor cores. bf16 and int8 x bf16 products are exact and their
+  fp32 accumulation runs in another order than cuBLAS's; fp32 splits each
+  operand into two bf16 parts and sums the four products hi.hi + hi.lo +
+  lo.hi + lo.lo, which miss the fp32 product by the split's residuals alone
+  (below 1e-6 at D = 2048, tests/test_torch_topk.py models it), held to the
+  same 1e-5 on random queries and on self-match queries (database rows,
+  where every product is >= 0). int8 x int8 scores exactly equal (int32
   accumulation on both sides). An index may differ only where the plain
   scores of both rows lie within 1e-5; where K2 returns equal values in a
   slab (duplicated rows), the lower row comes first. K4's maxima over each
@@ -211,6 +214,25 @@ class TestTopkKernels:
         # containment needs K4's block maxima to be K3's, bit for bit
         block_max = raw.reshape(nq, -1, 8).amax(dim=2)
         assert torch.equal(block_max, torch.gather(fmax, 1, bids))
+
+    @pytest.mark.parametrize("nq,n", [(16, 3001), (100, 2100), (256, 4099)])
+    def test_fp32_self_match(self, rng, cuda, nq, n):
+        """fp32 queries equal to database rows (every product of a self-match
+        is >= 0, so the split's errors could only add up): K2, K3 and K4
+        against their plain versions, K4's block maxima K3's."""
+        db = _unit(rng, n, 2048).to(cuda)
+        q = db[torch.from_numpy(rng.choice(n, nq, replace=False)).to(cuda)]
+        vals, idxs = topk.fused_topk(q, db, 10)
+        want_v, want_i = topk.fused_topk_reference(q, db, 10)
+        _same_ranking(vals, idxs, want_v, want_i,
+                      torch.nn.functional.pad(topk._scores(q, db), (0, 1)))
+        blocks = -(-n // 1024) * 128
+        fmax = topk.finemax(q, db, None, blocks=blocks)
+        _close_scores(fmax, topk.finemax_reference(q, db, None, blocks), False)
+        bids, _ = topk._hier_select(fmax, 100, 1024, n)
+        raw = topk.gather_scores(q, db, bids)
+        _close_scores(raw, topk.gather_scores_reference(q, db, bids), False)
+        assert torch.equal(raw.reshape(nq, -1, 8).amax(dim=2), torch.gather(fmax, 1, bids))
 
     def test_gather_marks_blocks_outside(self, rng, cuda):
         q, db, _ = _operands(rng, cuda, "bf16", 3, 100, 64)

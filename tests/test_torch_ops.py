@@ -4,6 +4,8 @@ Tolerance rtol 2e-4 / atol 2e-5, as tests/test_pallas_kernels.py holds the
 Pallas head to its XLA oracle: both sides compute in fp32 but sum in
 different orders (XLA vs ATen reductions, a 128..2048-term matmul), and the
 pow/log/exp chain of GeM amplifies last-bit differences by about p.
+Top-k indices are identical, exact ties included (lower index first, as
+``lax.top_k`` ranks them).
 The CUDA kernel's own tests are in tests/test_torch_kernels.py.
 """
 
@@ -158,3 +160,42 @@ class TestRanking:
                                    want, rtol=RTOL, atol=ATOL)
         vals, idx = tops.rank_topk(_t(q), _t(db), 5)
         np.testing.assert_array_equal(idx.numpy(), np.argsort(-want, axis=1)[:, :5])
+
+
+def tied_rows(kind, rng, n, d=8):
+    """Rows whose scores tie exactly: ``duplicated`` unit rows (every 5th row
+    from row 3 repeats the row 3 before it), or ``one_decimal`` rows of
+    multiples of 0.5 (one decimal, and exact in binary, so every dot product
+    is exact in any summation order), where many distinct rows score alike."""
+    if kind == "duplicated":
+        x = rng.normal(size=(n, d))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        x[3::5] = x[0:n - 3:5][:len(x[3::5])]
+        return x.astype(np.float32)
+    return (np.round(rng.normal(size=(n, d)) * 2) / 2).astype(np.float32)
+
+
+class TestTieOrder:
+    """Exactly tied scores rank the lower index first, as in dirjax."""
+
+    @pytest.mark.parametrize("kind,d", [("duplicated", 64), ("one_decimal", 8)])
+    def test_rank_topk(self, rng, kind, d):
+        db = tied_rows(kind, rng, 4096, d)
+        q = db[[0, 3, 10, 500]] if kind == "duplicated" else tied_rows(kind, rng, 6, d)
+        jv, ji = jops.rank_topk(jnp.asarray(q), jnp.asarray(db), 40)
+        tv, ti = tops.rank_topk(_t(q), _t(db), 40)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        _close(tv, jv)
+
+    @pytest.mark.parametrize("k", [5, 20])
+    def test_expand_queries(self, rng, k):
+        db = tied_rows("one_decimal", rng, 3000)
+        q = tied_rows("one_decimal", rng, 7)
+        want = jops.expand_queries(q, db, alpha=3, k=k)
+        _close(tops.expand_queries(_t(q), _t(db), alpha=3, k=k), want)
+
+    @pytest.mark.parametrize("k", [5, 20])
+    def test_expand_database(self, rng, k):
+        db = tied_rows("one_decimal", rng, 1500)
+        want = jops.expand_database(db, alpha=3, k=k)
+        _close(tops.expand_database(_t(db), alpha=3, k=k), want)

@@ -8,7 +8,8 @@ batcher and socket server over its indexes, and the index CLI.
 dirjax's CPU search ranks densely; the port takes its kernels' route with
 their plain versions. Tolerances: scores within rtol 1e-5 / atol 1e-5 (fp32
 sums of exact products in another order), indices and keys identical (the
-inputs are random, so no two scores tie). Binary indexes: symmetric values
+inputs are random, so no two scores tie; where rows are built to tie
+exactly, both rank the lower index first). Binary indexes: symmetric values
 exactly equal, asymmetric within 1e-4; an index may differ only where its
 score ties (Hamming scores are small integers) or lies within 1e-3 of the
 k-th. Served answers equal the port's direct search exactly: the same code
@@ -164,6 +165,47 @@ def test_expand_database_chunked_matches(data):
     np.testing.assert_allclose(got.numpy(), tqe.expand_database(torch.from_numpy(db),
                                                                 3.0, 5).numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+def _grid_rows(rng, n, d=8):
+    """Rows of multiples of 0.5 (one decimal, exact in binary): every dot
+    product is exact in any summation order, and many distinct rows tie."""
+    return (np.round(rng.normal(size=(n, d)) * 2) / 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("k,excluded", [(5, False), (20, False), (7, True)])
+def test_expand_queries_chunked_ranks_ties_like_dirjax(k, excluded):
+    # 1000-row chunks: rows tied at the k-th place fall in different chunks
+    rng = np.random.default_rng(12)
+    db, q = _grid_rows(rng, 3001), _grid_rows(rng, 9)
+    mask = np.zeros(len(db), bool)
+    mask[::41] = excluded
+    jkw = dict(exclude_mask=jnp.asarray(mask), exclude_pad=80) if excluded else {}
+    tkw = dict(exclude_mask=torch.from_numpy(mask), exclude_pad=80) if excluded else {}
+    want = jqe.expand_queries_chunked(jnp.asarray(q), jnp.asarray(db), 3.0, k,
+                                      db_chunk=1000, **jkw)
+    got = tqe.expand_queries_chunked(torch.from_numpy(q), torch.from_numpy(db), 3.0, k,
+                                     db_chunk=1000, **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_expand_database_chunked_ranks_ties_like_dirjax():
+    db = _grid_rows(np.random.default_rng(13), 600)
+    want = jqe.expand_database_chunked(jnp.asarray(db), 3.0, 5, row_block=300, db_chunk=200)
+    got = tqe.expand_database_chunked(torch.from_numpy(db), 3.0, 5, row_block=300,
+                                      db_chunk=200)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode,k", [("fp32", 10), ("fp32", 40), ("bf16", 10)])
+def test_search_with_ties_matches_dirjax(mode, k):
+    rng = np.random.default_rng(14)
+    db, q = _grid_rows(rng, 3001), _grid_rows(rng, 9)
+    jdt, tdt = DTYPES[mode]
+    jidx = JS.RetrievalIndex(db, dtype=jdt)
+    tidx = TS.RetrievalIndex(db, dtype=tdt, device="cpu")
+    for opts in (dict(k=k), dict(k=k, aqe=AQE)):
+        _same(tidx.search(q, **opts), jidx.search(q, **opts))
 
 
 @pytest.mark.parametrize("excluded", [False, True])

@@ -169,3 +169,34 @@ def test_rank_topk_fused_default_tile_and_errors(rng):
         T.rank_topk_fused(q, db.to(torch.int8), 5)
     with pytest.raises(ValueError, match="int8 database"):
         T.rank_topk_fused(q, db, 5, quantize_queries=True)
+
+
+def _bf16_split(x: torch.Tensor):
+    """The fp32 mode's split of csrc/topk.cu: hi = bf16(x), lo = bf16(x - hi),
+    both rounded to nearest even."""
+    hi = x.bfloat16()
+    return hi.float(), (x - hi.float()).bfloat16().float()
+
+
+@pytest.mark.parametrize("kind", ["random", "self_match", "all_positive"])
+def test_fp32_split_arithmetic(kind):
+    """The fp32 mode's numeric design, modelled in plain torch at D = 2048:
+    each score is hi.hi + hi.lo + lo.hi + lo.lo of the two-part bf16 splits,
+    the products exact in fp32 (8-bit by 8-bit mantissas) and summed in fp32,
+    the kernel's accumulator type. Within 1e-5 of fp64 (and of the
+    plain fp32 version) on random unit queries, on queries equal to database
+    rows (a self-match: every product >= 0, so dropping lo.lo, up to 2**-16
+    of each, would add up in one direction) and on all-positive rows."""
+    rng = np.random.default_rng(21)
+    db = _unit(rng, 2048, 2048)
+    if kind == "all_positive":
+        db = np.abs(db)
+    q = db[::37][:48] if kind != "random" else _unit(rng, 48, 2048)
+    q, db = torch.from_numpy(np.ascontiguousarray(q)), torch.from_numpy(db)
+    (qh, ql), (dh, dl) = _bf16_split(q), _bf16_split(db)
+    split = qh @ dh.T
+    for a, b in ((qh, dl), (ql, dh), (ql, dl)):
+        split = split + a @ b.T
+    exact = q.double() @ db.double().T
+    assert float((split.double() - exact).abs().max()) <= 1e-5
+    assert float((split - T._scores(q, db)).abs().max()) <= 1e-5
