@@ -34,28 +34,35 @@ Phases, each of which raises on failure:
    chunk's exact top-k (nq x 131,072 scores, k = 10, ties to the lower
    index) by the full stable sort the port runs against torch.topk with a
    tie fill, at nq = 16, 64 and 256.
-4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu) at the
-   serving shape: the same 1,048,576 rows, an ITQ codec fitted on the card
-   (131,072-row sample, 30 iterations; the fit time is printed) and
-   2048-bit codes. K5 symmetric (exactly equal) and asymmetric (within
-   1e-5) against their plain versions at nq = 256, 37 and 1 and on a ragged
-   1,048,573 rows; the rescore within 1e-5 of its plain version, its block
-   maxima equal to K5's bit for bit; hamming_search_fused at k = 10 and 100
-   against a dense plain top-k (values, and no returned row outside the
-   plain set but at a near-tie). Each kernel timed against its plain
-   version with CUDA events, plain/kernel/kernel/plain.
+4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu, on the
+   tensor-core routine of csrc/tc_score.cuh) at the serving shape: the
+   same 1,048,576 rows, an ITQ codec fitted on the card (131,072-row
+   sample, 30 iterations; the fit time is printed) and 2048-bit codes. K5
+   symmetric (exactly equal) and asymmetric (within 1e-5) against their
+   plain versions at nq = 256, 37 and 1 and on a ragged 1,048,573 rows; the
+   rescore within 1e-5 of its plain version, its block maxima equal to
+   K5's bit for bit; hamming_search_fused at k = 10 and 100 against a dense
+   plain top-k (values, and no returned row outside the plain set but at a
+   near-tie). K5 timed in both modes at nq = 256, 16 and 1, and the
+   rescore at k = 100 and nq = 256 and 16, each against its plain version
+   with CUDA events, plain/kernel/kernel/plain, each reading first held
+   against the plain version.
 5. PQ/IVF kernels — K6 and its rescore (csrc/pq.cu) on the same rows:
    m = 32 codebooks at ksub 16 and 256 trained on the card from a
    262,144-row sample, and OPQ once (the fit times are printed); K6 and the
    rescore against their plain versions at nq = 256, 37 and 1, on
    1,048,573 rows too, fp32 and bf16 tables, blocks 64 (ksub 16) and 8
-   (ksub 256): within 1e-5, the number of exactly equal cases printed, the
-   rescore's block maxima equal to K6's bit for bit; pq_topk at k = 10 and
-   100 against a dense plain ADC top-k; an IVF (nlist 1024) whose ivf_topk
-   at nprobe = nvlist, per query and union, is held to the dense plain ADC
-   over reconstructions. Each kernel timed against its plain version with
-   CUDA events, plain/kernel/kernel/plain; one embedding_bag (the ADC
-   scores of all queries) is K6's library yardstick, at ksub 16 and 256.
+   (ksub 256): both exactly equal in all 12 cases (the number of cases is
+   printed), the rescore's block maxima equal to K6's bit for bit; pq_topk
+   at k = 10 and 100 against a dense plain ADC top-k; an IVF (nlist 1024)
+   whose ivf_topk at nprobe = nvlist, per query and union, is held to the
+   dense plain ADC over reconstructions. K6 timed at ksub 16 and 256, fp32
+   and bf16 tables, nq = 256 and 16 (each reading first held to exact
+   equality with the plain version), and the rescore at k = 100, against
+   their plain versions with CUDA events, plain/kernel/kernel/plain; one
+   embedding_bag (the ADC scores of all queries) is K6's library yardstick
+   at each ksub and nq. K6's entry also carries its lookup floor: its
+   table lookups at 32 a clock on each SM, at the card's maximum SM clock.
 6. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
@@ -160,6 +167,16 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_sms_and_clock():
+    """(SM count, maximum SM clock in Hz) of card 0: the clock as nvidia-smi
+    reports it (clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return (torch.cuda.get_device_properties(0).multi_processor_count,
+            float(out.stdout.strip().splitlines()[0]) * 1e6)
 
 
 def build_phase():
@@ -696,45 +713,66 @@ def binary_kernel_phase(device):
                   "outside the plain set (ties)")
 
     blocks = -(-SERVE_N // TILE_ROWS) * (TILE_ROWS // 8)
-    q = ops["asym"]
-    bids, _ = _hier_select(binary.bits_finemax(q, codes, blocks), 100, TILE_ROWS, SERVE_N)
-    shape = f"{SERVE_N}x{BITS} bits nq={SERVE_NQ}"
-    timed = {}
-    for mode in ("sym", "asym"):
-        timed[mode] = time_in_turns(
-            f"bits_finemax {mode} {shape}",
-            lambda: binary.bits_finemax_reference(ops[mode], codes, blocks),
-            lambda: binary.bits_finemax(ops[mode], codes, blocks), iters=5)
-    timed["rescore"] = time_in_turns(
-        f"bits_gather_scores {shape} k=100",
-        lambda: binary.bits_gather_scores_reference(q, codes, bids),
-        lambda: binary.bits_gather_scores(q, codes, bids), iters=5)
-    nq, kf8, nb = SERVE_NQ, bids.shape[1] * 8, BITS // 8
-    products = float(SERVE_NQ) * SERVE_N * BITS
-    out_bytes = SERVE_NQ * blocks * 4
+
+    def k5_bound(mode, nq):
+        # the packed (sym) or bf16 (asym) queries the wrapper takes
+        q_bytes = nq * BITS // 8 if mode == "sym" else nq * BITS * 2
+        return bound(codes.numel() + q_bytes + nq * blocks * 4, 2.0 * nq * SERVE_N * BITS,
+                     "int8" if mode == "sym" else "bf16")
+
+    # each timed reading is first held against its plain version
+    readings = {}
+    for mode in ("asym", "sym"):
+        for nq in (SERVE_NQ, 16, 1):
+            q = ops[mode][:nq].contiguous()
+            tag = f"bits_finemax {mode} {SERVE_N}x{BITS} bits nq={nq}"
+            err[mode] = max(err[mode], check_scores(
+                tag, binary.bits_finemax(q, codes, blocks),
+                binary.bits_finemax_reference(q, codes, blocks), exact=mode == "sym"))
+            readings[(mode, nq)] = time_in_turns(
+                tag, lambda: binary.bits_finemax_reference(q, codes, blocks),
+                lambda: binary.bits_finemax(q, codes, blocks), iters=5)
+    rescore = {}
+    for nq in (SERVE_NQ, 16):
+        q = ops["asym"][:nq].contiguous()
+        fmax = binary.bits_finemax(q, codes, blocks)
+        bids, _ = _hier_select(fmax, 100, TILE_ROWS, SERVE_N)
+        raw = binary.bits_gather_scores(q, codes, bids)
+        if not torch.equal(raw.reshape(nq, -1, 8).amax(dim=2), torch.gather(fmax, 1, bids)):
+            raise AssertionError(f"nq={nq}: the rescore's block maxima are not K5's")
+        ms, plain_ms = time_in_turns(
+            f"bits_gather_scores {SERVE_N}x{BITS} bits nq={nq} k=100",
+            lambda: binary.bits_gather_scores_reference(q, codes, bids),
+            lambda: binary.bits_gather_scores(q, codes, bids), iters=5)
+        kf8 = bids.shape[1] * 8
+        rescore[nq] = {"ms": ms, "plain_ms": plain_ms, **bound(
+            nq * kf8 * BITS // 8 + q.numel() * 2 + bids.numel() * 8 + nq * kf8 * 4,
+            2.0 * nq * kf8 * BITS, "bf16")}
     no_library = (NO_LIBRARY + ": torch has no popcount, and the ±1 contraction "
                   "needs the codes unpacked first")
     src, replaces = "dirjax_torch/csrc/binary.cu", "dirjax/ops/binary.py:357"
+    extra = {}
+    for (mode, nq), (ms, plain_ms) in readings.items():
+        if (mode, nq) == ("asym", SERVE_NQ):
+            continue   # the row's own reading
+        key = ("sym_" if mode == "sym" else "") + ("" if nq == SERVE_NQ else f"nq{nq}_")
+        b = k5_bound(mode, nq)
+        extra.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                      f"{key}bound_ms": b["bound_ms"], f"{key}bound_by": b["bound_by"]})
     # the main row is the asymmetric mode, which BinaryIndex serves by default
     entries = [
         {"name": "bits_finemax", "mode": "asym", "route": "cuda", "source": src,
          "replaces": replaces, "max_abs_err": err["asym"],
-         "ms": timed["asym"][0], "plain_ms": timed["asym"][1],
-         **bound(codes.numel() + q.numel() * 2 + out_bytes, 2 * products, "bf16"),
-         "library_ms": None, "library_note": no_library,
-         "sym_max_abs_err": err["sym"], "sym_ms": timed["sym"][0],
-         "sym_plain_ms": timed["sym"][1],
-         "sym_bound_ms": bound(codes.numel() + qb.numel() + out_bytes,
-                               2 * products, "int8")["bound_ms"]},
+         "ms": readings[("asym", SERVE_NQ)][0], "plain_ms": readings[("asym", SERVE_NQ)][1],
+         **k5_bound("asym", SERVE_NQ), "library_ms": None, "library_note": no_library,
+         "sym_max_abs_err": err["sym"], **extra},
         {"name": "bits_gather_scores", "route": "cuda", "source": src,
          "replaces": "dirjax/ops/binary.py:513 (_bits_finish_asym, XLA)",
-         "max_abs_err": err["bits_gather_scores"],
-         "ms": timed["rescore"][0], "plain_ms": timed["rescore"][1],
-         **bound(nq * kf8 * nb + q.numel() * 2 + bids.numel() * 8 + nq * kf8 * 4,
-                 2.0 * nq * kf8 * BITS, "bf16"),
+         "max_abs_err": err["bits_gather_scores"], **rescore[SERVE_NQ],
+         **{f"nq16_{k}": v for k, v in rescore[16].items()},
          "library_ms": None, "library_note": no_library},
     ]
-    del ops, q, bids
+    del ops, q, bids, fmax, raw
     return entries, db32, codec
 
 
@@ -799,7 +837,7 @@ def pq_kernel_phase(device, db32):
     qf = unit_rows(SERVE_NQ, SERVE_D, device, seed=2)
     luts = {ksub: pq.pq_lookup(qf, books[ksub]) for ksub in books}
     err = {"adc_finemax": 0.0, "adc_gather_scores": 0.0}
-    inexact = []
+    cases = 0
     for ksub, block in ((16, 64), (256, 8)):
         for dt in (torch.float32, torch.bfloat16):
             for nq, n in [(SERVE_NQ, SERVE_N), (37, SERVE_N - 3), (1, SERVE_N)]:
@@ -807,24 +845,22 @@ def pq_kernel_phase(device, db32):
                 tag = f"ksub={ksub} block={block} {str(dt)[6:]} nq={nq} n={n}"
                 fmax = pq.adc_finemax(lut, db, block)
                 want = pq.adc_finemax_reference(lut, db, block)
-                e6 = check_scores(f"adc_finemax {tag}", fmax, want, exact=False)
+                e6 = check_scores(f"adc_finemax {tag}", fmax, want, exact=True)
                 bids, _ = pq._descend_maxima(fmax, 100)
                 bids = bids.contiguous()
                 raw = pq.adc_gather_scores(lut, db, bids, block)
                 er = check_scores(f"adc_gather_scores {tag}", raw,
-                                  pq.adc_gather_scores_reference(lut, db, bids, block), False)
+                                  pq.adc_gather_scores_reference(lut, db, bids, block), True)
                 if not torch.equal(raw.reshape(nq, -1, block).amax(dim=2),
                                    torch.gather(fmax, 1, bids)):
                     raise AssertionError(f"{tag}: the rescore's block maxima are not K6's")
-                if e6 or er:
-                    inexact.append(tag)
+                cases += 1
                 err["adc_finemax"] = max(err["adc_finemax"], e6)
                 err["adc_gather_scores"] = max(err["adc_gather_scores"], er)
                 print(f"kernel adc_finemax {tag}: max_abs_err {e6:.3e}; adc_gather_scores "
                       f"k=100 ({bids.shape[1]} blocks): max_abs_err {er:.3e}; block maxima "
                       "bit-identical")
-    print(f"K6 and the rescore equal their plain versions exactly in "
-          f"{24 - len(inexact)} of 24 cases{'; not in ' + ', '.join(inexact) if inexact else ''}")
+    print(f"K6 and the rescore equal their plain versions exactly in {cases} of {cases} cases")
 
     for ksub, dt in ((16, None), (256, torch.bfloat16)):
         lut = pq._round_luts(luts[ksub], dt)
@@ -859,62 +895,66 @@ def pq_kernel_phase(device, db32):
               f"{e:.3e}")
 
     lut, db = luts[16], codes[16]
-    blocks = -(-SERVE_N // 64)
     bids = pq._descend_maxima(pq.adc_finemax(lut, db, 64), 100)[0].contiguous()
-    shape = f"{SERVE_N}x{PQ_M} ksub=16 fp32 nq={SERVE_NQ}"
-    timed = {
-        "adc_finemax": time_in_turns(
-            f"adc_finemax {shape} block=64", lambda: pq.adc_finemax_reference(lut, db, 64),
-            lambda: pq.adc_finemax(lut, db, 64), iters=5),
-        "adc_gather_scores": time_in_turns(
-            f"adc_gather_scores {shape} k=100", lambda: pq.adc_gather_scores_reference(
-                lut, db, bids, 64), lambda: pq.adc_gather_scores(lut, db, bids, 64), iters=5),
-    }
-    extra = {}
-    for name, ksub, block, dt in (("bf16", 16, 64, torch.bfloat16),
-                                  ("ksub256", 256, 8, torch.float32)):
-        l2 = luts[ksub].to(dt).contiguous()
-        extra[name] = time_in_turns(
-            f"adc_finemax {SERVE_N}x{PQ_M} ksub={ksub} block={block} {str(dt)[6:]} "
-            f"nq={SERVE_NQ}", lambda: pq.adc_finemax_reference(l2, codes[ksub], block),
-            lambda: pq.adc_finemax(l2, codes[ksub], block), iters=5)
-    # the library yardstick of K6: one embedding_bag computes every ADC score
-    # (sum of m table rows, all queries at once) and writes the score matrix
-    flat = (db.long() + torch.arange(PQ_M, device=device) * 16).contiguous()
-    table = lut.reshape(SERVE_NQ, -1).T.contiguous()
-    library_ms = _time_ms(lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"),
-                          iters=5)
-    print(f"library embedding_bag (sum) {shape}: {library_ms:.3f} ms")
-    # and at ksub 256 (block 8), K6's other reading
-    flat = (codes[256].long() + torch.arange(PQ_M, device=device) * 256).contiguous()
-    table = luts[256].reshape(SERVE_NQ, -1).T.contiguous()
-    ks256_library_ms = _time_ms(
-        lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"), iters=5)
-    print(f"library embedding_bag (sum) {SERVE_N}x{PQ_M} ksub=256 fp32 nq={SERVE_NQ}: "
-          f"{ks256_library_ms:.3f} ms")
-    del flat, table
+    rescore = time_in_turns(
+        f"adc_gather_scores {SERVE_N}x{PQ_M} ksub=16 fp32 nq={SERVE_NQ} k=100",
+        lambda: pq.adc_gather_scores_reference(lut, db, bids, 64),
+        lambda: pq.adc_gather_scores(lut, db, bids, 64), iters=5)
+    # K6 at both ksub, fp32 and bf16 tables, nq = 256 and 16, each reading
+    # first held to exact equality with the plain version; one embedding_bag
+    # (every ADC score of the queries: the sum of m table rows, written as
+    # the score matrix) at each ksub and nq is the library yardstick
+    sm_clock = card_sms_and_clock()
+    readings, library, extra = {}, {}, {}
+    for ksub, block in ((16, 64), (256, 8)):
+        nb = -(-SERVE_N // block)
+        for nq in (SERVE_NQ, 16):
+            for dt in (torch.float32, torch.bfloat16):
+                l2 = luts[ksub][:nq].to(dt).contiguous()
+                tag = (f"adc_finemax {SERVE_N}x{PQ_M} ksub={ksub} block={block} "
+                       f"{str(dt)[6:]} nq={nq}")
+                check_scores(tag, pq.adc_finemax(l2, codes[ksub], block),
+                             pq.adc_finemax_reference(l2, codes[ksub], block), exact=True)
+                ms, plain_ms = time_in_turns(
+                    tag, lambda: pq.adc_finemax_reference(l2, codes[ksub], block),
+                    lambda: pq.adc_finemax(l2, codes[ksub], block), iters=5)
+                lookups = float(nq) * SERVE_N * PQ_M
+                key = ("ksub256_" if ksub == 256 else "") + (
+                    "bf16_" if dt == torch.bfloat16 else "") + ("nq16_" if nq == 16 else "")
+                readings[key] = {
+                    "ms": ms, "plain_ms": plain_ms,
+                    **bound(codes[ksub].numel() + l2.numel() * l2.element_size() + nq * nb * 4,
+                            lookups, "fp32"),
+                    "lookup_floor_ms": lookups / (32.0 * sm_clock[0] * sm_clock[1]) * 1e3}
+            flat = (codes[ksub].long() + torch.arange(PQ_M, device=device) * ksub).contiguous()
+            table = luts[ksub][:nq].reshape(nq, -1).T.contiguous()
+            key = ("ksub256_" if ksub == 256 else "") + ("nq16_" if nq == 16 else "")
+            library[key] = _time_ms(
+                lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"), iters=5)
+            print(f"library embedding_bag (sum) {SERVE_N}x{PQ_M} ksub={ksub} fp32 nq={nq}: "
+                  f"{library[key]:.3f} ms")
+            del flat, table
+    for key, r in readings.items():
+        if key:   # the main row's reading is ksub 16, fp32, nq = 256
+            extra.update({f"{key}{k}": v for k, v in r.items()})
+    for key, ms in library.items():
+        if key:
+            extra[f"{key}library_ms"] = ms
     nq, kf = SERVE_NQ, bids.shape[1]
-    lookups = float(nq) * SERVE_N * PQ_M
-    onehot = bound(0, 2.0 * lookups * 16, "bf16")["bound_ms"]
+    onehot = bound(0, 2.0 * nq * SERVE_N * PQ_M * 16, "bf16")["bound_ms"]
     entries = [
         {"name": "adc_finemax", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
          "replaces": "dirjax/ops/pq.py:441", "max_abs_err": err["adc_finemax"],
-         "ms": timed["adc_finemax"][0], "plain_ms": timed["adc_finemax"][1],
-         **bound(db.numel() + lut.numel() * 4 + nq * blocks * 4, lookups, "fp32"),
-         "library_ms": library_ms,
+         **readings[""], "library_ms": library[""],
          "library_note": "torch.nn.functional.embedding_bag(mode='sum') of the same "
                          "codes and tables (writes the score matrix)",
-         "onehot_bound_ms": onehot, "bf16_ms": extra["bf16"][0],
-         "bf16_plain_ms": extra["bf16"][1], "ksub256_ms": extra["ksub256"][0],
-         "ksub256_plain_ms": extra["ksub256"][1],
-         **{f"ksub256_{k}": v for k, v in bound(
-             codes[256].numel() + luts[256].numel() * 4 + nq * -(-SERVE_N // 8) * 4,
-             lookups, "fp32").items()},
-         "ksub256_library_ms": ks256_library_ms},
+         "lookup_floor_note": f"table lookups / (32 a clock x {sm_clock[0]} SMs x "
+                              f"{sm_clock[1] / 1e6:.0f} MHz, the card's maximum SM clock)",
+         "onehot_bound_ms": onehot, **extra},
         {"name": "adc_gather_scores", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
          "replaces": "dirjax/ops/pq.py:393-421 (_pq_topk_hier phase C, XLA)",
          "max_abs_err": err["adc_gather_scores"],
-         "ms": timed["adc_gather_scores"][0], "plain_ms": timed["adc_gather_scores"][1],
+         "ms": rescore[0], "plain_ms": rescore[1],
          **bound(nq * kf * 64 * PQ_M + lut.numel() * 4 + bids.numel() * 8 + nq * kf * 64 * 4,
                  float(nq) * kf * 64 * PQ_M, "fp32"),
          "library_ms": None,

@@ -16,26 +16,53 @@
 //      yields NaN, a row >= n inside a valid block -inf (as in K6).
 //
 // Containment (topk_pallas.py:24-29) needs the rescore to reproduce K6's
-// maxima bit for bit. Both score a (row, query) pair through the one routine
-// `adc_mac`: one fp32 accumulator, from 0, fed __fadd_rn(acc, LUT value) for
-// j = 0, 1, ... in increasing order. bf16 tables are widened to fp32 (exact)
-// when they are staged, so both kernels add the same fp32 values in the same
-// order; the plain versions in dirjax_torch/ops/pq.py do too.
+// maxima bit for bit. Both score a (row, query) pair as one fp32 accumulator
+// that starts at 0 and takes adc_mac, __fadd_rn(acc, LUT value), for j = 0,
+// 1, ... in increasing order; bf16 tables are widened to fp32 (exact) when
+// they are staged. So both add the same fp32 values in the same order, and
+// the plain versions in dirjax_torch/ops/pq.py do too: all three agree bit
+// for bit, whatever their layouts.
 //
-// What bounds K6: at the serving shape (1,048,576 rows, m = 32, ksub = 16,
-// nq = 256) it reads 33.5 MB of codes and 0.5 MB of tables (0.01 ms at
-// 3.35 TB/s) and does 8.6e9 table lookups and adds. The TPU kernel turned the
-// lookups into a one-hot x LUT contraction (2 * nq * n * m * ksub =
-// 2.75e11 bf16 operations, 0.28 ms on the tensor cores); this first design
-// keeps the lookups: a CTA stages the tables of a group of QG queries in
-// shared memory (as fp32) and each thread owns one row of a 256-row pass,
-// so a warp's 32 lookups for one (query, subspace) hit one table row:
-// conflict-free at ksub = 16 (16 words in 16 banks), about 3-4-way at
-// ksub = 256 (bank conflicts of random lookups; later work). At 32 lookups
-// per SM per clock the lookups alone take >= 1.2 ms. Where the tables of QG
-// queries do not fit kLutBudget (ksub = 256 with large m), they are staged
-// one subspace group at a time, so every (m, ksub) with ksub <= 256 runs here.
-// The one-hot tensor-core form and TMA staging are later work.
+// What bounds K6: at the serving shape (1,048,576 rows, m = 32, nq = 256)
+// it reads 33.5 MB of codes and 0.5 MB (ksub 16) or 8.4 MB (ksub 256) of
+// tables and does 8.6e9 table lookups and adds: 0.13 ms of fp32 adds, but a
+// design that makes one shared-memory load per lookup has a floor of
+// 8.6e9 / (132 SMs x 32 lanes a clock), about 1.0 ms at the card's maximum
+// clock. (The TPU kernel turned the lookups into a one-hot x LUT
+// contraction, 0.28 ms of bf16 tensor work at ksub 16; it would change the
+// sums, so the rescore would have to share its matrix routine.) The design:
+//   - Queries on the lanes: a CTA of 16 warps takes 32 queries, one a lane,
+//     against 1024 rows a pass, 64 rows a warp, each lane holding its
+//     query's 64 accumulators in registers. A row's code byte is the same
+//     for every lane (one broadcast load gives four subspaces of a row), and
+//     each lane reads its own query's table entry.
+//   - Each lane's staged tables start `stride` words after the previous
+//     lane's, with stride = 1 (mod 32): the 32 lookups of a warp, one table
+//     entry of each query at the same code, fall in 32 different banks at
+//     any ksub.
+//   - Where the tables of all m subspaces fit the block's shared memory
+//     (227 KB) as fp32 (m = 32 at ksub 16), they are staged once per query
+//     group, bf16 ones widened, and the CTA walks every row range of the
+//     group. Else (ksub 256) two buffers each hold `step` subspaces (as
+//     many as fit, a power of two up to 16: 2 fp32 or 4 bf16 at ksub 256)
+//     as they are stored, bf16 widened at the lookup, and the next step's
+//     tables copy in with cp.async while this step adds; the accumulators
+//     stay in registers across the steps of a pass, which keeps the order
+//     of the adds.
+//   - A pass takes its codes in chunks of 16 subspaces (16 bytes of each of
+//     its 1024 rows), each copied in with cp.async into one of two buffers
+//     while the chunk before adds.
+//   - The maxima fold stays in the CTA: for the blocks the wrappers pass (1,
+//     8, 64, and the default IVF slab of 64) a lane folds its own 64
+//     accumulators in place and stores its 64 / block maxima; any other
+//     block folds each row into its range's maxima with a shared-memory
+//     atomic on an order-preserving integer key. A fold of every power of
+//     two up to 64 in the lane, one inlined copy each, made ptxas spill
+//     about 1 KB a thread in the hot loop.
+//   - Persistent CTAs, one per SM, walk (query group, row range) units, the
+//     range fastest, so a group's resident tables are staged once per CTA.
+// The rescore keeps its first design: a CTA stages one query's tables and
+// each thread scores one candidate row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,13 +70,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;               // rows per pass, one per thread
+constexpr int kThreads = 256;               // rescore: rows per pass, one per thread
 constexpr int kCodeStride = kThreads + 4;   // staged bytes per subspace (pad: no bank conflicts)
-constexpr int kLutBudget = 64 * 1024;       // bytes of fp32 tables staged at once
-constexpr int kMaxJg = 128;                 // subspaces staged at once (bounds the code tile)
-constexpr int kTargetCtas = 1024;           // K6: CTAs in flight, over all query groups
+constexpr int kLutBudget = 64 * 1024;       // rescore: bytes of fp32 tables staged at once
+constexpr int kMaxJg = 128;                 // rescore: subspaces staged at once
 constexpr int kGatherRowsPerCta = 4 * kThreads;
 constexpr long long kMaxGridY = 65535;
 
@@ -61,6 +89,433 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162floa
 __device__ __forceinline__ void adc_mac(float& acc, const float* lut_j, int code) {
   acc = __fadd_rn(acc, lut_j[code]);
 }
+
+// --------------------------------------------------------------------------
+// K6: queries on the lanes
+// --------------------------------------------------------------------------
+
+constexpr int kQ = 32;                        // queries a CTA, one a lane
+constexpr int kK6Warps = 16;
+constexpr int kK6Threads = 32 * kK6Warps;
+constexpr int kRows = 64;                     // rows a lane scores a pass
+constexpr int kPass = kK6Warps * kRows;       // rows a pass
+constexpr int kChunk = 16;                    // subspaces of codes a chunk: 16 bytes a row
+constexpr int kMaxBpc = 64;                   // blocks a range that folds in shared memory
+constexpr int kK6Smem = 232448;               // a block's shared memory
+constexpr int kCodeBytes = kPass * kChunk;    // one of two code buffers
+constexpr int kFoldBytes = kMaxBpc * kQ * 4;
+constexpr int kLutBytes = kK6Smem - 2 * kCodeBytes - kFoldBytes;   // the table buffers
+// the key of -inf: float f orders as the int f >= 0 ? bits : bits ^ 0x7FFFFFFF
+constexpr int kNegInfKey = static_cast<int>(0xFF800000u ^ 0x7FFFFFFFu);
+
+template <typename LutT>
+struct K6Args {
+  const LutT* luts;        // (nq, m, ksub)
+  const uint8_t* codes;    // (n, m)
+  float* out;              // (nq, blocks)
+  long long nq, n, block, bpc, blocks;
+  int m, ksub;
+  int step;     // streamed: subspaces of one table buffer, a power of two <= 16
+  int stride;   // 4-byte words from one query's staged tables to the next: 1 (mod 32)
+  bool async_tables;   // streamed tables copy in 4-byte words
+  int code_vec;        // the widest code copy the layout allows: 16, 4, or 0 (bytes)
+};
+
+__device__ __forceinline__ int max_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+}
+
+// A staged table entry as fp32: fp32 as it is, bf16 widened (its bits are
+// the fp32's top half).
+__device__ __forceinline__ float entry(const float* t, int i) { return t[i]; }
+__device__ __forceinline__ float entry(const __nv_bfloat16* t, int i) {
+  return __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(t)[i]) << 16);
+}
+
+// The (row, query) step of K6 on staged tables of either type: the same
+// fp32 add as adc_mac.
+template <typename T>
+__device__ __forceinline__ void adc_add(float& acc, const T* lut_j, int code) {
+  acc = __fadd_rn(acc, entry(lut_j, code));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(live ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Resident tables: all m subspaces of the CTA's 32 queries, widened to fp32,
+// query q's m * ksub entries at lut_s[q * stride ...] (zeros past nq).
+// Warp w copies queries w and w + 16, its lanes consecutive entries, so the
+// loads coalesce and the 32 stores of a warp fall in 32 banks.
+template <typename LutT>
+__device__ __forceinline__ void stage_resident(float* lut_s, const K6Args<LutT>& a, long long q0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int len = a.m * a.ksub;
+  for (int q = warp; q < kQ; q += kK6Warps) {
+    const long long qi = q0 + q;
+    const LutT* src = a.luts + qi * len;
+    for (int e = lane; e < len; e += 32)
+      lut_s[q * a.stride + e] = qi < a.nq ? widen(src[e]) : 0.0f;
+  }
+}
+
+// Streamed tables: subspaces j0 .. j0+cn-1 of the CTA's 32 queries as they
+// are stored (fp32 or bf16), query q's run at tab[q * stride words ...];
+// asynchronously in 4-byte words (zero-filled past nq) where the runs are
+// 4-byte aligned, else with plain loads. The same mapping as
+// stage_resident.
+template <typename LutT>
+__device__ __forceinline__ void stage_streamed(LutT* tab, const K6Args<LutT>& a, long long q0,
+                                               int j0, int cn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int q = warp; q < kQ; q += kK6Warps) {
+    const long long qi = q0 + q;
+    const bool live = qi < a.nq;
+    const LutT* src = a.luts + ((live ? qi : 0) * a.m + j0) * a.ksub;
+    if (a.async_tables) {
+      const uint32_t dst = smem_addr(tab) + 4u * q * a.stride;
+      const int words = cn * a.ksub * (int)sizeof(LutT) / 4;
+      for (int w = lane; w < words; w += 32)
+        cp_async4(dst + 4u * w, reinterpret_cast<const char*>(src) + 4 * w, live);
+    } else {
+      LutT* dst = tab + q * a.stride * (4 / (int)sizeof(LutT));
+      for (int e = lane; e < cn * a.ksub; e += 32) dst[e] = live ? src[e] : LutT(0.0f);
+    }
+  }
+}
+
+// Codes of the pass's rows p0 .. p0+1023, subspaces c0 .. c0+cc-1 (cc <=
+// 16), to codes_s[row * 16 + t]: asynchronously where the code rows allow
+// (zero-filled at rows >= live_end), else with plain byte loads.
+template <typename LutT>
+__device__ __forceinline__ void stage_chunk_codes(uint8_t* codes_s, const K6Args<LutT>& a,
+                                            long long p0, long long live_end, int c0, int cc) {
+  const uint32_t dst = smem_addr(codes_s);
+  if (a.code_vec == 16) {
+    for (int rl = threadIdx.x; rl < kPass; rl += kK6Threads) {
+      const long long row = p0 + rl;
+      const bool live = row < live_end;
+      cp_async16(dst + rl * kChunk, a.codes + (live ? row : 0) * a.m + c0, live);
+    }
+  } else if (a.code_vec == 4) {
+    const int words = (cc + 3) / 4;
+    for (int e = threadIdx.x; e < kPass * words; e += kK6Threads) {
+      const int rl = e / words, w = e % words;
+      const long long row = p0 + rl;
+      const bool live = row < live_end;
+      cp_async4(dst + rl * kChunk + 4 * w, a.codes + (live ? row : 0) * a.m + c0 + 4 * w, live);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kPass * kChunk; e += kK6Threads) {
+      const int t = e % kChunk;
+      const long long row = p0 + e / kChunk;
+      codes_s[e] = row < live_end && t < cc ? a.codes[row * a.m + c0 + t] : 0;
+    }
+  }
+}
+
+// Adds of subspaces off .. off+cn-1 of a code chunk, in order, to each of
+// the lane's 64 rows: `lut` is the lane's table of subspace off, `codes`
+// its warp's 64 rows of the chunk (16 bytes a row). One broadcast load
+// gives four subspaces of a row; steps of 1 or 2 subspaces (off a
+// multiple of cn) take theirs from one aligned word.
+template <typename T>
+__device__ __forceinline__ void add_codes(float (&acc)[kRows], const T* lut,
+                                          const uint8_t* codes, int off, int cn, int ksub) {
+  int t = 0;
+#pragma unroll 1
+  for (; t + 4 <= cn; t += 4) {
+    const T* l0 = lut + t * ksub;
+    const T* l1 = l0 + ksub;
+    const T* l2 = l1 + ksub;
+    const T* l3 = l2 + ksub;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + i * kChunk + off + t);
+      adc_add(acc[i], l0, w & 0xFF);
+      adc_add(acc[i], l1, (w >> 8) & 0xFF);
+      adc_add(acc[i], l2, (w >> 16) & 0xFF);
+      adc_add(acc[i], l3, w >> 24);
+    }
+  }
+  if (t < cn) {   // 1-3 subspaces within one aligned word
+    const int o = off + t, rem = cn - t, sh = 8 * (o & 3);
+    const T* l0 = lut + t * ksub;
+    const T* l1 = l0 + ksub;
+    const T* l2 = l1 + ksub;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + i * kChunk + (o & ~3)) >> sh;
+      adc_add(acc[i], l0, w & 0xFF);
+      if (rem > 1) adc_add(acc[i], l1, (w >> 8) & 0xFF);
+      if (rem > 2) adc_add(acc[i], l2, (w >> 16) & 0xFF);
+    }
+  }
+}
+
+// Blocks whose maxima a lane folds from its own rows: those the wrappers
+// pass (PQ's 64 and 8, the dense path's 1, IVF's default slab of 64). Any
+// other block folds through shared memory.
+__host__ __device__ constexpr bool lane_folds(long long block) {
+  return block == 1 || block == 8 || block == 64;
+}
+
+// The maxima of a lane's rows r0 .. r0+63 (r0 a multiple of B, B dividing
+// 64) for its query, stored to out_q (the query's row of out). They fold in
+// place: acc is spent.
+template <int B>
+__device__ __forceinline__ void fold_store(float (&acc)[kRows], long long r0,
+                                           long long live_end, long long blocks, float* out_q) {
+  constexpr int kB = kRows / B;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    if (r0 + i >= live_end) acc[i] = -INFINITY;
+#pragma unroll
+  for (int b = 0; b < kB; ++b)
+#pragma unroll
+    for (int i = 1; i < B; ++i) acc[b * B] = fmaxf(acc[b * B], acc[b * B + i]);
+  const long long blk0 = r0 / B;
+  float* dst = out_q + blk0;
+  if constexpr (kB % 4 == 0) {
+    if (blk0 + kB <= blocks && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+#pragma unroll
+      for (int b = 0; b < kB; b += 4)
+        *reinterpret_cast<float4*>(dst + b) =
+            make_float4(acc[b * B], acc[(b + 1) * B], acc[(b + 2) * B], acc[(b + 3) * B]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kB; ++b)
+    if (blk0 + b < blocks) dst[b] = acc[b * B];
+}
+
+// The same for any block: each of the lane's rows r0 + i < stop folds into
+// the range's maxima fold_q[lb * 32], lb its block in the range from
+// `base`, through one shared-memory atomic on an order-preserving key. A
+// range holds fewer than 2^31 rows (the launcher checks), so 32 bits do.
+__device__ __forceinline__ void fold_shared(const float (&acc)[kRows], long long r0,
+                                            long long base, long long stop, long long live_end,
+                                            long long block, int* fold_q) {
+  const unsigned off = (unsigned)(r0 - base), blk = (unsigned)block;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    if (r0 + i < stop)
+      atomicMax(fold_q + (off + i) / blk * kQ, max_key(r0 + i < live_end ? acc[i] : -INFINITY));
+}
+
+struct K6Unit {
+  long long g, b0, nb, base, end, live_end;   // rows from live_end on score -inf
+};
+
+template <typename LutT>
+__device__ __forceinline__ K6Unit unit_of(const K6Args<LutT>& a, long long ranges, long long u) {
+  K6Unit t;
+  t.g = u / ranges;
+  t.b0 = u % ranges * a.bpc;
+  t.nb = min(a.bpc, a.blocks - t.b0);
+  t.base = t.b0 * a.block;
+  t.end = t.base + t.nb * a.block;
+  t.live_end = min(t.end, a.n);
+  return t;
+}
+
+// K6. Persistent CTAs walk units (query group of 32, range of bpc whole
+// blocks), the range fastest; a range is one pass of 1024 rows where a lane
+// folds the block, else bpc <= 64 blocks in as many passes as they take. A pass
+// takes the m subspaces in chunks of 16 whose codes copy in (cp.async, two
+// buffers) during the chunk before. Resident tables (kResident) are staged
+// once per query group; streamed ones come `step` subspaces at a time into
+// two buffers, the next step's copying in while this step adds.
+template <typename LutT, bool kResident>
+__global__ void __launch_bounds__(kK6Threads, 1)
+adc_finemax_kernel(const K6Args<LutT> a) {
+  using T = typename std::conditional<kResident, float, LutT>::type;   // staged entries
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tab_bytes = kQ * a.stride * 4;
+  T* const tab0 = reinterpret_cast<T*>(smem);
+  T* const tab1 = reinterpret_cast<T*>(smem + tab_bytes);
+  uint8_t* const code0 = smem + (kResident ? 1 : 2) * tab_bytes;
+  uint8_t* const code1 = code0 + kCodeBytes;
+  int* const fold_s = reinterpret_cast<int*>(code1 + kCodeBytes);   // kMaxBpc x kQ
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long ranges = (a.blocks + a.bpc - 1) / a.bpc;
+  const long long units = (a.nq + kQ - 1) / kQ * ranges;
+  const bool aligned = lane_folds(a.block);
+  const int lane_entries = lane * a.stride * (4 / (int)sizeof(T));
+  const int warp_codes = warp * kRows * kChunk;
+
+  {   // the first chunk's codes and (streamed) the first step's tables
+    const K6Unit un = unit_of(a, ranges, blockIdx.x);
+    stage_chunk_codes(code0, a, un.base, un.live_end, 0, min(kChunk, a.m));
+    if constexpr (!kResident) stage_streamed(tab0, a, un.g * kQ, 0, min(a.step, a.m));
+    cp_async_commit();
+    if (!aligned)
+      for (int e = threadIdx.x; e < kMaxBpc * kQ; e += kK6Threads) fold_s[e] = kNegInfKey;
+  }
+  int cbuf = 0, tbuf = 0;
+  long long staged = -1;   // resident: the query group whose tables are staged
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const K6Unit un = unit_of(a, ranges, u);
+    const bool last_unit = u + gridDim.x >= units;
+    for (long long p0 = un.base; p0 < un.end; p0 += kPass) {
+      const bool last_pass = p0 + kPass >= un.end;
+      float acc[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+      for (int c0 = 0; c0 < a.m; c0 += kChunk) {
+        const int cc = min(kChunk, a.m - c0);
+        cp_async_wait_all();
+        __syncthreads();   // this chunk's codes (and first tables) have landed; the last
+                           // chunk's readers are done
+        if constexpr (kResident) {
+          if (staged != un.g) {
+            stage_resident(reinterpret_cast<float*>(tab0), a, un.g * kQ);
+            staged = un.g;
+            __syncthreads();
+          }
+        }
+        // the next chunk's codes: of this pass, the next pass, or the next unit
+        const bool more = c0 + kChunk < a.m || !last_pass || !last_unit;
+        if (more) {
+          if (c0 + kChunk < a.m) {
+            stage_chunk_codes(cbuf ? code0 : code1, a, p0, un.live_end, c0 + kChunk,
+                        min(kChunk, a.m - c0 - kChunk));
+          } else if (!last_pass) {
+            stage_chunk_codes(cbuf ? code0 : code1, a, p0 + kPass, un.live_end, 0, min(kChunk, a.m));
+          } else {
+            const K6Unit nu = unit_of(a, ranges, u + gridDim.x);
+            stage_chunk_codes(cbuf ? code0 : code1, a, nu.base, nu.live_end, 0, min(kChunk, a.m));
+          }
+        }
+        cp_async_commit();
+        const uint8_t* codes = (cbuf ? code1 : code0) + warp_codes;
+        if constexpr (kResident) {
+          add_codes(acc, tab0 + lane_entries + c0 * a.ksub, codes, 0, cc, a.ksub);
+        } else {
+          for (int j0 = c0; j0 < c0 + cc; j0 += a.step) {
+            const int cn = min(a.step, c0 + cc - j0);
+            if (j0 > c0) {
+              cp_async_wait_all();
+              __syncthreads();   // this step's tables have landed; the last step's are free
+            }
+            // the next step's tables: of this chunk, or the next chunk's first
+            if (j0 + cn < c0 + cc) {
+              stage_streamed(tbuf ? tab0 : tab1, a, un.g * kQ, j0 + cn, min(a.step, c0 + cc - j0 - cn));
+            } else if (more) {
+              const int nj = c0 + kChunk < a.m ? c0 + kChunk : 0;
+              const long long g = c0 + kChunk < a.m || !last_pass ? un.g : (u + gridDim.x) / ranges;
+              stage_streamed(tbuf ? tab0 : tab1, a, g * kQ, nj, min(a.step, a.m - nj));
+            }
+            cp_async_commit();
+            add_codes(acc, (tbuf ? tab1 : tab0) + lane_entries, codes, j0 - c0, cn, a.ksub);
+            tbuf ^= 1;
+          }
+        }
+        cbuf ^= 1;
+      }
+      const long long r0 = p0 + warp * kRows;
+      const long long qi = un.g * kQ + lane;
+      if (aligned) {
+        if (qi < a.nq) {
+          float* out_q = a.out + qi * a.blocks;
+          if (a.block == 1) fold_store<1>(acc, r0, un.live_end, a.blocks, out_q);
+          else if (a.block == 8) fold_store<8>(acc, r0, un.live_end, a.blocks, out_q);
+          else fold_store<64>(acc, r0, un.live_end, a.blocks, out_q);
+        }
+      } else {
+        fold_shared(acc, r0, un.base, min(p0 + kPass, un.end), un.live_end, a.block,
+                    fold_s + lane);
+      }
+    }
+    if (!aligned) {
+      __syncthreads();   // the range's maxima are complete: write them out, reset
+      for (int e = threadIdx.x; e < kMaxBpc * kQ; e += kK6Threads) {
+        const long long q = un.g * kQ + (e & (kQ - 1));
+        if (e < un.nb * kQ && q < a.nq) a.out[q * a.blocks + un.b0 + e / kQ] = key_float(fold_s[e]);
+        fold_s[e] = kNegInfKey;
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+template <typename LutT, bool kResident>
+int launch_k6(const K6Args<LutT>& a, int smem, cudaStream_t s) {
+  auto* kernel = adc_finemax_kernel<LutT, kResident>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (a.nq + kQ - 1) / kQ * ((a.blocks + a.bpc - 1) / a.bpc);
+  kernel<<<(unsigned)(units < sms ? units : sms), kK6Threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 4-byte words from one query's staged tables to the next, for `j`
+// subspaces of `esz`-byte entries: what they take, rounded up to 32, plus 1.
+int k6_stride(int j, int ksub, int esz) { return ((j * ksub * esz + 3) / 4 + 31) / 32 * 32 + 1; }
+
+template <typename LutT>
+int launch_adc_finemax(const LutT* luts, const uint8_t* codes, long long nq, long long n, int m,
+                       int ksub, long long block, long long blocks, float* out, cudaStream_t s) {
+  K6Args<LutT> a;
+  a.luts = luts;
+  a.codes = codes;
+  a.out = out;
+  a.nq = nq;
+  a.n = n;
+  a.block = block;
+  a.blocks = blocks;
+  a.m = m;
+  a.ksub = ksub;
+  const long long per_pass = kPass / block;
+  a.bpc = lane_folds(block) ? per_pass : per_pass < 1 ? 1 : per_pass < kMaxBpc ? per_pass : kMaxBpc;
+  if (a.bpc * block > 0x7fffffffLL) return (int)cudaErrorInvalidValue;   // fold_shared's 32 bits
+  const uintptr_t c = reinterpret_cast<uintptr_t>(codes);
+  a.code_vec = m % 16 == 0 && c % 16 == 0 ? 16 : m % 4 == 0 && c % 4 == 0 ? 4 : 0;
+  // Resident when every table of 32 queries fits as fp32; else two buffers
+  // of `step` subspaces each (a power of two, so a step's codes lie in one
+  // aligned word or whole words), stored as they come.
+  constexpr int kEsz = (int)sizeof(LutT);
+  const int resident_stride = k6_stride(m, ksub, 4);
+  if (kQ * resident_stride * 4 <= kLutBytes) {
+    a.step = kChunk;
+    a.stride = resident_stride;
+    a.async_tables = false;
+    return launch_k6<LutT, true>(a, kQ * a.stride * 4 + 2 * kCodeBytes + kFoldBytes, s);
+  }
+  int j = 1;
+  while (j < kChunk && 2 * kQ * 4 * k6_stride(2 * j, ksub, kEsz) <= kLutBytes) j *= 2;
+  a.step = j;
+  a.stride = k6_stride(j, ksub, kEsz);
+  a.async_tables = ksub * kEsz % 4 == 0 && reinterpret_cast<uintptr_t>(luts) % 4 == 0;
+  return launch_k6<LutT, false>(a, 2 * kQ * a.stride * 4 + 2 * kCodeBytes + kFoldBytes, s);
+}
+
+// --------------------------------------------------------------------------
+// The rescore
+// --------------------------------------------------------------------------
 
 // Stage the tables of queries q0 .. q0+qg-1, subspaces j0 .. j0+jn-1 into
 // lut_s[(q * jg + jj) * ksub + c] as fp32 (0 past nq).
@@ -84,85 +539,6 @@ __device__ void stage_codes(uint8_t* codes_s, const uint8_t* __restrict__ codes,
     const int rl = e / jn, jj = e % jn;
     const long long row = row_s[rl];
     codes_s[jj * kCodeStride + rl] = row >= 0 ? codes[row * m + j0 + jj] : 0;
-  }
-}
-
-// K6. Grid (CTAs over row ranges, CTAs over query groups of QG); both walk
-// grid-stride, so any nq and n launch. A range is bpc whole fine blocks
-// (bpc * block rows); the CTA walks them in passes of kThreads rows, thread t
-// owning row p0 + t against the QG queries of its group, and folds each
-// pass's scores into the range's maxima in shared memory.
-template <typename LutT, int QG>
-__global__ void __launch_bounds__(kThreads)
-adc_finemax_kernel(const LutT* __restrict__ luts, const uint8_t* __restrict__ codes,
-                   long long nq, long long n, int m, int ksub, int jg, long long block,
-                   long long bpc, long long blocks, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* lut_s = reinterpret_cast<float*>(smem);                       // QG * jg * ksub
-  float* sc = lut_s + QG * jg * ksub;                                  // QG * kThreads
-  float* fmax_s = sc + QG * kThreads;                                  // QG * bpc
-  long long* row_s = reinterpret_cast<long long*>(                     // kThreads
-      lut_s + ((QG * (jg * ksub + kThreads + bpc) + 1) & ~1LL));
-  uint8_t* codes_s = reinterpret_cast<uint8_t*>(row_s + kThreads);    // jg * kCodeStride
-  const int t = threadIdx.x;
-  const long long groups = (nq + QG - 1) / QG;
-  const long long ranges = (blocks + bpc - 1) / bpc;
-  const bool resident = jg >= m;   // every table of the group fits: stage once per group
-  for (long long qgi = blockIdx.y; qgi < groups; qgi += gridDim.y) {
-    const long long q0 = qgi * QG;
-    bool staged = false;
-    for (long long rg = blockIdx.x; rg < ranges; rg += gridDim.x) {
-      const long long b0 = rg * bpc;
-      const long long nb = min(bpc, blocks - b0);
-      const long long base = b0 * block;
-      const long long end = base + nb * block;
-      for (long long e = t; e < QG * nb; e += kThreads) fmax_s[(e / nb) * bpc + e % nb] = -INFINITY;
-      for (long long p0 = base; p0 < end; p0 += kThreads) {
-        const long long row = p0 + t;
-        const bool live = row < end && row < n;
-        float acc[QG];
-#pragma unroll
-        for (int q = 0; q < QG; ++q) acc[q] = 0.0f;
-        for (int j0 = 0; j0 < m; j0 += jg) {
-          const int jn = min(jg, m - j0);
-          __syncthreads();   // the previous readers of the staged tiles are done
-          row_s[t] = live ? row : -1;
-          if (!(resident && staged)) stage_luts(lut_s, luts, q0, QG, nq, m, ksub, jg, j0, jn);
-          __syncthreads();
-          stage_codes(codes_s, codes, row_s, m, j0, jn);
-          __syncthreads();
-          staged = true;
-          for (int jj = 0; jj < jn; ++jj) {
-            const int c = codes_s[jj * kCodeStride + t];
-#pragma unroll
-            for (int q = 0; q < QG; ++q) adc_mac(acc[q], lut_s + (q * jg + jj) * ksub, c);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < QG; ++q) sc[q * kThreads + t] = live ? acc[q] : -INFINITY;
-        __syncthreads();
-        // fold this pass into the maxima of the blocks it touches; each
-        // (query, block) pair has one owner per pass
-        const long long stop = min(p0 + kThreads, end);
-        const long long lb0 = (p0 - base) / block;
-        const long long nlb = (stop - 1 - base) / block - lb0 + 1;
-        for (long long e = t; e < QG * nlb; e += kThreads) {
-          const int q = (int)(e / nlb);
-          const long long lb = lb0 + e % nlb;
-          const long long lo = max(p0, base + lb * block);
-          const long long hi = min(stop, base + (lb + 1) * block);
-          float mx = fmax_s[q * bpc + lb];
-          for (long long r = lo; r < hi; ++r) mx = fmaxf(mx, sc[q * kThreads + (r - p0)]);
-          fmax_s[q * bpc + lb] = mx;
-        }
-      }
-      __syncthreads();
-      for (long long e = t; e < QG * nb; e += kThreads) {
-        const long long q = e / nb, lb = e % nb;
-        if (q0 + q < nq) out[(q0 + q) * blocks + b0 + lb] = fmax_s[q * bpc + lb];
-      }
-      __syncthreads();
-    }
   }
 }
 
@@ -209,60 +585,19 @@ adc_gather_scores_kernel(const LutT* __restrict__ luts, const uint8_t* __restric
   }
 }
 
-// Queries per CTA and subspaces staged at once: QG the smallest power of two
-// >= nq up to 16, halved until its tables fit kLutBudget; jg what then fits.
-void geometry(long long nq, int m, int ksub, int* qg, int* jg) {
-  int g = 1;
-  while (g < 16 && g < nq) g *= 2;
-  while (g > 1 && (long long)g * m * ksub * 4 > kLutBudget) g /= 2;
-  int j = kLutBudget / (g * ksub * 4);
+// The rescore's subspaces staged at once: what fits kLutBudget, at most m
+// and kMaxJg.
+int rescore_jg(int m, int ksub) {
+  int j = kLutBudget / (ksub * 4);
   j = j < m ? j : m;
-  *qg = g;
-  *jg = j < kMaxJg ? j : kMaxJg;
-}
-
-template <typename LutT, int QG>
-int launch_finemax(const LutT* luts, const uint8_t* codes, long long nq, long long n, int m,
-                   int ksub, int jg, long long block, long long blocks, float* out,
-                   cudaStream_t s) {
-  const long long bpc = block >= kThreads ? 1 : kThreads / block;
-  const size_t smem = sizeof(float) * ((QG * (jg * ksub + kThreads + bpc) + 1) & ~1LL) +
-                      sizeof(long long) * kThreads + (size_t)jg * kCodeStride;
-  auto kernel = adc_finemax_kernel<LutT, QG>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  long long gy = (nq + QG - 1) / QG;   // past kMaxGridY, CTAs walk the groups
-  gy = gy < kMaxGridY ? gy : kMaxGridY;
-  const long long ranges = (blocks + bpc - 1) / bpc;
-  long long gx = (kTargetCtas + gy - 1) / gy;
-  gx = gx < ranges ? gx : ranges;
-  kernel<<<dim3((unsigned)gx, (unsigned)gy), kThreads, smem, s>>>(
-      luts, codes, nq, n, m, ksub, jg, block, bpc, blocks, out);
-  return (int)cudaGetLastError();
-}
-
-template <typename LutT>
-int finemax_dispatch(const void* luts, const uint8_t* codes, long long nq, long long n, int m,
-                     int ksub, long long block, long long blocks, float* out, cudaStream_t s) {
-  int qg, jg;
-  geometry(nq, m, ksub, &qg, &jg);
-  const LutT* l = static_cast<const LutT*>(luts);
-  switch (qg) {
-    case 16: return launch_finemax<LutT, 16>(l, codes, nq, n, m, ksub, jg, block, blocks, out, s);
-    case 8: return launch_finemax<LutT, 8>(l, codes, nq, n, m, ksub, jg, block, blocks, out, s);
-    case 4: return launch_finemax<LutT, 4>(l, codes, nq, n, m, ksub, jg, block, blocks, out, s);
-    case 2: return launch_finemax<LutT, 2>(l, codes, nq, n, m, ksub, jg, block, blocks, out, s);
-    default: return launch_finemax<LutT, 1>(l, codes, nq, n, m, ksub, jg, block, blocks, out, s);
-  }
+  return j < kMaxJg ? j : kMaxJg;
 }
 
 template <typename LutT>
 int gather_dispatch(const void* luts, const uint8_t* codes, const long long* bids, long long nq,
                     long long n, int m, int ksub, long long block, long long kf, float* out,
                     cudaStream_t s) {
-  int qg, jg;
-  geometry(1, m, ksub, &qg, &jg);
+  const int jg = rescore_jg(m, ksub);
   const size_t smem = sizeof(float) * (size_t)((jg * ksub + 1) & ~1) +
                       sizeof(long long) * kThreads + (size_t)jg * kCodeStride;
   auto kernel = adc_gather_scores_kernel<LutT>;
@@ -295,8 +630,10 @@ extern "C" int dirjax_adc_finemax(const void* luts, int lut_bf16, const void* co
   const long long blocks = (n + block - 1) / block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
-  return lut_bf16 ? finemax_dispatch<__nv_bfloat16>(luts, c, nq, n, m, ksub, block, blocks, out, s)
-                  : finemax_dispatch<float>(luts, c, nq, n, m, ksub, block, blocks, out, s);
+  return lut_bf16 ? launch_adc_finemax(static_cast<const __nv_bfloat16*>(luts), c, nq, n, m, ksub,
+                                       block, blocks, out, s)
+                  : launch_adc_finemax(static_cast<const float*>(luts), c, nq, n, m, ksub, block,
+                                       blocks, out, s);
 }
 
 // The rescore: bids (nq, kf) int64 block ids, out (nq, kf * block) fp32.

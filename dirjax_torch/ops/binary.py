@@ -21,7 +21,11 @@ the maximum score of each 8 consecutive rows; ``topk._hier_select`` descends
 to the winning 8-row blocks; the finish rescores them (symmetric: a popcount
 through a byte table; asymmetric: the rescore kernel
 :func:`bits_gather_scores`, which shares K5's arithmetic, so its block maxima
-equal K5's bit for bit) and scores the ragged tail densely.
+equal K5's bit for bit) and scores the ragged tail densely. Both kernels run
+on the dense top-k's tensor-core routine (``csrc/tc_score.cuh``): they unpack
+the codes to ±1 in registers and contract them with the bf16 queries
+(asymmetric), or with the queries unpacked to int8 ±1 by the wrapper
+(symmetric, exact int32 sums).
 
 Each kernel wrapper runs its plain PyTorch version (``*_reference``, same
 signature and output layout, the kernel's oracle) for a CPU tensor, and
@@ -290,6 +294,7 @@ def bits_finemax(q: torch.Tensor, db: torch.Tensor,
     asym = _check("bits_finemax", q, db)
     out = torch.empty((nq, blocks), device=q.device)
     if nq:
+        q = q if asym else unpack_pm1(q).to(torch.int8)   # K5's int8 ±1 queries
         _run("bits_finemax", q.device, q.data_ptr(), db.data_ptr(), asym, nq, n,
              db.shape[1] // 4, blocks, out.data_ptr(), counts=launches)
     return out

@@ -206,3 +206,86 @@ def test_kernel_wrappers_refuse_other_devices():
         T.hamming_search_fused(np.zeros((1, 64), np.float32),
                                binary_codec_from_jax(np.zeros(64), np.eye(64)),
                                torch.zeros((10, 8), dtype=torch.uint8), 11)
+
+
+@pytest.mark.parametrize("n_bits", [32, 64, 256, 2048])
+def test_int8_query_operand_matches_unpack(n_bits):
+    """K5's symmetric query operand, the packed codes unpacked to int8 ±1 by
+    its wrapper, equals dirjax's unpack_pm1 on the same seeded codes, from
+    uint8 bytes and from uint32 words alike."""
+    rng = np.random.default_rng(n_bits)
+    words = rng.integers(0, 2 ** 32, size=(9, n_bits // 32), dtype=np.uint64).astype(np.uint32)
+    got = T.unpack_pm1(T._to_bytes(words)).to(torch.int8)
+    assert got.shape == (9, n_bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(J.unpack_pm1(jnp.asarray(words))))
+    assert torch.equal(T.unpack_pm1(words).to(torch.int8), got)
+
+
+def test_int8_operand_dot_is_the_symmetric_score():
+    """The integer dot of two codes unpacked to int8 ±1 (what K5's s8 tensor
+    cores sum) is n_bits - 2 * hamming."""
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 256, size=(5, 32), dtype=np.uint8)
+    b = rng.integers(0, 256, size=(7, 32), dtype=np.uint8)
+    qa, qb = (T.unpack_pm1(torch.from_numpy(x)).to(torch.int8).long() for x in (a, b))
+    dot = (qa[:, None, :] * qb[None, :, :]).sum(-1)
+    hamming = np.unpackbits(a[:, None, :] ^ b[None, :, :], axis=-1).sum(-1, dtype=np.int64)
+    np.testing.assert_array_equal(dot.numpy(), 256 - 2 * hamming)
+
+
+def _pm1_bf16x2(x):
+    """csrc/tc_score.cuh pm1_bf16x2: bits 0, 1 of x -> a bf16 pair of ±1."""
+    return 0xBF80BF80 ^ ((((x & 3) * 0x40008000) & 0xFFFFFFFF) & 0x80008000)
+
+
+def _pm1_i8x4(x):
+    """csrc/tc_score.cuh pm1_i8x4: bits 0-3 of x -> four int8 ±1."""
+    return 0xFFFFFFFF ^ (((((x & 15) * 0x00204081) & 0x01010101) * 0xFE) & 0xFFFFFFFF)
+
+
+def test_kernel_unpack_model():
+    """A model of how K5 unpacks a row's 16 bytes of a stage (128 d) into
+    its wgmma A fragments (csrc/tc_score.cuh mma_issue, modes 4 and 5): the
+    bf16 pairs of each k16 step and the int8 quads of each k32 step that the
+    four threads of a quad build, read at the k each holds in the fragment,
+    give the row's ±1 dimensions in order."""
+    row = np.random.default_rng(7).integers(0, 256, size=16, dtype=np.uint8)
+    want = T.unpack_pm1(torch.from_numpy(row)).numpy()
+    words = [int(w) for w in row.view("<u4")]
+    bf16, i8 = np.zeros(128), np.zeros(128)
+    for t in range(4):
+        for j in range(8):   # k16 step j: k 2t, 2t + 1 and 2t + 8, 2t + 9
+            x = words[j >> 1] >> (16 * (j & 1) + 2 * t)
+            for reg, k in ((_pm1_bf16x2(x), 2 * t), (_pm1_bf16x2(x >> 8), 2 * t + 8)):
+                for h in range(2):
+                    top = np.array([(reg >> (16 * h) & 0xFFFF) << 16], np.uint32)
+                    bf16[16 * j + k + h] = top.view(np.float32)[0]
+        for j in range(4):   # k32 step j: k 4t .. 4t + 3 and 4t + 16 .. 4t + 19
+            x = words[j] >> (4 * t)
+            for reg, k in ((_pm1_i8x4(x), 4 * t), (_pm1_i8x4(x >> 16), 4 * t + 16)):
+                for h in range(4):
+                    i8[32 * j + k + h] = np.array([reg >> (8 * h) & 0xFF], np.uint8).view(np.int8)[0]
+    np.testing.assert_array_equal(bf16, want)
+    np.testing.assert_array_equal(i8, want)
+
+
+@pytest.mark.parametrize("stage_d", [128, 512])
+def test_asym_stage_sums_model(stage_d):
+    """K5's asymmetric mode sums the exact ±bf16 products of each stage
+    (128 d, or 512 d for a small query group) from 0 and folds each such sum
+    into the score with one rounded fp32 add. Modelled with each stage's sum
+    rounded once to fp32: on projected unit queries at 2048 bits the folded
+    scores stay within 4e-6 of the exact ones (at most 16 folds of half an
+    ulp of scores below 8), inside the kernel's 1e-5."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(_unit(rng, 16, 2048)).bfloat16().double().numpy()
+    c = rng.choice([-1.0, 1.0], size=(64, 2048))
+    exact = q @ c.T
+    n = 2048 // stage_d
+    stages = np.einsum("qsd,rsd->qrs", q.reshape(16, n, stage_d),
+                       c.reshape(64, n, stage_d)).astype(np.float32)
+    score = np.zeros((16, 64), np.float32)
+    for s in range(n):
+        score = score + stages[:, :, s]
+    assert np.abs(score - exact).max() <= 4e-6
+    assert np.abs(exact).max() < 8.0

@@ -28,15 +28,22 @@ Tolerances:
   at D = 2048 too, ragged row tiles and slabs, and D = 64, 96, 200, 201 and
   2048 (int8 rows of 200 or 201 bytes are not 16-byte aligned and still run
   on the kernel).
-- K5 (binary codes): symmetric maxima exactly equal (integers); asymmetric
-  within atol 1e-5 (projected unit queries, fp32 sums of exact ±bf16 terms
-  in another order); the rescore's block maxima equal K5's bit for bit;
-  hamming_search_fused returns the values of the plain top-k.
-- K6 (ADC fine maxima) and its rescore: within atol 1e-6 of their plain
-  versions, which add the same fp32 table values in the same order (so they
-  are expected to agree exactly); the rescore's block maxima equal K6's bit
-  for bit; pq_topk and ivf_topk at full probe return the dense plain ADC
-  top-k's values.
+- K5 (binary codes, on the tensor cores): symmetric maxima exactly equal
+  (int8 ±1 products summed in int32); asymmetric within atol 1e-5
+  (projected unit queries: exact ±bf16 products, fp32 sums of each stage,
+  128 or 512 d, added in another order than the plain matmul's); the
+  rescore's block maxima equal K5's bit for bit. The cases take every query
+  width of the tensor-core routine (nq 1, 8, 16, 24, 37, 64, 100, 128, 256:
+  N = 8 ... 256, 128 for asymmetric) at n_bits 32, 64, 256 and 2048 on
+  ragged row counts; hamming_search_fused returns the values of the plain
+  top-k.
+- K6 (ADC fine maxima) and its rescore: exactly equal to their plain
+  versions, which add the same fp32 table values in the same order, at
+  m 8, 32, 64, 128 x ksub 16, 256, fp32 and bf16 tables, blocks 1, 8, 64
+  (a lane folds its own rows) and 96 (an IVF slab that does not divide 64:
+  the fold goes through shared memory); the rescore's block maxima equal
+  K6's bit for bit; pq_topk and ivf_topk at full probe return the dense
+  plain ADC top-k's values.
 """
 
 import numpy as np
@@ -293,9 +300,10 @@ class TestBinaryKernels:
     versions."""
 
     @pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
-    @pytest.mark.parametrize("nq,n,d", [(1, 5003, 32), (37, 2048, 64),
-                                        (130, 777, 2048), (256, 3001, 256)])
-    def test_finemax_and_rescore(self, rng, cuda, asym, nq, n, d):
+    @pytest.mark.parametrize("d", [32, 64, 256, 2048])
+    @pytest.mark.parametrize("nq", [1, 8, 16, 24, 37, 64, 100, 128, 256])
+    def test_finemax_and_rescore(self, rng, cuda, asym, nq, d):
+        n = {32: 5003, 64: 2051, 256: 3001, 2048: 1029}[d]   # ragged tiles and blocks
         codes, qf, codec = _codes_and_queries(rng, cuda, nq, n, d)
         qb, vq = binary.binarize_and_project(qf, codec)
         q = vq.bfloat16().contiguous() if asym else qb
@@ -361,8 +369,9 @@ class TestADCKernels:
     """K6 and the ADC rescore (csrc/pq.cu) against their plain versions."""
 
     @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-    @pytest.mark.parametrize("m,ksub", [(32, 16), (8, 256), (64, 256), (128, 256)])
-    @pytest.mark.parametrize("block", [8, 64])
+    @pytest.mark.parametrize("m", [8, 32, 64, 128])
+    @pytest.mark.parametrize("ksub", [16, 256])
+    @pytest.mark.parametrize("block", [1, 8, 64, 96])
     @pytest.mark.parametrize("nq,n", [(1, 5003), (37, 4096), (256, 3001)])
     def test_finemax_and_rescore(self, rng, cuda, dt, m, ksub, block, nq, n):
         luts, codes = _adc_operands(rng, cuda, nq, n, m, ksub, dt)
@@ -371,14 +380,12 @@ class TestADCKernels:
         assert pq.launches["adc_finemax"] == before["adc_finemax"] + 1
         nb = -(-n // block)
         assert fmax.shape == (nq, nb)
-        torch.testing.assert_close(fmax, pq.adc_finemax_reference(luts, codes, block),
-                                   rtol=0, atol=1e-6)
+        assert torch.equal(fmax, pq.adc_finemax_reference(luts, codes, block))
         bids = torch.from_numpy(rng.integers(0, nb, size=(nq, 24))).to(cuda)
         bids[:, 0] = nb - 1                    # the ragged last block
         raw = pq.adc_gather_scores(luts, codes, bids, block)
         assert pq.launches["adc_gather_scores"] == before["adc_gather_scores"] + 1
-        torch.testing.assert_close(raw, pq.adc_gather_scores_reference(luts, codes, bids, block),
-                                   rtol=0, atol=1e-6, equal_nan=True)
+        assert torch.equal(raw, pq.adc_gather_scores_reference(luts, codes, bids, block))
         # containment needs the rescore's block maxima to be K6's, bit for bit
         assert torch.equal(raw.reshape(nq, -1, block).amax(dim=2), torch.gather(fmax, 1, bids))
 
@@ -387,13 +394,13 @@ class TestADCKernels:
         luts, codes = _adc_operands(rng, cuda, 5, 1000, 16, 16, torch.float32)
         fmax = pq.adc_finemax(luts, codes, block)
         assert fmax.shape == (5, -(-1000 // block))
-        torch.testing.assert_close(fmax, pq.adc_finemax_reference(luts, codes, block),
-                                   rtol=0, atol=1e-6)
+        assert torch.equal(fmax, pq.adc_finemax_reference(luts, codes, block))
 
     def test_more_query_groups_than_grid_rows(self, cuda):
-        """At m = 64, ksub = 256 a CTA holds one query's tables, so 70,001
-        queries are more groups than a grid has rows (65,535): the CTAs walk
-        the groups."""
+        """70,001 queries at m = 64, ksub = 256: 2,188 query groups of 32
+        (more than a grid has rows, 65,535, were they one a CTA) that the
+        persistent CTAs walk, restaging the tables a group of subspaces at a
+        time."""
         nq, n, m, ksub, block = 70_001, 300, 64, 256, 8
         g = torch.Generator(device=cuda).manual_seed(0)
         luts = torch.randn((nq, m, ksub), generator=g, device=cuda).bfloat16()

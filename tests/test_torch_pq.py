@@ -189,6 +189,58 @@ def test_plain_versions_agree(block, dt):
     assert torch.isnan(bad[:, block:]).all() and not torch.isnan(bad[:, :block]).any()
 
 
+_K6_LUT_BYTES = 232448 - 2 * 1024 * 16 - 64 * 32 * 4   # csrc/pq.cu kLutBytes
+
+
+def _k6_stride(j, ksub, esz):
+    """csrc/pq.cu k6_stride: 4-byte words from one query's staged tables to
+    the next, for j subspaces of esz-byte entries."""
+    return ((j * ksub * esz + 3) // 4 + 31) // 32 * 32 + 1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,ksub", [(8, 16), (32, 16), (32, 256), (128, 256), (7, 3)])
+def test_k6_staged_tables_model(m, ksub, dt):
+    """A model of K6's staged tables (csrc/pq.cu launch_adc_finemax): 32
+    queries' tables, query q's run `stride` words after query q - 1's,
+    either resident (all m subspaces, widened to fp32) or streamed `step`
+    subspaces at a time as stored (2 fp32 or 4 bf16 at ksub 256). Read
+    back at the kernel's offsets they are the (nq, m, ksub) tables, the runs
+    never overlap, and the 32 lanes' lookups of one (subspace, code) fall in
+    32 different banks."""
+    rng = np.random.default_rng(m * ksub)
+    luts = torch.from_numpy(rng.normal(size=(32, m, ksub)).astype(np.float32)).to(dt)
+    resident = 32 * 4 * _k6_stride(m, ksub, 4) <= _K6_LUT_BYTES
+    if resident:
+        esz, step, words = 4, m, luts.float().contiguous().view(torch.int32).reshape(32, -1)
+    else:   # two buffers of `step` subspaces, a power of two up to 16
+        esz, step = luts.element_size(), 1
+        while step < 16 and 2 * 32 * 4 * _k6_stride(2 * step, ksub, esz) <= _K6_LUT_BYTES:
+            step *= 2
+        words = None
+    assert (m, ksub) != (32, 16) or resident
+    assert (m, ksub) != (32, 256) or step == 8 // esz
+    stride = _k6_stride(step, ksub, esz)
+    for j0 in range(0, m, step):
+        cn = min(step, m - j0)
+        assert stride % 32 == 1 and 4 * stride >= cn * ksub * esz
+        buf = np.zeros(32 * stride * 4, np.uint8)   # the staged bytes
+        for q in range(32):
+            run = (luts[q].float() if resident else luts[q])[j0:j0 + cn].contiguous()
+            raw = run.view(torch.uint8).numpy().ravel() if words is None else \
+                words[q].view(torch.uint8).numpy()[j0 * ksub * 4:(j0 + cn) * ksub * 4]
+            buf[4 * q * stride:4 * q * stride + raw.size] = raw
+        for jj in range(cn):
+            for c in range(ksub):
+                at = [4 * q * stride + (jj * ksub + c) * esz for q in range(32)]
+                assert len({a // 4 % 32 for a in at}) == 32
+                got = np.array([buf[a:a + esz] for a in at]).view(
+                    np.float32 if esz == 4 else np.uint16).ravel()
+                want = luts[:, j0 + jj, c].float() if esz == 4 else \
+                    luts[:, j0 + jj, c].contiguous().view(torch.int16)
+                np.testing.assert_array_equal(got, want.numpy().view(got.dtype))
+
+
 def test_opq_rotation_orthogonal_and_no_worse():
     rng = np.random.default_rng(7)
     x = (rng.normal(size=(800, 32)) * np.exp(-np.arange(32) / 6.0)).astype(np.float32)
