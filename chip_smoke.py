@@ -11,7 +11,9 @@ Phases, each of which raises on failure:
 2. kernel — K1, the fused GeM -> FC -> L2 head (csrc/gem_head.cu), against
    its plain PyTorch version on the card at the main-path shape
    (8, 32, 24, 2048) -> 2048: unmasked, bucket-masked, a ragged D and bf16
-   input, within rtol 2e-4 / atol 2e-5, TF32 off; both timed with CUDA events.
+   input, within rtol 2e-4 / atol 2e-5, TF32 off; two calls give equal bits;
+   timed with CUDA events against the plain version, masked fp32 and bf16,
+   and its device time and CUDA launches a call from a torch.profiler trace.
 3. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
    int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
@@ -58,11 +60,17 @@ Phases, each of which raises on failure:
    whose ivf_topk at nprobe = nvlist, per query and union, is held to the
    dense plain ADC over reconstructions. K6 timed at ksub 16 and 256, fp32
    and bf16 tables, nq = 256 and 16 (each reading first held to exact
-   equality with the plain version), and the rescore at k = 100, against
-   their plain versions with CUDA events, plain/kernel/kernel/plain; one
+   equality with the plain version), and the rescore at PQ phase C (nq =
+   256, k = 100: ksub 16, and ksub 256 at block 8 with fp32 and bf16 tables;
+   nq = 16, k = 10) and IVF's phase A (16 queries' first 128 probed slabs of
+   64 rows), each first held to exact equality, against their plain
+   versions with CUDA events, plain/kernel/kernel/plain, and at its device
+   time in a torch.profiler trace (at these sizes events around
+   back-to-back calls measure the host's launch rate); one
    embedding_bag (the ADC scores of all queries) is K6's library yardstick
-   at each ksub and nq. K6's entry also carries its lookup floor: its
-   table lookups at 32 a clock on each SM, at the card's maximum SM clock.
+   at each ksub and nq. K6's and the rescore's entries also carry their
+   lookup floor: their table lookups at 32 a clock on each SM, at the card's
+   maximum SM clock.
 6. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
@@ -242,19 +250,78 @@ def kernel_phase(device) -> dict:
 
     w = (torch.randn((MAIN_D, C), generator=g, device=device) * C ** -0.5).T
     b = torch.zeros((MAIN_D,), device=device)
+    xb = x.to(torch.bfloat16)
+    for tag, xin in (("fp32", x), ("bf16", xb)):   # a sum in a fixed order: equal bits
+        if not torch.equal(gem_head.fused_gem_head(xin, p, w, b, mask=mask),
+                           gem_head.fused_gem_head(xin, p, w, b, mask=mask)):
+            raise AssertionError(f"gem_head {tag}: two calls differ")
     ms, plain_ms = time_in_turns(
         f"gem_head {MAIN_SHAPE}->{MAIN_D} masked fp32",
         lambda: gem_head.gem_head_reference(x, mask, p, w, b),
         lambda: gem_head.fused_gem_head(x, p, w, b, mask=mask))
+    # the bf16 reading, first held against the plain version
+    torch.testing.assert_close(gem_head.fused_gem_head(xb, p, w, b, mask=mask),
+                               gem_head.gem_head_reference(xb.float(), mask, p, w, b),
+                               rtol=RTOL, atol=ATOL)
+    bf16_ms, bf16_plain_ms = time_in_turns(
+        f"gem_head {MAIN_SHAPE}->{MAIN_D} masked bf16",
+        lambda: gem_head.gem_head_reference(xb.float(), mask, p, w, b),
+        lambda: gem_head.fused_gem_head(xb, p, w, b, mask=mask))
     B, H, W, C = MAIN_SHAPE
-    nbytes = 4 * (x.numel() + w.numel() + b.numel() + B * MAIN_D) + mask.numel()
+    rest = 4 * (w.numel() + b.numel() + B * MAIN_D) + mask.numel()
     ops = 3 * x.numel() + 2 * B * C * MAIN_D   # pow, mean, root; then the FC
+    bf16 = bound(2 * x.numel() + rest, ops, "fp32")
+    kernels = cuda_kernels_of(lambda: gem_head.fused_gem_head(x, p, w, b, mask=mask))
+    print(f"gem_head: {len(kernels)} CUDA launches a call (torch.profiler): {kernels}")
+    dev_ms = {tag: device_ms(lambda: gem_head.fused_gem_head(xin, p, w, b, mask=mask))
+              for tag, xin in (("fp32", x), ("bf16", xb))}
+    print(f"gem_head device ms a call (torch.profiler): {dev_ms}")
     return {"name": "gem_head", "route": "cuda",
             "source": "dirjax_torch/csrc/gem_head.cu",
             "replaces": "dirjax/ops/gem_head.py:45",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, ops, "fp32"), "library_ms": None,
-            "library_note": NO_LIBRARY + " (masked GeM, FC and L2 in one pass)"}
+            **bound(4 * x.numel() + rest, ops, "fp32"), "library_ms": None,
+            "library_note": NO_LIBRARY + " (masked GeM, FC and L2 in one pass)",
+            "bf16_ms": bf16_ms, "bf16_plain_ms": bf16_plain_ms,
+            "bf16_bound_ms": bf16["bound_ms"], "bf16_bound_by": bf16["bound_by"],
+            "device_ms": dev_ms["fp32"], "bf16_device_ms": dev_ms["bf16"],
+            "cuda_launches_per_call": len(kernels)}
+
+
+def kernel_trace(fn, iters: int = 1) -> list:
+    """(name, ms) of each device kernel that ``iters`` warm calls of ``fn``
+    launch, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="dirjax_torch_trace_") as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            kernels = [(re.sub(r"^void |\(anonymous namespace\)::", "", e["name"]).split("(")[0],
+                        e["dur"] / 1e3) for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return kernels
+
+
+def cuda_kernels_of(fn) -> list:
+    """Names of the device kernels one warm call of ``fn`` launches."""
+    return [name for name, _ in kernel_trace(fn)]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the mean over ``iters`` calls of
+    the summed durations of the kernels it launches (torch.profiler). At
+    small shapes CUDA events around back-to-back calls measure the host's
+    launch rate instead."""
+    return sum(ms for _, ms in kernel_trace(fn, iters)) / iters
 
 
 def time_in_turns(tag: str, plain, kernel, iters: int = 20):
@@ -894,17 +961,45 @@ def pq_kernel_phase(device, db32):
         print(f"{tag} ({sec:.2f} s) vs dense plain ADC over reconstructions: max_abs_err "
               f"{e:.3e}")
 
-    lut, db = luts[16], codes[16]
-    bids = pq._descend_maxima(pq.adc_finemax(lut, db, 64), 100)[0].contiguous()
-    rescore = time_in_turns(
-        f"adc_gather_scores {SERVE_N}x{PQ_M} ksub=16 fp32 nq={SERVE_NQ} k=100",
-        lambda: pq.adc_gather_scores_reference(lut, db, bids, 64),
-        lambda: pq.adc_gather_scores(lut, db, bids, 64), iters=5)
+    # the rescore at the shapes its callers give it, each reading first held
+    # to exact equality with the plain version: PQ phase C (nq 256, k = 100,
+    # ksub 16 and, block 8, ksub 256 in fp32 and bf16; nq 16, k = 10) and
+    # IVF's phase A (16 queries' first 128 probed slabs of 64 rows)
+    sm_clock = card_sms_and_clock()
+    pid = ivf._probe(qf[:16], arrays, IVF_NPROBE)[1]
+    slab_ids = arrays.vlist_tab[pid].reshape(16, -1)[:, :128].long().clamp_min(0).contiguous()
+    rescore = {}
+    for key, lut, db, block, nq, k in [   # k None: IVF's slab ids
+            ("", luts[16], codes[16], 64, SERVE_NQ, 100),
+            ("nq16_k10_", luts[16], codes[16], 64, 16, 10),
+            ("ksub256_", luts[256], codes[256], 8, SERVE_NQ, 100),
+            ("ksub256_bf16_", luts[256].to(torch.bfloat16), codes[256], 8, SERVE_NQ, 100),
+            ("ivf_a_nq16_", ilut, arrays.codes.reshape(-1, PQ_M), arrays.slab, 16, None)]:
+        lut = lut[:nq].contiguous()
+        bids = slab_ids if k is None else \
+            pq._descend_maxima(pq.adc_finemax(lut, db, block), k)[0].contiguous()
+        kf = bids.shape[1]
+        tag = (f"adc_gather_scores {key or 'pq_'}{db.shape[0]}x{PQ_M} ksub={lut.shape[2]} "
+               f"{str(lut.dtype)[6:]} nq={nq} kf={kf} block={block}")
+        check_scores(tag, pq.adc_gather_scores(lut, db, bids, block),
+                     pq.adc_gather_scores_reference(lut, db, bids, block), exact=True)
+        ms, plain_ms = time_in_turns(
+            tag, lambda: pq.adc_gather_scores_reference(lut, db, bids, block),
+            lambda: pq.adc_gather_scores(lut, db, bids, block), iters=5)
+        dev = device_ms(lambda: pq.adc_gather_scores(lut, db, bids, block))
+        print(f"{tag}: device ms a call (torch.profiler) {dev:.5f}")
+        lookups = float(nq) * kf * block * PQ_M
+        rescore[key] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev,
+            **bound(lookups + lut.numel() * lut.element_size() + bids.numel() * 8
+                    + nq * kf * block * 4, lookups, "fp32"),
+            "lookup_floor_ms": lookups / (32.0 * sm_clock[0] * sm_clock[1]) * 1e3}
+    del slab_ids
     # K6 at both ksub, fp32 and bf16 tables, nq = 256 and 16, each reading
     # first held to exact equality with the plain version; one embedding_bag
     # (every ADC score of the queries: the sum of m table rows, written as
     # the score matrix) at each ksub and nq is the library yardstick
-    sm_clock = card_sms_and_clock()
     readings, library, extra = {}, {}, {}
     for ksub, block in ((16, 64), (256, 8)):
         nb = -(-SERVE_N // block)
@@ -940,8 +1035,7 @@ def pq_kernel_phase(device, db32):
     for key, ms in library.items():
         if key:
             extra[f"{key}library_ms"] = ms
-    nq, kf = SERVE_NQ, bids.shape[1]
-    onehot = bound(0, 2.0 * nq * SERVE_N * PQ_M * 16, "bf16")["bound_ms"]
+    onehot = bound(0, 2.0 * SERVE_NQ * SERVE_N * PQ_M * 16, "bf16")["bound_ms"]
     entries = [
         {"name": "adc_finemax", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
          "replaces": "dirjax/ops/pq.py:441", "max_abs_err": err["adc_finemax"],
@@ -953,13 +1047,12 @@ def pq_kernel_phase(device, db32):
          "onehot_bound_ms": onehot, **extra},
         {"name": "adc_gather_scores", "route": "cuda", "source": "dirjax_torch/csrc/pq.cu",
          "replaces": "dirjax/ops/pq.py:393-421 (_pq_topk_hier phase C, XLA)",
-         "max_abs_err": err["adc_gather_scores"],
-         "ms": rescore[0], "plain_ms": rescore[1],
-         **bound(nq * kf * 64 * PQ_M + lut.numel() * 4 + bids.numel() * 8 + nq * kf * 64 * 4,
-                 float(nq) * kf * 64 * PQ_M, "fp32"),
+         "max_abs_err": err["adc_gather_scores"], **rescore[""],
          "library_ms": None,
          "library_note": NO_LIBRARY + " (per query, table sums over its own candidate "
-                         "blocks)"},
+                         "blocks)",
+         "lookup_floor_note": "table lookups / (32 a clock x SMs x the maximum SM clock)",
+         **{f"{key}{k}": v for key, r in rescore.items() if key for k, v in r.items()}},
     ]
     del codes, luts, rcodes
     return entries, books[16], index
@@ -996,7 +1089,8 @@ def same_answer(tag: str, got, want) -> None:
 def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
     """Where one direct search's time goes, per serving signature at nq = 1,
     16 and 64: host ms per search (5 searches, the result pull included) and
-    the device time of each kernel in a torch.profiler trace of one more."""
+    the device time of each kernel in a torch.profiler trace of one more
+    (the four largest, and the ADC rescore's sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -1025,7 +1119,8 @@ def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
                 top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
                 row = {"index": name, "k": k, "opts": opts, "nq": nq,
                        "host_ms": host_ms, "device_ms": sum(kernels.values()),
-                       "top_device_ms": top}
+                       "top_device_ms": top,
+                       "rescore_ms": sum(v for kn, v in kernels.items() if "adc_rescore" in kn)}
                 rows.append(row)
                 print("serving profile: " + json.dumps(row))
     os.unlink(os.path.join(out_dir, "trace_search.json"))
@@ -1272,7 +1367,7 @@ def check_against_cpu(tag: str, got: np.ndarray, want: np.ndarray) -> float:
     return float(cos.min())
 
 
-_K1_KERNELS = ("gem_pool_kernel", "project_kernel", "l2norm_kernel")
+_K1_KERNELS = ("gem_pool_kernel", "project_kernel")
 _CONV_OPS = ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution")
 
 

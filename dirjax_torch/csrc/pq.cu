@@ -13,7 +13,9 @@
 //      phase C (pq.py:393-421, ivf.py:289-326), not of a TPU kernel. Per
 //      query, it scores the `block` rows of each of kf candidate blocks ->
 //      (nq, kf * block) raw scores; a block id outside [0, ceil(n / block))
-//      yields NaN, a row >= n inside a valid block -inf (as in K6).
+//      yields NaN, a row >= n inside a valid block -inf (as in K6). PQ runs
+//      it as phase C; IVF as its slab scorer (phase A: 128 slabs of 64 rows
+//      a launch, whose maxima the wrapper takes) and as phase C.
 //
 // Containment (topk_pallas.py:24-29) needs the rescore to reproduce K6's
 // maxima bit for bit. Both score a (row, query) pair as one fp32 accumulator
@@ -61,8 +63,30 @@
 //     about 1 KB a thread in the hot loop.
 //   - Persistent CTAs, one per SM, walk (query group, row range) units, the
 //     range fastest, so a group's resident tables are staged once per CTA.
-// The rescore keeps its first design: a CTA stages one query's tables and
-// each thread scores one candidate row.
+// What bounds the rescore: the candidate codes it reads, kf * block * m
+// bytes a query (52 MB at nq = 256, k = 100, 64-row blocks: 0.016 ms at
+// 3.35 TB/s), and at small nq the latency of those reads, since the work is
+// a few MB (IVF's phase A at nq = 16: 128 slabs of 64 rows a query, 4.2 MB).
+// Its lookups, one shared-memory load each, come to 52.4 M at that PQ shape
+// (0.006 ms at 32 a clock on 132 SMs). The design, rows on the lanes:
+//   - A CTA takes one query and upc of its candidate blocks; a query's kf
+//     blocks split over as many CTAs as put about 8 on each SM (several at
+//     nq = 16), but no CTA stages more table bytes than it reads codes. It
+//     stages the blocks' row bases and the query's tables (widened to fp32)
+//     once, behind one barrier; then there is none.
+//   - Its (up to 8) warps walk the range's candidate rows, 32 a step, one a
+//     lane: a warp step is half a 64-row block, or four 8-row ones. A lane
+//     loads 32 code bytes of its row in 16-byte vectors (8, 4 or 1 where m
+//     or the codes' alignment forbid), issued before the lookups of the
+//     chunk before (the row's previous 32 subspaces, or the warp's previous
+//     step), and keeps one fp32 accumulator through adc_mac, so the order of
+//     the adds is K6's. Two rows a lane spilled registers and ran slower.
+//   - At ksub 16 a subspace's 16 entries lie in 16 banks: a warp's lookups
+//     meet no conflict. At ksub 256 two lanes whose codes agree mod 32 but
+//     differ meet in one bank; the tables are not replicated.
+//   - Tables larger than 96 KB (m * ksub * 4 bytes) are staged a multiple of
+//     32 subspaces at a time; the partial sums wait in `out` between groups
+//     (an fp32 store and load are exact), so the order holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,13 +97,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 256;               // rescore: rows per pass, one per thread
-constexpr int kCodeStride = kThreads + 4;   // staged bytes per subspace (pad: no bank conflicts)
-constexpr int kLutBudget = 64 * 1024;       // rescore: bytes of fp32 tables staged at once
-constexpr int kMaxJg = 128;                 // rescore: subspaces staged at once
-constexpr int kGatherRowsPerCta = 4 * kThreads;
-constexpr long long kMaxGridY = 65535;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -514,101 +531,253 @@ int launch_adc_finemax(const LutT* luts, const uint8_t* codes, long long nq, lon
 }
 
 // --------------------------------------------------------------------------
-// The rescore
+// The rescore: rows on the lanes
 // --------------------------------------------------------------------------
 
-// Stage the tables of queries q0 .. q0+qg-1, subspaces j0 .. j0+jn-1 into
-// lut_s[(q * jg + jj) * ksub + c] as fp32 (0 past nq).
-template <typename LutT>
-__device__ void stage_luts(float* lut_s, const LutT* __restrict__ luts, long long q0, int qg,
-                           long long nq, int m, int ksub, int jg, int j0, int jn) {
-  const int span = jn * ksub;
-  for (int e = threadIdx.x; e < qg * span; e += kThreads) {
-    const int q = e / span, rem = e % span;
-    const long long qi = q0 + q;
-    lut_s[q * jg * ksub + rem] =
-        qi < nq ? widen(luts[(qi * m + j0) * ksub + rem]) : 0.0f;
+constexpr int kRsWarps = 8;                  // warps of a CTA, at most
+constexpr int kRsChunk = 32;                 // subspaces a lane loads ahead: 32 bytes a row
+constexpr int kRsWords = kRsChunk / 4;
+constexpr int kRsLutBudget = 96 * 1024;      // staged fp32 tables a CTA, at most
+constexpr int kRsMaxUnits = 4096;            // candidate blocks a CTA, at most
+constexpr int kRsCtasPerSm = 8;              // the grid the split of kf aims at
+
+struct RsArgs {
+  const void* luts;        // (nq, m, ksub) fp32 or bf16
+  const uint8_t* codes;    // (n, m)
+  const long long* bids;   // (nq, kf)
+  float* out;              // (nq, kf * block)
+  long long nq, n, kf, nb;   // nb = ceil(n / block)
+  int block, m, ksub;
+  int jg;     // subspaces staged at once: m, or a multiple of 32
+  int upc;    // candidate blocks a CTA
+  int cpq;    // CTAs a query
+};
+
+// The kRsChunk (or fewer, `len`) code bytes of one row from `p` into w,
+// byte t at bits 8 (t % 4) of w[t / 4]: VEC-byte loads (the row and the
+// codes allow them) or bytes.
+template <int VEC>
+__device__ __forceinline__ void load_chunk(uint32_t (&w)[kRsWords], const uint8_t* p, int len) {
+  if constexpr (VEC == 16) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (16 * k < len) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+        w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
+      }
+  } else if constexpr (VEC == 8) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (8 * k < len) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + k);
+        w[2 * k] = v.x; w[2 * k + 1] = v.y;
+      }
+  } else if constexpr (VEC == 4) {
+#pragma unroll
+    for (int k = 0; k < kRsWords; ++k)
+      if (4 * k < len) w[k] = __ldg(reinterpret_cast<const uint32_t*>(p) + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRsWords; ++k) w[k] = 0u;
+#pragma unroll
+    for (int t = 0; t < kRsChunk; ++t)
+      if (t < len) w[t >> 2] |= static_cast<uint32_t>(__ldg(p + t)) << (8 * (t & 3));
   }
 }
 
-// Stage codes[rows[rl], j0 .. j0+jn-1] into codes_s[jj * kCodeStride + rl]
-// for the kThreads rows of a pass; a row < 0 stages zeros.
-__device__ void stage_codes(uint8_t* codes_s, const uint8_t* __restrict__ codes,
-                            const long long* row_s, int m, int j0, int jn) {
-  for (int e = threadIdx.x; e < kThreads * jn; e += kThreads) {
-    const int rl = e / jn, jj = e % jn;
-    const long long row = row_s[rl];
-    codes_s[jj * kCodeStride + rl] = row >= 0 ? codes[row * m + j0 + jj] : 0;
+// adc_mac for the chunk's `len` subspaces in increasing order; `lut` is the
+// staged fp32 table of the chunk's first subspace.
+template <int KSUB>
+__device__ __forceinline__ void add_chunk(float& acc, const uint32_t (&w)[kRsWords],
+                                          const float* lut, int ksub_rt, int len) {
+  const int ksub = KSUB ? KSUB : ksub_rt;
+  if (len == kRsChunk) {
+#pragma unroll
+    for (int t = 0; t < kRsChunk; ++t)
+      adc_mac(acc, lut + t * ksub, (w[t >> 2] >> (8 * (t & 3))) & 0xFF);
+  } else {
+#pragma unroll
+    for (int t = 0; t < kRsChunk; ++t)
+      if (t < len) adc_mac(acc, lut + t * ksub, (w[t >> 2] >> (8 * (t & 3))) & 0xFF);
   }
 }
 
-// The rescore. Grid (nq, ceil(kf * block / kGatherRowsPerCta)); the CTA
-// stages its query's tables and scores its share of the query's candidate
-// rows in passes of kThreads, one row per thread.
+// A lane's row of one step: flat candidate row f = 32 * step + lane of the
+// CTA's range, with its codes (live), or past n inside a valid block (-inf),
+// or in an invalid block (NaN), or past the range.
+enum RsState { kLive = 0, kPastN = 1, kInvalid = 2, kNone = 3 };
+
+struct RsRow {
+  const uint8_t* ptr;   // the row's codes from subspace j0 (live rows)
+  int state;
+};
+
+__device__ __forceinline__ RsRow row_of(const RsArgs& a, const long long* base_s, int rows, int f,
+                                        int j0) {
+  RsRow r = {a.codes, kNone};
+  if (f >= rows) return r;
+  const int u = f / a.block;
+  const long long base = base_s[u];
+  const long long row = base + (f - u * a.block);
+  r.state = base < 0 ? kInvalid : row >= a.n ? kPastN : kLive;
+  if (r.state == kLive) r.ptr = a.codes + row * a.m + j0;
+  return r;
+}
+
+// Stage tables j0 .. j0+jn-1 of query qi, widened to fp32, to lut_s: 16-byte
+// loads where the run is aligned.
 template <typename LutT>
-__global__ void __launch_bounds__(kThreads)
-adc_gather_scores_kernel(const LutT* __restrict__ luts, const uint8_t* __restrict__ codes,
-                         const long long* __restrict__ bids, long long nq, long long n, int m,
-                         int ksub, int jg, long long block, long long kf,
-                         float* __restrict__ out) {
+__device__ __forceinline__ void stage_tables(float* lut_s, const RsArgs& a, long long qi, int j0,
+                                             int jn) {
+  const LutT* src = static_cast<const LutT*>(a.luts) + (qi * a.m + j0) * a.ksub;
+  const int count = jn * a.ksub;
+  constexpr int kPer = 16 / (int)sizeof(LutT);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int vecs = count / kPer;
+    for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src) + v);
+      if constexpr (sizeof(LutT) == 4) {
+        *reinterpret_cast<uint4*>(lut_s + 4 * v) = raw;
+      } else {
+        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+        float4 lo, hi;
+        lo.x = __uint_as_float(w[0] << 16); lo.y = __uint_as_float(w[0] & 0xFFFF0000u);
+        lo.z = __uint_as_float(w[1] << 16); lo.w = __uint_as_float(w[1] & 0xFFFF0000u);
+        hi.x = __uint_as_float(w[2] << 16); hi.y = __uint_as_float(w[2] & 0xFFFF0000u);
+        hi.z = __uint_as_float(w[3] << 16); hi.w = __uint_as_float(w[3] & 0xFFFF0000u);
+        *reinterpret_cast<float4*>(lut_s + 8 * v) = lo;
+        *reinterpret_cast<float4*>(lut_s + 8 * v + 4) = hi;
+      }
+    }
+    done = vecs * kPer;
+  }
+  for (int e = done + threadIdx.x; e < count; e += blockDim.x) lut_s[e] = widen(src[e]);
+}
+
+// The rescore. CTA x takes query x / cpq and its candidate blocks [u0, u0 +
+// upc), u0 = (x % cpq) * upc: it stages their row bases and the query's
+// tables (widened to fp32) once, then its warps walk the range's flat
+// candidate rows 32 at a time, one a lane. A lane loads kRsChunk code bytes
+// of its row in 16-byte vectors (where m and the codes allow), the next
+// chunk's (or the next step's first) loads issued before this chunk's
+// lookups, and keeps one fp32 accumulator (adc_mac, j increasing). Tables larger than kRsLutBudget are staged jg
+// subspaces at a time; the partial sums wait in `out` (an fp32 store and
+// load are exact) between groups, so the order of the adds holds.
+template <typename LutT, int VEC, int KSUB>
+__global__ void __launch_bounds__(32 * kRsWarps, 4)
+adc_rescore_kernel(const RsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* lut_s = reinterpret_cast<float*>(smem);                       // jg * ksub
-  long long* row_s = reinterpret_cast<long long*>(lut_s + ((jg * ksub + 1) & ~1));
-  uint8_t* codes_s = reinterpret_cast<uint8_t*>(row_s + kThreads);    // jg * kCodeStride
-  const int t = threadIdx.x;
-  const long long qi = blockIdx.x;
-  const long long total = kf * block;
-  const long long c_end = min(total, ((long long)blockIdx.y + 1) * kGatherRowsPerCta);
-  const long long db_blocks = (n + block - 1) / block;
-  const bool resident = jg >= m;
-  bool staged = false;
-  for (long long p0 = (long long)blockIdx.y * kGatherRowsPerCta; p0 < c_end; p0 += kThreads) {
-    const long long ci = p0 + t;
-    long long row = -2;   // -2: no candidate (past c_end or an invalid block id)
-    if (ci < c_end) {
-      const long long b = bids[qi * kf + ci / block];
-      if (b >= 0 && b < db_blocks) row = b * block + ci % block;
+  long long* const base_s = reinterpret_cast<long long*>(smem);   // upc row bases, -1 invalid
+  float* const lut_s = reinterpret_cast<float*>(smem + ((8 * a.upc + 15) & ~15));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long long qi = blockIdx.x / a.cpq;
+  const long long u0 = (long long)(blockIdx.x % a.cpq) * a.upc;
+  const int units = (int)min((long long)a.upc, a.kf - u0);
+  const int rows = units * a.block;
+  const int steps = (rows + 31) / 32;
+  float* const out = a.out + qi * (a.kf * a.block) + u0 * a.block;
+  for (int i = threadIdx.x; i < units; i += blockDim.x) {
+    const long long b = a.bids[qi * a.kf + u0 + i];
+    base_s[i] = b >= 0 && b < a.nb ? b * a.block : -1;
+  }
+  for (int j0 = 0; j0 < a.m; j0 += a.jg) {
+    const int jn = min(a.jg, a.m - j0);
+    const bool first = j0 == 0, last = j0 + jn == a.m;
+    if (!first) __syncthreads();   // every warp is done with the last group's tables
+    stage_tables<LutT>(lut_s, a, qi, j0, jn);
+    __syncthreads();
+    int step = warp;
+    if (step >= steps) continue;
+    RsRow r = row_of(a, base_s, rows, 32 * step + lane, j0), rn = r;
+    uint32_t cur[kRsWords], nxt[kRsWords] = {};
+    if (r.state == kLive) load_chunk<VEC>(cur, r.ptr, min(kRsChunk, jn));
+    while (true) {
+      const int f = 32 * step + lane;
+      float acc = !first && r.state == kLive ? out[f] : 0.0f;
+      for (int c = 0; c < jn; c += kRsChunk) {
+        // the next loads: this row's next chunk, or the next step's row's first
+        if (c + kRsChunk < jn) {
+          if (r.state == kLive) load_chunk<VEC>(nxt, r.ptr + c + kRsChunk, min(kRsChunk, jn - c - kRsChunk));
+        } else if (step + nwarps < steps) {
+          rn = row_of(a, base_s, rows, f + 32 * nwarps, j0);
+          if (rn.state == kLive) load_chunk<VEC>(nxt, rn.ptr, min(kRsChunk, jn));
+        }
+        if (r.state == kLive) add_chunk<KSUB>(acc, cur, lut_s + c * a.ksub, a.ksub, min(kRsChunk, jn - c));
+#pragma unroll
+        for (int k = 0; k < kRsWords; ++k) cur[k] = nxt[k];
+      }
+      if (r.state == kLive) {
+        out[f] = acc;
+      } else if (last && r.state != kNone) {
+        out[f] = r.state == kInvalid ? NAN : -INFINITY;
+      }
+      step += nwarps;
+      if (step >= steps) break;
+      r = rn;
     }
-    float acc = 0.0f;
-    for (int j0 = 0; j0 < m; j0 += jg) {
-      const int jn = min(jg, m - j0);
-      __syncthreads();
-      row_s[t] = row >= 0 && row < n ? row : -1;
-      if (!(resident && staged)) stage_luts(lut_s, luts, qi, 1, nq, m, ksub, jg, j0, jn);
-      __syncthreads();
-      stage_codes(codes_s, codes, row_s, m, j0, jn);
-      __syncthreads();
-      staged = true;
-      for (int jj = 0; jj < jn; ++jj) adc_mac(acc, lut_s + jj * ksub, codes_s[jj * kCodeStride + t]);
-    }
-    if (ci < c_end) out[qi * total + ci] = row < 0 ? NAN : (row < n ? acc : -INFINITY);
   }
 }
 
-// The rescore's subspaces staged at once: what fits kLutBudget, at most m
-// and kMaxJg.
-int rescore_jg(int m, int ksub) {
-  int j = kLutBudget / (ksub * 4);
-  j = j < m ? j : m;
-  return j < kMaxJg ? j : kMaxJg;
+template <typename LutT, int VEC>
+cudaError_t launch_rescore_vec(const RsArgs& a, int warps, int smem, cudaStream_t s) {
+  void (*kernel)(const RsArgs) = a.ksub == 16    ? &adc_rescore_kernel<LutT, VEC, 16>
+                                 : a.ksub == 256 ? &adc_rescore_kernel<LutT, VEC, 256>
+                                                 : &adc_rescore_kernel<LutT, VEC, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(a.nq * a.cpq), 32 * warps, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
+// The rescore's geometry: tables staged whole where they fit kRsLutBudget
+// (else jg subspaces, a multiple of 32, at a time); a query's kf blocks
+// split over cpq CTAs so the grid holds about kRsCtasPerSm CTAs an SM, but
+// no CTA stages more table bytes than it reads codes; 16-byte code loads
+// where m and the codes allow, else 8, 4 or 1.
 template <typename LutT>
-int gather_dispatch(const void* luts, const uint8_t* codes, const long long* bids, long long nq,
-                    long long n, int m, int ksub, long long block, long long kf, float* out,
-                    cudaStream_t s) {
-  const int jg = rescore_jg(m, ksub);
-  const size_t smem = sizeof(float) * (size_t)((jg * ksub + 1) & ~1) +
-                      sizeof(long long) * kThreads + (size_t)jg * kCodeStride;
-  auto kernel = adc_gather_scores_kernel<LutT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+int launch_rescore(const void* luts, const uint8_t* codes, const long long* bids, long long nq,
+                   long long n, int m, int ksub, long long block, long long kf, float* out,
+                   cudaStream_t s) {
+  if (block > (1 << 24) || nq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long gy = (kf * block + kGatherRowsPerCta - 1) / kGatherRowsPerCta;
-  if (gy > kMaxGridY || nq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<dim3((unsigned)nq, (unsigned)gy), kThreads, smem, s>>>(
-      static_cast<const LutT*>(luts), codes, bids, nq, n, m, ksub, jg, block, kf, out);
-  return (int)cudaGetLastError();
+  RsArgs a;
+  a.luts = luts;
+  a.codes = codes;
+  a.bids = bids;
+  a.out = out;
+  a.nq = nq;
+  a.n = n;
+  a.kf = kf;
+  a.nb = (n + block - 1) / block;
+  a.block = (int)block;
+  a.m = m;
+  a.ksub = ksub;
+  const long long table_bytes = 4LL * m * ksub;
+  a.jg = table_bytes <= kRsLutBudget ? m : kRsLutBudget / (4 * ksub) / kRsChunk * kRsChunk;
+  long long cpq = ((long long)kRsCtasPerSm * sms + nq - 1) / nq;
+  const long long by_tables = kf * block * m / table_bytes;   // CTAs whose codes outweigh the tables
+  cpq = cpq < by_tables ? cpq : by_tables;
+  cpq = cpq < kf ? cpq : kf;
+  cpq = cpq > 1 ? cpq : 1;
+  long long upc = (kf + cpq - 1) / cpq;
+  upc = upc < kRsMaxUnits ? upc : kRsMaxUnits;
+  while (upc > 1 && upc * block > (1LL << 30)) upc /= 2;   // a CTA's rows index in 32 bits
+  if (upc * block > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  a.upc = (int)upc;
+  a.cpq = (int)((kf + upc - 1) / upc);
+  if (nq * a.cpq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long steps = (upc * block + 31) / 32;
+  const int warps = (int)(steps < kRsWarps ? steps : kRsWarps);
+  const int smem = ((8 * a.upc + 15) & ~15) + 4 * a.jg * ksub;
+  const uintptr_t c = reinterpret_cast<uintptr_t>(codes);
+  if (m % 16 == 0 && c % 16 == 0) return (int)launch_rescore_vec<LutT, 16>(a, warps, smem, s);
+  if (m % 8 == 0 && c % 8 == 0) return (int)launch_rescore_vec<LutT, 8>(a, warps, smem, s);
+  if (m % 4 == 0 && c % 4 == 0) return (int)launch_rescore_vec<LutT, 4>(a, warps, smem, s);
+  return (int)launch_rescore_vec<LutT, 1>(a, warps, smem, s);
 }
 
 bool bad_operands(long long nq, long long n, int m, int ksub, long long block) {
@@ -645,6 +814,6 @@ extern "C" int dirjax_adc_gather_scores(const void* luts, int lut_bf16, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   return lut_bf16
-             ? gather_dispatch<__nv_bfloat16>(luts, c, bids, nq, n, m, ksub, block, kf, out, s)
-             : gather_dispatch<float>(luts, c, bids, nq, n, m, ksub, block, kf, out, s);
+             ? launch_rescore<__nv_bfloat16>(luts, c, bids, nq, n, m, ksub, block, kf, out, s)
+             : launch_rescore<float>(luts, c, bids, nq, n, m, ksub, block, kf, out, s);
 }

@@ -120,7 +120,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     signatures = {
-        "dirjax_gem_head": [vp, i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, vp],
+        # x, x_is_bf16, mask, mask_kind, p, w, bias, pooled, counters, out,
+        # batch, hw, c, d, eps, stream
+        "dirjax_gem_head": [vp, i, vp, i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, vp],
         # q, db, mode, nq, n, d, k, vals, idxs, stream
         "dirjax_fused_topk": [vp, vp, i, ll, ll, i, i, vp, vp, vp],
         # q, db, scales, mode, nq, n, d, blocks, out, stream

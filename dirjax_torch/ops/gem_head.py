@@ -67,11 +67,17 @@ def _launch(x, p, w, b, mask, eps) -> torch.Tensor:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 on {x.device} "
                              "(pass W as linear.weight.T)")
+    mask_kind = 0
     if mask is not None:
         if mask.shape != (B, H, W) or mask.device != x.device:
             raise ValueError(f"mask must be ({B}, {H}, {W}) on {x.device}, got "
                              f"{tuple(mask.shape)} on {mask.device}")
-        mask = mask.to(torch.float32).contiguous()
+        # the kernel reads a bool mask's bytes as they are (no conversion
+        # launch on the main path); any other mask as fp32
+        if mask.dtype == torch.bool:
+            mask, mask_kind = mask.contiguous(), 1
+        else:
+            mask, mask_kind = mask.to(torch.float32).contiguous(), 2
     p = torch.as_tensor(p, dtype=torch.float32, device=x.device).detach().reshape(1)
     D = w.shape[1]
     out = torch.empty((B, D), dtype=torch.float32, device=x.device)
@@ -83,11 +89,13 @@ def _launch(x, p, w, b, mask, eps) -> torch.Tensor:
     lib = load_library()
     with torch.cuda.device(x.device):
         pooled = torch.empty((B, C), dtype=torch.float32, device=x.device)
+        # the projection's done-counters, one per 8 batch rows (the kernel zeroes them)
+        counters = torch.empty((-(-B // 8),), dtype=torch.int32, device=x.device)
         err = lib.dirjax_gem_head(
             x.data_ptr(), int(x.dtype == torch.bfloat16),
-            None if mask is None else mask.data_ptr(), p.data_ptr(),
-            w.data_ptr(), b.data_ptr(), pooled.data_ptr(), out.data_ptr(),
-            B, H * W, C, D, eps, torch.cuda.current_stream().cuda_stream)
+            None if mask is None else mask.data_ptr(), mask_kind, p.data_ptr(),
+            w.data_ptr(), b.data_ptr(), pooled.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), B, H * W, C, D, eps, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gem_head kernel launch failed: cudaError {err}")
     launches += 1

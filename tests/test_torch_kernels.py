@@ -9,8 +9,10 @@ with the card and no JAX; there, skip tests/conftest.py (which sets JAX up):
 Tolerances:
 - K1 (GeM head): rtol 2e-4 / atol 2e-5, as tests/test_pallas_kernels.py
   holds the TPU kernel to its oracle: the kernel sums H*W cells and C
-  products in another order than ATen, and the pow/log/exp chain of GeM
-  amplifies last-bit differences by about p.
+  products in another order than ATen, takes each power as exp2(p log2 v)
+  on the special-function unit (2-ulp lg2/ex2), and the pow/log/exp chain
+  of GeM amplifies last-bit differences by about p. Two calls on one card
+  give equal bits (the split sums meet in a fixed order).
 - K2-K4 (top-k): scores of unit vectors within atol 1e-5. Every mode runs
   on the tensor cores. bf16 and int8 x bf16 products are exact and their
   fp32 accumulation runs in another order than cuBLAS's; fp32 splits each
@@ -42,8 +44,9 @@ Tolerances:
   m 8, 32, 64, 128 x ksub 16, 256, fp32 and bf16 tables, blocks 1, 8, 64
   (a lane folds its own rows) and 96 (an IVF slab that does not divide 64:
   the fold goes through shared memory); the rescore's block maxima equal
-  K6's bit for bit; pq_topk and ivf_topk at full probe return the dense
-  plain ADC top-k's values.
+  K6's bit for bit; the rescore also at blocks 1, 8, 64 and 100 with kf = 1
+  and 300, m 8, 32, 64, NaN for ids outside the blocks; pq_topk and
+  ivf_topk at full probe return the dense plain ADC top-k's values.
 """
 
 import numpy as np
@@ -106,6 +109,25 @@ class TestGemHeadKernel:
         xb = x.to(torch.bfloat16)
         got = gem_head.fused_gem_head(xb, 3.0, w, b, mask=mask)
         _close(got, gem_head.gem_head_reference(xb.float(), mask, 3.0, w, b))
+
+    @pytest.mark.parametrize("shape", [(1, 1, 1, 100, 64), (9, 5, 7, 2047, 2000),
+                                       (17, 3, 5, 128, 256), (2, 9, 5, 256, 128)],
+                             ids=["hw1_c100", "b9_c2047_d2000", "b17", "hw45"])
+    @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("p", [1.0, 8.0])
+    def test_edge_shapes(self, rng, cuda, shape, dt, p):
+        """C off the vector width (100 in bf16, 2047), H*W = 1 and H*W that
+        no split count divides, B = 1, 9, 17, D = 2000, a row whose mask is
+        all False, p = 1 and 8; two calls give equal bits."""
+        x, w, b, mask = _head_inputs(rng, cuda, *shape)
+        if shape[0] > 2:
+            mask[2] = False
+        xin = x.to(dt)
+        got = gem_head.fused_gem_head(xin, p, w, b, mask=mask)
+        _close(got, gem_head.gem_head_reference(xin.float(), mask, p, w, b))
+        assert torch.equal(got, gem_head.fused_gem_head(xin, p, w, b, mask=mask))
+        _close(gem_head.fused_gem_head(xin, p, w, b),
+               gem_head.gem_head_reference(xin.float(), None, p, w, b))
 
     def test_rejects_bad_layout(self, rng, cuda):
         x, w, b, _ = _head_inputs(rng, cuda, 2, 4, 4, 64, 64)
@@ -388,6 +410,32 @@ class TestADCKernels:
         assert torch.equal(raw, pq.adc_gather_scores_reference(luts, codes, bids, block))
         # containment needs the rescore's block maxima to be K6's, bit for bit
         assert torch.equal(raw.reshape(nq, -1, block).amax(dim=2), torch.gather(fmax, 1, bids))
+
+    @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("ksub", [16, 256])
+    @pytest.mark.parametrize("m", [8, 32, 64])
+    @pytest.mark.parametrize("kf", [1, 300])
+    @pytest.mark.parametrize("block", [1, 8, 64, 100])
+    def test_rescore_shapes(self, rng, cuda, block, kf, m, ksub, dt):
+        """The rescore at every block its callers pass (an odd IVF slab of
+        100 too), kf = 1 and 300, on ragged rows: exactly its plain version,
+        NaN for ids outside [0, ceil(n / block)), and K6's block maxima bit
+        for bit."""
+        nq, n = 5, 5003
+        luts, codes = _adc_operands(rng, cuda, nq, n, m, ksub, dt)
+        nb = -(-n // block)
+        bids = torch.from_numpy(rng.integers(0, nb, size=(nq, kf))).to(cuda)
+        bids[0, 0] = nb - 1                    # the ragged last block
+        if kf > 2:
+            bids[1, 1], bids[2, 2] = -1, nb
+        raw = pq.adc_gather_scores(luts, codes, bids, block)
+        torch.testing.assert_close(raw, pq.adc_gather_scores_reference(luts, codes, bids, block),
+                                   rtol=0, atol=0, equal_nan=True)
+        valid = (bids >= 0) & (bids < nb)
+        assert torch.equal(raw.reshape(nq, kf, block).isnan().all(2), ~valid)
+        fmax = pq.adc_finemax(luts, codes, block)
+        maxima = raw.reshape(nq, kf, block).amax(dim=2)
+        assert torch.equal(maxima[valid], torch.gather(fmax, 1, bids.clamp(0, nb - 1))[valid])
 
     @pytest.mark.parametrize("block", [1, 64, 100, 300])
     def test_any_block(self, rng, cuda, block):

@@ -96,6 +96,59 @@ class TestGemHeadReference:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _k1_split_model(x, mask, p, w, b, splits, eps=1e-6):
+    """A model of K1's pooling order (csrc/gem_head.cu gem_pool_kernel):
+    ``splits`` CTAs a cluster share the H*W cells (the kernel takes the most,
+    up to 8, that fit the card at once), 8 warps a split taking every 8th
+    cell, a thread's cells summed in increasing order, the warps' sums in
+    order 0..7, the splits' in rank order, then the mean and the 1/p root;
+    the projection and the L2 as a plain composition. Returns the
+    descriptors and each cell's visit count."""
+    B, H, W, C = x.shape
+    hw = H * W
+    xf = x.float().reshape(B, hw, C)
+    m = torch.ones((B, hw)) if mask is None else mask.reshape(B, hw).float()
+    powed = m[:, :, None] * torch.exp(p * torch.log(xf.clamp_min(eps)))
+    total, count = torch.zeros((B, C)), torch.zeros(B)
+    visits = torch.zeros(hw, dtype=torch.int32)
+    for s in range(splits):
+        lo, hi = hw * s // splits, hw * (s + 1) // splits
+        cta = torch.zeros((B, C))
+        for warp in range(8):
+            acc = torch.zeros((B, C))
+            for i in range(lo + warp, hi, 8):
+                acc = acc + powed[:, i]
+                visits[i] += 1
+            cta = cta + acc
+        total = total + cta
+        count = count + m[:, lo:hi].sum(1)
+    pooled = torch.exp(torch.log(total / count.clamp_min(1.0)[:, None]) / p)
+    v = pooled @ w + b
+    return v / v.square().sum(1, keepdim=True).clamp_min(1e-24).sqrt(), visits
+
+
+class TestGemHeadSplitModel:
+    """K1's split-H*W partial sums, combined in the kernel's fixed order,
+    against dirjax's gem_head_reference on the same numpy inputs."""
+
+    @pytest.mark.parametrize("B,H,W,C,D", [(1, 1, 1, 100, 64), (9, 5, 7, 2047, 2000),
+                                           (17, 3, 5, 128, 256), (2, 9, 5, 256, 128),
+                                           (8, 4, 6, 100, 96)])
+    @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("p,splits", [(1.0, 8), (3.0, 3), (8.0, 1), (3.0, 7)])
+    def test_matches_jax_reference(self, rng, B, H, W, C, D, bf16, p, splits):
+        x, w, b, mask = _head_inputs(rng, B, H, W, C, D)
+        if B > 2:
+            mask[2] = False                             # a row with no valid cell
+        xt = _t(x).to(torch.bfloat16) if bf16 else _t(x)
+        splits = min(splits, H * W)                     # the kernel's cap
+        got, visits = _k1_split_model(xt, _t(mask), p, _t(w), _t(b), splits)
+        assert (visits == 1).all()
+        want = jgem.gem_head_reference(jnp.asarray(xt.float().numpy()), jnp.asarray(mask),
+                                       p, jnp.asarray(w), jnp.asarray(b))
+        _close(got, want)
+
+
 class TestWhitening:
     @pytest.mark.parametrize("whiten", [True, False])
     @pytest.mark.parametrize("whitenv", [None, 4])

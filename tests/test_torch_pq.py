@@ -241,6 +241,111 @@ def test_k6_staged_tables_model(m, ksub, dt):
                 np.testing.assert_array_equal(got, want.numpy().view(got.dtype))
 
 
+def _rescore_geometry(nq, m, ksub, block, kf, sms=132):
+    """csrc/pq.cu launch_rescore: (jg, cpq, upc, warps) -- subspaces staged
+    at once, CTAs a query, candidate blocks a CTA, warps a CTA."""
+    table = 4 * m * ksub
+    jg = m if table <= 96 * 1024 else 96 * 1024 // (4 * ksub) // 32 * 32
+    cpq = max(1, min(-(-8 * sms // nq), kf * block * m // table, kf))
+    upc = min(-(-kf // cpq), 4096)
+    return jg, -(-kf // upc), upc, min(-(-upc * block // 32), 8)
+
+
+def _rescore_model(luts, codes, bids, block, vec):
+    """A model of the rescore kernel (csrc/pq.cu adc_rescore_kernel): CTAs
+    of (query, upc candidate blocks), warps walking 32 candidate rows a step
+    (one a lane), each row's codes loaded 32 bytes a chunk as
+    `vec`-byte little-endian words and read back byte by byte, one fp32
+    accumulator a row adding the tables j = 0, 1, ... in order; tables over
+    96 KB staged `jg` subspaces at a time with the partial sums kept in the
+    output between groups. Returns the output and how often each entry was
+    written by its last group."""
+    nq, m, ksub = luts.shape
+    kf, n = bids.shape[1], codes.shape[0]
+    nb = -(-n // block)
+    jg, cpq, upc, warps = _rescore_geometry(nq, m, ksub, block, kf)
+    lf = luts.float()
+    raw = codes.numpy()
+    out = torch.full((nq, kf * block), 7.0)      # a sentinel no path writes
+    writes = torch.zeros((nq, kf * block), dtype=torch.int32)
+    lane = torch.arange(32)
+    for q in range(nq):
+        for p in range(cpq):
+            u0 = p * upc
+            units = min(upc, kf - u0)
+            rows = units * block
+            b = bids[q, u0:u0 + units]
+            base = torch.where((b >= 0) & (b < nb), b * block, -1)
+            o = out[q, u0 * block:u0 * block + rows]
+            wr = writes[q, u0 * block:u0 * block + rows]
+            for j0 in range(0, m, jg):
+                jn = min(jg, m - j0)
+                for w in range(warps):
+                    for step in range(w, -(-rows // 32), warps):
+                        f = step * 32 + lane
+                        f = f[f < rows]
+                        u = f // block
+                        row = base[u] + f - u * block
+                        live = (base[u] >= 0) & (row < n)
+                        fl, rl = f[live], row[live]
+                        acc = torch.zeros(len(fl)) if j0 == 0 else o[fl].clone()
+                        for c in range(0, jn, 32):
+                            ln = min(32, jn - c)
+                            chunk = np.zeros((len(fl), 32), np.uint8)
+                            for v in range(0, ln, vec):   # vec-byte loads, aligned
+                                at = rl.numpy() * m + j0 + c + v
+                                assert (at % vec == 0).all()
+                                chunk[:, v:v + vec] = raw.reshape(-1)[at[:, None] + np.arange(vec)]
+                            words = torch.from_numpy(chunk.view("<u4").astype(np.int64))
+                            for t in range(ln):
+                                code = (words[:, t // 4] >> (8 * (t % 4))) & 0xFF
+                                acc = acc + lf[q, j0 + c + t, code]
+                        o[fl] = acc
+                        if j0 + jn == m:
+                            wr[f] += 1
+                            past = ~live & (base[u] >= 0)
+                            o[f[past]] = float("-inf")
+                            o[f[base[u] < 0]] = float("nan")
+    return out, writes
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,ksub,vec", [(8, 16, 8), (32, 16, 16), (64, 256, 16),
+                                        (128, 256, 16), (12, 16, 4), (7, 256, 1)])
+@pytest.mark.parametrize("block,kf", [(1, 300), (8, 7), (64, 1), (64, 30), (100, 3)])
+def test_rescore_layout_model(dt, m, ksub, vec, block, kf):
+    """The rescore's unit-to-warp mapping and its vector-load layout, modelled
+    on the CPU, reproduce adc_gather_scores_reference bit for bit (the same
+    fp32 adds in the same order), write every output once, and score within
+    1e-5 of dirjax's phase C (the one-hot contraction of the candidate codes
+    against the tables). m = 128 at ksub 256 stages its tables in two groups."""
+    rng = np.random.default_rng(m * block + kf)
+    nq, n = 3, 1601                                   # ragged: 1601 % block != 0
+    # tables of the scale a unit query's give (scores of order 1, as the
+    # 1e-5 of this file's docstring assumes)
+    luts = torch.from_numpy((rng.normal(size=(nq, m, ksub)) / np.sqrt(m))
+                            .astype(np.float32)).to(dt)
+    codes = torch.from_numpy(rng.integers(0, ksub, size=(n, m)).astype(np.uint8))
+    nb = -(-n // block)
+    bids = torch.from_numpy(rng.integers(0, nb, size=(nq, kf)))
+    bids[0, 0] = nb - 1                               # the ragged last block
+    if kf > 2:
+        bids[1, 1], bids[2, 2] = -1, nb               # invalid ids: NaN
+    got, writes = _rescore_model(luts, codes, bids, block, vec)
+    assert (writes == 1).all()
+    want = T.adc_gather_scores_reference(luts, codes, bids, block)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    live = torch.isfinite(want)
+    rows = (bids.clamp(0, nb - 1)[:, :, None] * block + torch.arange(block)).reshape(nq, -1)
+    for q in range(nq):
+        cand = codes[rows[q].clamp(max=n - 1)].numpy()
+        ref = np.asarray(J._onehot_scores(jnp.asarray(luts[q:q + 1].float().numpy()),
+                                          jnp.asarray(cand)))[0]
+        np.testing.assert_allclose(got[q][live[q]].numpy(), ref[live[q].numpy()],
+                                   rtol=0, atol=1e-5)
+
+
 def test_opq_rotation_orthogonal_and_no_worse():
     rng = np.random.default_rng(7)
     x = (rng.normal(size=(800, 32)) * np.exp(-np.arange(32) / 6.0)).astype(np.float32)
