@@ -71,7 +71,13 @@ Phases, each of which raises on failure:
    at each ksub and nq. K6's and the rescore's entries also carry their
    lookup floor: their table lookups at 32 a clock on each SM, at the card's
    maximum SM clock.
-6. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
+6. concurrent launches — K6 (resident tables: m 8 and 64 at ksub 16;
+   streamed: ksub 256 and 100 at m 32), the ADC rescore (m 64, ksub 256,
+   kf 100, nq 1 and 256) and K1 (C 1024 and 2048 at the main-path shape),
+   each from 8 host threads at once, 50 launches a thread alternating the
+   two shapes, whose dynamic shared memory differs, on 1,048,576 rows;
+   every launch must succeed and every answer equal the plain version.
+7. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
    port's IndexServer (dirjax_torch.server) on a Unix socket; several
@@ -83,7 +89,12 @@ Phases, each of which raises on failure:
    direct search (values within 1e-5, an index differing only at a
    near-tie). Requests, batches, latency percentiles and QPS are printed
    as information.
-7. main path — a synthetic Revisited benchmark at 1024x768 and a
+8. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
+   131,072-row chunks on the card; its time (host clock), and against an
+   fp64 accumulation of the same chunks on the card: the covariance's
+   relative error (at most 1e-5), the first 64 components' |cos| (at least
+   1 - 1e-6) and their variances' relative error.
+9. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
@@ -94,14 +105,28 @@ Phases, each of which raises on failure:
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path. Prints which host decoder ran (the
    native one, or PIL where it cannot build).
-8. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
+10. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
+   resnext101_32x4d_rmac the same way on a smaller benchmark (16 images),
+   each with its own seeded checkpoint: K1 launches above 0 for ResNeXt and
+   none for the FPN head (as dirjax gates it), the same cosine bounds, and
+   each forward's ms per batch of 8 (CUDA events), fp32 and bf16.
+11. folded BN — resnet101_rmac with every BN folded into its conv
+   (fold_batchnorm) against the BN-affine model on 8 database images:
+   cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
+   K1 launches above 0, forward ms per batch of 8 in fp32 and bf16, timed
+   in turns affine/folded/folded/affine.
+12. CLI chain — ``extract_features`` -> ``fit_whitening --device-fit``
+   (into a .pt) -> ``test_dir --whiten`` on the card; the saved
+   descriptors must equal an in-process extraction bit for bit.
+13. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
    --binary 2048``, ``build --pq 32`` and ``build --ivf 1024``, each then
-   ``query -k 100 --gpu 0``, as subprocesses on 65,536 rows; each JSON
-   answer must equal the in-process search exactly.
+   ``query -k 100 --gpu 0``, as subprocesses on 65,536 rows (the four
+   chains at once); each JSON answer must equal the in-process search
+   exactly.
 
-    python3 chip_smoke.py --profile DIR   # also phase 9
+    python3 chip_smoke.py --profile DIR   # also phase 14
 
-9. profile — where a warm database extraction's time goes, fp32 and bf16:
+14. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -110,13 +135,17 @@ Phases, each of which raises on failure:
    64: host ms per search and device ms by kernel
    (``serving_profile.json``).
 
+Each phase prints ``chip_smoke: phase <name>`` as it starts; on any
+exception the script prints ``chip_smoke: phase <name> failed: <error>``,
+the traceback on stderr, and exits 1. No check gates on a time.
 Prints the card's name and power limit, then one JSON line with each
 kernel's launches on the main paths, error against its plain version, time,
 its plain version's time, its bound (the larger of its bytes over 3.35 TB/s
 and its operations over the peak rate of their type on an H100 SXM) and the
 time of one PyTorch call that computes the same function, where there is
-one; and last a JSON line with "ok": true. Exits non-zero, printing no
-result, when CUDA is not available.
+one (K1's launches summed over the extraction paths, with
+``launches_by_path``); and last a JSON line with "ok": true. Exits
+non-zero, printing no result, when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -131,6 +160,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -272,7 +302,7 @@ def kernel_phase(device) -> dict:
     ops = 3 * x.numel() + 2 * B * C * MAIN_D   # pow, mean, root; then the FC
     bf16 = bound(2 * x.numel() + rest, ops, "fp32")
     kernels = cuda_kernels_of(lambda: gem_head.fused_gem_head(x, p, w, b, mask=mask))
-    print(f"gem_head: {len(kernels)} CUDA launches a call (torch.profiler): {kernels}")
+    print(f"gem_head: CUDA launches a call (torch.profiler): {kernels}")
     dev_ms = {tag: device_ms(lambda: gem_head.fused_gem_head(xin, p, w, b, mask=mask))
               for tag, xin in (("fp32", x), ("bf16", xb))}
     print(f"gem_head device ms a call (torch.profiler): {dev_ms}")
@@ -285,43 +315,52 @@ def kernel_phase(device) -> dict:
             "bf16_ms": bf16_ms, "bf16_plain_ms": bf16_plain_ms,
             "bf16_bound_ms": bf16["bound_ms"], "bf16_bound_by": bf16["bound_by"],
             "device_ms": dev_ms["fp32"], "bf16_device_ms": dev_ms["bf16"],
-            "cuda_launches_per_call": len(kernels)}
+            "cuda_launches_per_call": None if kernels is None else len(kernels)}
+
+
+TRACE_TRIES = 3
 
 
 def kernel_trace(fn, iters: int = 1) -> list:
     """(name, ms) of each device kernel that ``iters`` warm calls of ``fn``
-    launch, from a torch.profiler trace."""
+    launch, from a torch.profiler trace; [] when TRACE_TRIES traces in a row
+    record no device kernel (on the card's machine a trace sometimes comes
+    back without its device events: a measurement lost, not a fault)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="dirjax_torch_trace_") as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            kernels = [(re.sub(r"^void |\(anonymous namespace\)::", "", e["name"]).split("(")[0],
-                        e["dur"] / 1e3) for e in json.load(f)["traceEvents"]
-                       if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device kernel")
-    return kernels
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="dirjax_torch_trace_") as tmp:
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                kernels = [(re.sub(r"^void |\(anonymous namespace\)::", "", e["name"]).split("(")[0],
+                            e["dur"] / 1e3) for e in json.load(f)["traceEvents"]
+                           if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels:
+            return kernels
+    print(f"torch.profiler recorded no device kernel in {TRACE_TRIES} traces: not measured")
+    return []
 
 
-def cuda_kernels_of(fn) -> list:
-    """Names of the device kernels one warm call of ``fn`` launches."""
-    return [name for name, _ in kernel_trace(fn)]
+def cuda_kernels_of(fn):
+    """Names of the device kernels one warm call of ``fn`` launches (None:
+    not measured)."""
+    return [name for name, _ in kernel_trace(fn)] or None
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20):
     """Device time of one call of ``fn``: the mean over ``iters`` calls of
-    the summed durations of the kernels it launches (torch.profiler). At
-    small shapes CUDA events around back-to-back calls measure the host's
-    launch rate instead."""
-    return sum(ms for _, ms in kernel_trace(fn, iters)) / iters
+    the summed durations of the kernels it launches (torch.profiler); None
+    when not measured. At small shapes CUDA events around back-to-back
+    calls measure the host's launch rate instead."""
+    kernels = kernel_trace(fn, iters)
+    return sum(ms for _, ms in kernels) / iters if kernels else None
 
 
 def time_in_turns(tag: str, plain, kernel, iters: int = 20):
@@ -987,7 +1026,7 @@ def pq_kernel_phase(device, db32):
             tag, lambda: pq.adc_gather_scores_reference(lut, db, bids, block),
             lambda: pq.adc_gather_scores(lut, db, bids, block), iters=5)
         dev = device_ms(lambda: pq.adc_gather_scores(lut, db, bids, block))
-        print(f"{tag}: device ms a call (torch.profiler) {dev:.5f}")
+        print(f"{tag}: device ms a call (torch.profiler) {dev}")
         lookups = float(nq) * kf * block * PQ_M
         rescore[key] = {
             "ms": ms, "plain_ms": plain_ms,
@@ -1224,33 +1263,40 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
 
 def cli_phase(device, work: str) -> None:
     """``python -m dirjax_torch.index build --int8``, ``--binary 2048``,
-    ``--pq 32`` and ``--ivf 1024``, each then ``query``, as subprocesses;
-    their JSON must equal the in-process search."""
+    ``--pq 32`` and ``--ivf 1024``, each then ``query``, as subprocesses (the
+    four build-then-query chains run at once); their JSON must equal the
+    in-process search."""
     from dirjax_torch.serving import RetrievalIndex
 
     descs, queries = (os.path.join(work, f) for f in ("db.npy", "q.npy"))
     np.save(descs, unit_rows(CLI_N, SERVE_D, device, seed=4).cpu().numpy())
     np.save(queries, unit_rows(37, SERVE_D, device, seed=5).cpu().numpy())
-    for kind, flags in (("int8", ["--int8"]), ("binary", ["--binary", str(BITS)]),
-                        ("pq", ["--pq", str(PQ_M)]), ("ivf", ["--ivf", str(IVF_NLIST)])):
-        index_path = os.path.join(work, f"{kind}.npz")
-        hits = os.path.join(work, f"{kind}.json")
+    kinds = {"int8": ["--int8"], "binary": ["--binary", str(BITS)],
+             "pq": ["--pq", str(PQ_M)], "ivf": ["--ivf", str(IVF_NLIST)]}
+
+    def chain(kind):
         t0 = time.perf_counter()
-        for argv in (["build", "--descs", descs, *flags, "--out", index_path],
+        index_path = os.path.join(work, f"{kind}.npz")
+        for argv in (["build", "--descs", descs, *kinds[kind], "--out", index_path],
                      ["query", "--index", index_path, "--descs", queries, "-k", "100",
-                      "--out-json", hits]):
+                      "--out-json", os.path.join(work, f"{kind}.json")]):
             subprocess.run([sys.executable, "-m", "dirjax_torch.index", *argv,
                             "--gpu", "0"], check=True, cwd=REPO, timeout=300)
-        with open(hits) as f:
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(kinds)) as pool:
+        seconds = dict(zip(kinds, pool.map(chain, kinds)))
+    for kind, flags in kinds.items():
+        with open(os.path.join(work, f"{kind}.json")) as f:
             got = json.load(f)
-        vals, idxs = RetrievalIndex.load(index_path, device=device).search(
-            np.load(queries), k=100)
+        vals, idxs = RetrievalIndex.load(os.path.join(work, f"{kind}.npz"),
+                                         device=device).search(np.load(queries), k=100)
         if got["scores"] != vals.tolist() or got["indices"] != idxs.tolist():
             raise AssertionError(f"index CLI answer ({kind}) differs from the "
                                  "in-process search")
         print(f"index CLI: build {' '.join(flags)} and query -k 100 on {CLI_N} x "
-              f"{SERVE_D} in {time.perf_counter() - t0:.1f} s; JSON equals the "
-              "in-process search")
+              f"{SERVE_D} in {seconds[kind]:.1f} s (the four chains at once); JSON "
+              "equals the in-process search")
 
 
 def random_state_dict(model, seed: int) -> dict:
@@ -1267,7 +1313,7 @@ def random_state_dict(model, seed: int) -> dict:
             v = rng.normal(0.0, 0.05, shape)
         elif name.endswith("running_var"):
             v = rng.uniform(0.8, 1.2, shape)
-        elif name == "adpool.p":
+        elif name.endswith(".p"):        # GeM powers: adpool, adpoolx5, adpoolc4
             v = np.full(shape, 3.0)
         elif name == "fc.weight":
             bound = shape[1] ** -0.5
@@ -1354,15 +1400,17 @@ def cpu_reference(bench: str, ckpt: str, n: int = N_REF) -> np.ndarray:
     return FeatureExtractor(ck.model, "cpu", preprocess=ck.preprocess)(images).numpy()
 
 
-def check_against_cpu(tag: str, got: np.ndarray, want: np.ndarray) -> float:
-    """Cosine of the main path's descriptors against the CPU reference."""
+def check_against_cpu(tag: str, got: np.ndarray, want: np.ndarray,
+                      label: str = "main path", against: str = "cpu fp32") -> float:
+    """Cosine of a path's descriptors against a reference (the CPU path's
+    by default), held to ``COS_BOUND[tag]``."""
     cos = np.sum(got * want, axis=1) / (np.linalg.norm(got, axis=1)
                                         * np.linalg.norm(want, axis=1))
-    print(f"main path {tag} vs cpu fp32, descriptors of {len(want)} database "
+    print(f"{label} {tag} vs {against}, descriptors of {len(want)} database "
           f"images: cosine min {cos.min():.7f}, max_abs_err "
           f"{np.abs(got - want).max():.3e} (bound cosine > {COS_BOUND[tag]})")
     if got.shape != want.shape or not cos.min() > COS_BOUND[tag]:
-        raise AssertionError(f"{tag} descriptors disagree with the CPU path: "
+        raise AssertionError(f"{label} {tag} descriptors disagree with {against}: "
                              f"shape {got.shape} vs {want.shape}, cosine {cos}")
     return float(cos.min())
 
@@ -1455,6 +1503,232 @@ def profile_phase(bench: str, ckpt: str, device, out_dir: str, card: str):
         json.dump(summary, f, indent=1)
 
 
+# --- concurrent launches: the launchers' shared-memory opt-in under threads --
+
+RACE_THREADS, RACE_LAUNCHES = 8, 50
+RACE_NQ, RACE_KF = 32, 100    # K6's queries a launch (one group on the lanes); rescore blocks
+
+
+def concurrent_phase(device) -> None:
+    """Each shape-dependent case of ``dirjax_torch.kernels.concurrency`` at
+    serving size (SERVE_N rows; K1 at MAIN_SHAPE's batch and map) from
+    RACE_THREADS host threads at once, RACE_LAUNCHES launches a thread
+    alternating the two shapes: every launch must succeed and every answer
+    equal its plain version (K6 and the rescore exactly, K1 within rtol 2e-4
+    / atol 2e-5)."""
+    from dirjax_torch.kernels import concurrency
+
+    t0 = time.perf_counter()
+    for case in ("k6_resident", "k6_streamed", "rescore", "k1_project"):
+        launches = concurrency.alternation(case, device, n=SERVE_N, nq=RACE_NQ,
+                                           rescore_nq=SERVE_NQ, kf=RACE_KF,
+                                           head=MAIN_SHAPE[:3], d=MAIN_D, seed=6)
+        try:
+            worst = concurrency.race(launches, RACE_THREADS, RACE_LAUNCHES)
+        except AssertionError as e:
+            raise AssertionError(f"concurrent launches {case}: {e}") from e
+        print(f"concurrent launches {case}: {RACE_THREADS} threads x {RACE_LAUNCHES} "
+              f"launches alternating {launches[0].label} / {launches[1].label} at {SERVE_N} "
+              f"rows (K1: {MAIN_SHAPE[:3]}): all launched, every answer equals the plain "
+              f"version (max_abs_err {worst:.3e})")
+        del launches
+    print(f"concurrent launches in {time.perf_counter() - t0:.1f} s")
+
+
+# --- the rest of the extraction side: FPN, ResNeXt, folded BN, PCA, CLIs ----
+
+NEW_ARCHS = {"resnet101_fpn_rmac": False, "resnext101_32x4d_rmac": True}   # arch: runs K1
+
+
+def forward_ms(ex, batch) -> float:
+    """Mean ms of one forward of ``batch`` (host uint8 images), CUDA events."""
+    return _time_ms(lambda: ex(batch), iters=10)
+
+
+def first_images(bench: str, n: int) -> np.ndarray:
+    from dirjax_torch import datasets
+
+    db = datasets.create(f"Synthetic('{bench}')")
+    return np.stack([np.asarray(db.get_image(i).convert("RGB")) for i in range(n)])
+
+
+def arch_phase(work: str, device, arch: str) -> dict:
+    """``arch`` through ``dirjax_torch.cli.test_dir.main`` at 1024x768 in fp32
+    and bf16 from a seeded random checkpoint: K1's launches counted in each
+    run (above 0 for a plain head, 0 for an FPN head, as dirjax gates it),
+    the first N_REF database descriptors against the fp32 CPU path, and the
+    forward's ms per batch of 8 (CUDA events)."""
+    from dirjax_torch.extraction import FeatureExtractor
+    from dirjax_torch.ops import gem_head
+    from dirjax_torch.utils.checkpoints import load_checkpoint
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(work, arch)
+    bench, ckpt = write_inputs(workdir, arch, (1024, 768), n_classes=3, per_class=4,
+                               n_junk=1, pca_rows=1024)
+    ref = cpu_reference(bench, ckpt)
+    print(f"{arch}: checkpoint and cpu reference in {time.perf_counter() - t0:.1f} s")
+    row = {"arch": arch}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        gem_head.launches = 0
+        res, bdescs, n_images, sec = run_test_dir(
+            bench, ckpt, 0, bf16, os.path.join(workdir, f"feats_{tag}"))
+        launches = gem_head.launches
+        if (launches > 0) != NEW_ARCHS[arch]:
+            raise AssertionError(f"{arch} {tag}: K1 launched {launches} times; dirjax "
+                                 f"{'runs' if NEW_ARCHS[arch] else 'never runs'} it there")
+        print(f"{arch} {tag}: {json.dumps(res)}; {n_images} images in {sec:.2f} s = "
+              f"{n_images / sec:.1f} img/s (host clock, decode and first-call set-up "
+              f"included); K1 launches {launches}")
+        row[f"{tag}_cosine"] = check_against_cpu(tag, bdescs[:N_REF], ref, label=arch)
+        row[f"{tag}_k1_launches"] = launches
+        row[f"{tag}_img_per_s"] = n_images / sec
+    batch = first_images(bench, 8)
+    ck = load_checkpoint(ckpt)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        ex = FeatureExtractor(ck.model, device, dtype=dt, preprocess=ck.preprocess)
+        row[f"{tag}_forward_ms"] = forward_ms(ex, batch)
+    print(f"{arch} forward, batch 8 at 1024x768 (CUDA events): fp32 "
+          f"{row['fp32_forward_ms']:.2f} ms, bf16 {row['bf16_forward_ms']:.2f} ms")
+    return row
+
+
+def folded_phase(bench: str, ckpt: str, device) -> dict:
+    """resnet101_rmac with every BN folded into its conv (fold_batchnorm)
+    against the BN-affine model on the first 8 database images: descriptor
+    cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
+    K1's launches in the folded forwards, and forward ms per batch of 8 in
+    fp32 and bf16, timed in turns affine/folded/folded/affine."""
+    from dirjax_torch.extraction import FeatureExtractor
+    from dirjax_torch.models import fold_batchnorm
+    from dirjax_torch.ops import gem_head
+    from dirjax_torch.utils.checkpoints import load_checkpoint
+
+    batch = first_images(bench, 8)
+    ck = load_checkpoint(ckpt)
+    models = {"affine": ck.model, "folded": fold_batchnorm(ck.model)}
+    ex = {(kind, tag): FeatureExtractor(m, device, dtype=dt, preprocess=ck.preprocess)
+          for kind, m in models.items()
+          for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    want = ex["affine", "fp32"](batch).cpu().numpy()
+    gem_head.launches = 0
+    row = {}
+    for tag in ("fp32", "bf16"):
+        got = ex["folded", tag](batch).cpu().numpy()
+        row[f"{tag}_cosine"] = check_against_cpu(tag, got, want, label="folded BN",
+                                                 against="BN-affine fp32 on the card")
+    row["k1_launches"] = gem_head.launches
+    if row["k1_launches"] == 0:
+        raise AssertionError("the folded resnet101_rmac launched K1 no time")
+    for tag in ("fp32", "bf16"):
+        times = {"affine": [], "folded": []}
+        for kind in ("affine", "folded", "folded", "affine"):
+            times[kind].append(forward_ms(ex[kind, tag], batch))
+        row[f"{tag}_affine_ms"] = float(np.mean(times["affine"]))
+        row[f"{tag}_folded_ms"] = float(np.mean(times["folded"]))
+        print(f"folded BN resnet101_rmac {tag}, batch 8 at 1024x768 (CUDA events, in "
+              f"turns): BN-affine {times['affine']} ms, folded {times['folded']} ms")
+    return row
+
+
+PCA_ROWS, PCA_CHUNK, PCA_TOP = 1_048_576, 131_072, 64
+
+
+def fit_pca_phase(device) -> dict:
+    """fit_pca_device on 1,048,576 x 2048 seeded unit rows (8 GiB of fp32)
+    in 131,072-row chunks on the card, held against an fp64 accumulation
+    of the same chunks on the card: the covariance's relative error (fp32
+    sums against fp64, Frobenius), and against the fp64 covariance's own
+    eigendecomposition the |cos| of the first 64 components and their
+    variances' relative error. The rows have 64 leading directions whose
+    variances fall from 1 to 0.09 above a flat tail, and a common mean, so
+    the components compared are well separated."""
+    from dirjax_torch.ops import whitening
+
+    scale = torch.full((SERVE_D,), 0.05, device=device)
+    scale[:PCA_TOP] = torch.logspace(0.0, math.log10(0.3), PCA_TOP, device=device)
+    chunks = []
+    for i in range(PCA_ROWS // PCA_CHUNK):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        x = torch.randn((PCA_CHUNK, SERVE_D), generator=g, device=device) * scale + 0.01
+        chunks.append(x / x.norm(dim=1, keepdim=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = whitening.fit_pca_device(chunks, device=device)
+    fit_s = time.perf_counter() - t0
+    n, s1, s2 = whitening._device_moments(chunks, device)
+    d1 = torch.zeros((SERVE_D,), dtype=torch.float64, device=device)
+    d2 = torch.zeros((SERVE_D, SERVE_D), dtype=torch.float64, device=device)
+    for c in chunks:
+        c = c.double()
+        d1 += c.sum(dim=0)
+        d2 += c.T @ c
+    del chunks
+
+    def cov(a, b):
+        mean = a.double() / n
+        return (b.double() - n * torch.outer(mean, mean)) / (n - 1)
+
+    c64 = cov(d1, d2)
+    cov_err = ((cov(s1, s2) - c64).norm() / c64.norm()).item()
+    w, v = torch.linalg.eigh(c64)
+    w, v = w.flip(0)[:PCA_TOP], v.flip(1)[:, :PCA_TOP].T
+    comps = torch.from_numpy(np.asarray(pca.components[:PCA_TOP], np.float64)).to(device)
+    cos = (comps * v).sum(dim=1).abs()
+    var = torch.from_numpy(np.asarray(pca.variance[:PCA_TOP], np.float64)).to(device)
+    var_err = ((var - w).abs() / w).max().item()
+    row = {"fit_s": fit_s, "cov_rel_err": cov_err, "min_abs_cos": cos.min().item(),
+           "var_rel_err": var_err}
+    print(f"fit_pca_device {PCA_ROWS} x {SERVE_D} in {PCA_ROWS // PCA_CHUNK} chunks of "
+          f"{PCA_CHUNK}: {fit_s:.3f} s (host clock, eigh included); against fp64 "
+          f"accumulation on the card: covariance relative error {cov_err:.3e} (bound 1e-5), "
+          f"first {PCA_TOP} components |cos| min {row['min_abs_cos']:.9f} (bound 1 - 1e-6), "
+          f"variance relative error max {var_err:.3e}")
+    if not cov_err <= 1e-5 or not row["min_abs_cos"] >= 1 - 1e-6:
+        raise AssertionError(f"fit_pca_device disagrees with fp64: {row}")
+    return row
+
+
+def cli_chain_phase(bench: str, ckpt: str, device, work: str) -> None:
+    """``extract_features`` -> ``fit_whitening --device-fit`` -> ``test_dir
+    --whiten`` on the card through their ``main``: the saved descriptors
+    equal an in-process extraction of the same checkpoint, the whitening
+    lands in a ``.pt`` checkpoint, and test_dir whitens with it."""
+    from dirjax_torch import datasets, ops
+    from dirjax_torch.cli import extract_features, fit_whitening, test_dir
+    from dirjax_torch.extraction import FeatureExtractor, extract_image_features
+    from dirjax_torch.utils.checkpoints import load_checkpoint
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "cli", "feats.npy")
+    extract_features.main(["--dataset", f"Synthetic('{bench}')", "--checkpoint", ckpt,
+                           "--output", out, "--gpu", "0"])
+    ck = load_checkpoint(ckpt)
+    ex = FeatureExtractor(ck.model, device, preprocess=ck.preprocess)
+    db = datasets.create(f"Synthetic('{bench}')")
+    for part, d in (("dbdescs", db), ("qdescs", db.get_query_db())):
+        want = ops.pool_descriptors([torch.from_numpy(extract_image_features(d, "", ex))
+                                     .to(device)], "gem", 3).cpu().numpy()
+        got = np.load(os.path.join(work, "cli", f"feats.{part}.npy"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"extract_features {part} differ from the in-process "
+                                 f"run: max_abs_err {np.abs(got - want).max():.3e}")
+    whitened = os.path.join(work, "cli", "whitened.pt")
+    fit_whitening.main(["--dataset", f"SyntheticLabels('{bench}')", "--checkpoint", ckpt,
+                        "--name", "cli", "--out", whitened, "--device-fit", "--gpu", "0"])
+    pca = load_checkpoint(whitened).pca["cli"]
+    res = test_dir.main(["--dataset", f"Synthetic('{bench}')", "--checkpoint", whitened,
+                         "--whiten", "cli", "--gpu", "0"])
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()):
+        raise AssertionError(f"test_dir --whiten cli: {res}")
+    print(f"CLI chain: extract_features ({len(db)} + {len(db.get_query_db())} images; the "
+          f"saved descriptors equal the in-process run bit for bit) -> fit_whitening "
+          f"--device-fit ({pca.components.shape[0]} components into a .pt) -> test_dir "
+          f"--whiten: {json.dumps(res)}; in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="", metavar="DIR",
@@ -1464,68 +1738,114 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    import dirjax_torch  # noqa: F401  (fails outside the repository)
-    from dirjax_torch.ops import gem_head
+    phase, started = "setup", time.perf_counter()
+    phase_t0, seconds = started, {}
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    card = card_line()
-    print(card)
+    def enter(name):
+        nonlocal phase, phase_t0
+        now = time.perf_counter()
+        seconds[phase] = round(now - phase_t0, 1)
+        phase, phase_t0 = name, now
+        print(f"chip_smoke: phase {name}")
 
-    build_phase()
-    entries = [kernel_phase(device)]
-    topk_entries, db16 = topk_kernel_phase(device)
-    binary_entries, db32, codec = binary_kernel_phase(device)
-    pq_entries, pq_books, ivf_index = pq_kernel_phase(device, db32)
-    serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index,
-                                     args.profile, card)
-    del db16, db32, ivf_index
-    torch.cuda.empty_cache()
+    try:
+        import dirjax_torch  # noqa: F401  (fails outside the repository)
+        from dirjax_torch.ops import gem_head
 
-    with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
-        t0 = time.perf_counter()
-        bench, ckpt = write_inputs(work, "resnet101_rmac", (1024, 768),
-                                   n_classes=6, per_class=8, n_junk=4,
-                                   pca_rows=4096)
-        ref = cpu_reference(bench, ckpt)
-        print(f"inputs and cpu reference in {time.perf_counter() - t0:.1f} s")
-        from dirjax_torch.data import native
-        print("host decode: " + ("native (g++ build of dirjax_torch/data/_native/"
-                                 "native.cpp)" if native.available() else
-                                 "PIL (the native decoder did not build)"))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        card = card_line()
+        print(card)
+        enter("build")
+        build_phase()
+        enter("K1 kernel")
+        entries = [kernel_phase(device)]
+        enter("top-k kernels")
+        topk_entries, db16 = topk_kernel_phase(device)
+        enter("binary kernels")
+        binary_entries, db32, codec = binary_kernel_phase(device)
+        enter("PQ/IVF kernels")
+        pq_entries, pq_books, ivf_index = pq_kernel_phase(device, db32)
+        enter("concurrent launches")
+        concurrent_phase(device)
+        enter("serving")
+        serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index,
+                                         args.profile, card)
+        del db16, db32, ivf_index
+        torch.cuda.empty_cache()
+        enter("fit_pca_device")
+        pca_row = fit_pca_phase(device)
+        torch.cuda.empty_cache()
 
-        runs = {}
-        gem_head.launches = 0
-        for bf16 in (False, True):
-            tag = "bf16" if bf16 else "fp32"
-            before = gem_head.launches
-            res, bdescs, n_images, sec = run_test_dir(
-                bench, ckpt, 0, bf16, os.path.join(work, f"feats_{tag}"))
-            if gem_head.launches <= before:
-                raise AssertionError(f"{tag} test_dir run launched K1 no time")
-            runs[tag] = (res, bdescs)
-            print(f"main path {tag}: {json.dumps(res)}; {n_images} images in "
-                  f"{sec:.2f} s = {n_images / sec:.1f} img/s (host clock, "
-                  f"decode and first-call set-up included); K1 launches "
-                  f"{gem_head.launches - before}")
-        launches = gem_head.launches
-        for tag, (_, bdescs) in runs.items():
-            check_against_cpu(tag, bdescs[:N_REF], ref)
+        k1_by_path = {}
+        with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
+            enter("main path resnet101_rmac")
+            t0 = time.perf_counter()
+            bench, ckpt = write_inputs(work, "resnet101_rmac", (1024, 768),
+                                       n_classes=6, per_class=8, n_junk=4,
+                                       pca_rows=4096)
+            ref = cpu_reference(bench, ckpt)
+            print(f"inputs and cpu reference in {time.perf_counter() - t0:.1f} s")
+            from dirjax_torch.data import native
+            print("host decode: " + ("native (g++ build of dirjax_torch/data/_native/"
+                                     "native.cpp)" if native.available() else
+                                     "PIL (the native decoder did not build)"))
 
-        cli_phase(device, work)
-        if args.profile:
-            profile_phase(bench, ckpt, device, args.profile, card)
+            runs = {}
+            gem_head.launches = 0
+            for bf16 in (False, True):
+                tag = "bf16" if bf16 else "fp32"
+                before = gem_head.launches
+                res, bdescs, n_images, sec = run_test_dir(
+                    bench, ckpt, 0, bf16, os.path.join(work, f"feats_{tag}"))
+                if gem_head.launches <= before:
+                    raise AssertionError(f"{tag} test_dir run launched K1 no time")
+                runs[tag] = (res, bdescs)
+                print(f"main path {tag}: {json.dumps(res)}; {n_images} images in "
+                      f"{sec:.2f} s = {n_images / sec:.1f} img/s (host clock, "
+                      f"decode and first-call set-up included); K1 launches "
+                      f"{gem_head.launches - before}")
+            k1_by_path["resnet101_rmac"] = gem_head.launches
+            for tag, (_, bdescs) in runs.items():
+                check_against_cpu(tag, bdescs[:N_REF], ref)
 
-    entries[0]["launches"] = launches
-    for entry in topk_entries + binary_entries + pq_entries:
-        entry["launches"] = serving_launches[entry["name"]]
-    print(json.dumps({"kernels": entries + topk_entries + binary_entries + pq_entries}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+            arch_rows = {}
+            for arch in NEW_ARCHS:
+                enter(f"main path {arch}")
+                arch_rows[arch] = arch_phase(work, device, arch)
+                k1_by_path[arch] = arch_rows[arch]["fp32_k1_launches"] + \
+                    arch_rows[arch]["bf16_k1_launches"]
+            enter("folded BN")
+            folded_row = folded_phase(bench, ckpt, device)
+            k1_by_path["resnet101_rmac folded"] = folded_row["k1_launches"]
+            enter("CLI chain")
+            cli_chain_phase(bench, ckpt, device, work)
+            enter("index CLI")
+            cli_phase(device, work)
+            if args.profile:
+                enter("profile")
+                profile_phase(bench, ckpt, device, args.profile, card)
+        enter("report")
+        print("extraction side: " + json.dumps({"architectures": arch_rows, "folded_bn": folded_row,
+                                                "fit_pca_device": pca_row}))
+        print("phase seconds: " + json.dumps(seconds) +
+              f"; total {time.perf_counter() - started:.1f} s")
+
+        entries[0]["launches"] = sum(k1_by_path.values())
+        entries[0]["launches_by_path"] = k1_by_path
+        for entry in topk_entries + binary_entries + pq_entries:
+            entry["launches"] = serving_launches[entry["name"]]
+        print(json.dumps({"kernels": entries + topk_entries + binary_entries + pq_entries}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    except Exception as e:   # the boundary: say which phase failed, then exit 1
+        print(f"chip_smoke: phase {phase} failed: {e!r}", flush=True)
+        traceback.print_exc()
+        return 1
 
 
 if __name__ == "__main__":

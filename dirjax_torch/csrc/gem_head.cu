@@ -58,6 +58,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "smem_opt_in.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -386,21 +390,23 @@ cudaError_t launch_pool(const void* x, const void* mask, int mask_kind, const fl
   cfg.numAttrs = 1;
   // The most splits (up to 8, and H*W) whose clusters all fit the card at
   // once: one wave, no tail of a few CTAs. How many clusters of each size
-  // fit depends only on the kernel and the card: asked once a device.
+  // fit depends only on the kernel and the card: asked once a device. Host
+  // threads may launch at once: the cache is atomic, and two threads that
+  // ask together store the same answer.
   constexpr int kDevices = 16;
-  static int fit[kDevices][kMaxSplit + 1];   // 0: not asked yet
+  static std::atomic<int> fit[kDevices][kMaxSplit + 1];   // 0: not asked yet
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int splits = hw < kMaxSplit ? (hw > 1 ? hw : 1) : kMaxSplit;
   for (; splits > 1; --splits) {
-    int n = dev < kDevices ? fit[dev][splits] : 0;
+    int n = dev < kDevices ? fit[dev][splits].load(std::memory_order_relaxed) : 0;
     if (n == 0) {
       attr[0].val.clusterDim.z = (unsigned)splits;
       cfg.gridDim.z = (unsigned)splits;
       err = cudaOccupancyMaxActiveClusters(&n, gem_pool_kernel<T, CPT>, &cfg);
       if (err != cudaSuccess) return err;
-      if (dev < kDevices) fit[dev][splits] = n > 0 ? n : -1;
+      if (dev < kDevices) fit[dev][splits].store(n > 0 ? n : -1, std::memory_order_relaxed);
     }
     if (clusters <= n) break;
   }
@@ -416,13 +422,13 @@ cudaError_t launch_project(const float* pooled, const float* w, const float* bia
                            unsigned* counters, int batch, int c, int d, cudaStream_t s) {
   const int chunk = c < kProjChunk ? c : kProjChunk;
   const int smem = kProjRows * chunk * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(project_kernel<kVec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = project_kernel<kVec>;
+  static OptInFlags opted;   // the ceiling: kProjChunk channels staged (C >= 2048)
+  cudaError_t err = opt_in_once(kernel, kProjRows * kProjChunk * (int)sizeof(float), smem, opted);
   if (err != cudaSuccess) return err;
   const dim3 grid((d + kProjWarps * kProjCols - 1) / (kProjWarps * kProjCols),
                   (batch + kProjRows - 1) / kProjRows);
-  project_kernel<kVec><<<grid, kProjThreads, smem, s>>>(pooled, w, bias, out, counters, batch, c,
-                                                        d, chunk);
+  kernel<<<grid, kProjThreads, smem, s>>>(pooled, w, bias, out, counters, batch, c, d, chunk);
   return cudaGetLastError();
 }
 

@@ -96,6 +96,8 @@
 
 #include <type_traits>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -478,11 +480,11 @@ adc_finemax_kernel(const K6Args<LutT> a) {
 template <typename LutT, bool kResident>
 int launch_k6(const K6Args<LutT>& a, int smem, cudaStream_t s) {
   auto* kernel = adc_finemax_kernel<LutT, kResident>;
+  static OptInFlags opted;   // the ceiling is kK6Smem: no K6 launch asks for more
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = opt_in_once(kernel, kK6Smem, smem, opted);
   if (err != cudaSuccess) return (int)err;
   const long long units = (a.nq + kQ - 1) / kQ * ((a.blocks + a.bpc - 1) / a.bpc);
   kernel<<<(unsigned)(units < sms ? units : sms), kK6Threads, smem, s>>>(a);
@@ -540,6 +542,8 @@ constexpr int kRsWords = kRsChunk / 4;
 constexpr int kRsLutBudget = 96 * 1024;      // staged fp32 tables a CTA, at most
 constexpr int kRsMaxUnits = 4096;            // candidate blocks a CTA, at most
 constexpr int kRsCtasPerSm = 8;              // the grid the split of kf aims at
+// a CTA's shared memory, at most: the block row bases, then the tables
+constexpr int kRsMaxSmem = ((8 * kRsMaxUnits + 15) & ~15) + kRsLutBudget;
 
 struct RsArgs {
   const void* luts;        // (nq, m, ksub) fp32 or bf16
@@ -721,10 +725,12 @@ adc_rescore_kernel(const RsArgs a) {
 
 template <typename LutT, int VEC>
 cudaError_t launch_rescore_vec(const RsArgs& a, int warps, int smem, cudaStream_t s) {
-  void (*kernel)(const RsArgs) = a.ksub == 16    ? &adc_rescore_kernel<LutT, VEC, 16>
-                                 : a.ksub == 256 ? &adc_rescore_kernel<LutT, VEC, 256>
-                                                 : &adc_rescore_kernel<LutT, VEC, 0>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int which = a.ksub == 16 ? 0 : a.ksub == 256 ? 1 : 2;
+  void (*kernel)(const RsArgs) = which == 0   ? &adc_rescore_kernel<LutT, VEC, 16>
+                                 : which == 1 ? &adc_rescore_kernel<LutT, VEC, 256>
+                                              : &adc_rescore_kernel<LutT, VEC, 0>;
+  static OptInFlags opted[3];   // one set of flags per kernel above
+  cudaError_t err = opt_in_once(kernel, kRsMaxSmem, smem, opted[which]);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)(a.nq * a.cpq), 32 * warps, smem, s>>>(a);
   return cudaGetLastError();

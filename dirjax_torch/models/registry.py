@@ -1,8 +1,10 @@
 """Model registry and factory (counterpart of ``dirjax/models/registry.py``):
-the plain ``*_rmac`` architecture names resolve to a
+every architecture name dirjax registers (``resnet{18,50,101,152}_rmac``,
+``resnet{18,50,101,152}_fpn_rmac``, ``resnet101_fpn0_rmac`` and
+``resnext101_32x4d_rmac``) resolves to a
 :class:`~dirjax_torch.models.rmac.DescriptorConfig`, and :func:`create_model`
 returns an :class:`~dirjax_torch.models.rmac.RMACDescriptor` with its
-``arch`` name attached. FPN heads are not ported yet.
+``arch`` name attached.
 """
 
 from __future__ import annotations
@@ -12,7 +14,13 @@ from .rmac import DescriptorConfig, RMACDescriptor
 
 __all__ = ["create_model", "model_config", "model_names"]
 
-_ARCHS = {f"{bb}_rmac": bb for bb in RESNET_CONFIGS}
+# arch -> (backbone, fpn_mode)
+_ARCHS = {}
+for _bb in ("resnet18", "resnet50", "resnet101", "resnet152"):
+    _ARCHS[f"{_bb}_rmac"] = (_bb, None)
+    _ARCHS[f"{_bb}_fpn_rmac"] = (_bb, 1)
+_ARCHS["resnet101_fpn0_rmac"] = ("resnet101", 0)
+_ARCHS["resnext101_32x4d_rmac"] = ("resnext101_32x4d", None)
 
 
 def model_names() -> list:
@@ -23,15 +31,20 @@ def model_config(arch: str, out_dim=None, norm_features=False, pooling="gem",
                  gemp=3, center_bias=0, dropout_p=None, without_fc=False,
                  **_ignored) -> DescriptorConfig:
     """The architecture's config; keyword names follow the reference's
-    checkpoint ``model_options``, and unknown keys are ignored as there."""
+    checkpoint ``model_options``, and unknown keys are ignored as there. The
+    FPN heads' default ``out_dim`` is C4's plus C5's width
+    (``dirjax/models/registry.py:65-67``), the plain heads' 2048."""
     if arch not in _ARCHS:
         raise NameError(f"unknown model architecture '{arch}'. Select one of: "
                         + ", ".join(model_names()))
+    backbone, fpn_mode = _ARCHS[arch]
+    bb = RESNET_CONFIGS[backbone]
+    if out_dim is None:
+        out_dim = bb.c4_channels + bb.out_channels if fpn_mode is not None else 2048
     return DescriptorConfig(
-        backbone=RESNET_CONFIGS[_ARCHS[arch]],
-        out_dim=2048 if out_dim is None else out_dim, pooling=pooling,
-        gemp=gemp, center_bias=center_bias, norm_features=norm_features,
-        without_fc=without_fc, dropout_p=dropout_p)
+        backbone=bb, out_dim=out_dim, pooling=pooling, gemp=gemp,
+        center_bias=center_bias, norm_features=norm_features,
+        without_fc=without_fc, dropout_p=dropout_p, fpn_mode=fpn_mode)
 
 
 def create_model(arch: str, **kwargs) -> RMACDescriptor:

@@ -1,5 +1,5 @@
-"""ResNet backbone with a BN-affine forward (counterpart of
-``dirjax/models/resnet.py``).
+"""ResNet and ResNeXt backbones with a BN-affine forward, and BN folding
+(counterpart of ``dirjax/models/resnet.py``).
 
 Modules are named after the reference state_dict (``conv1``, ``bn1``,
 ``layerN.B.convC``/``bnC``, ``downsample.0``/``.1``), so reference weights
@@ -7,19 +7,27 @@ load with ``load_state_dict``. Activations are NCHW in ``channels_last``
 memory format. ``dtype`` is the conv compute dtype: the BN affine, ReLU and
 residual add run in fp32, and each block writes its output in ``dtype``
 (``dirjax/models/resnet.py:278``), as the JAX package does.
+
+:func:`fold_batchnorm` (``dirjax/models/resnet.py:285-348``) returns a copy
+whose convolutions carry each BN as a per-output-channel scale and a bias;
+that copy adds each bias, and runs ReLU and the residual add, in fp32 as
+``dirjax/models/resnet.py:327-347`` does, and writes each block's output in
+``dtype``. Nothing folds unless the caller does, as in dirjax.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ResNetConfig", "RESNET_CONFIGS", "ResNet", "BatchNormAffine",
-           "BN_EPS", "RGB_MEANS", "RGB_STDS"]
+           "BN_EPS", "RGB_MEANS", "RGB_STDS", "fold_batchnorm", "is_folded"]
 
 BN_EPS = 1e-5
 
@@ -32,17 +40,31 @@ _STAGE_PLANES = (64, 128, 256, 512)
 
 @dataclass(frozen=True)
 class ResNetConfig:
+    """``groups``/``base_width`` make the bottleneck's 3x3 a grouped conv of
+    width ``planes * base_width / 64 * groups`` (ResNeXt,
+    ``dirjax/models/resnet.py:42-88``)."""
+
     block: str                  # 'basic' | 'bottleneck'
     layers: Tuple[int, ...]     # blocks per stage
     name: str = "resnet"
+    groups: int = 1
+    base_width: int = 64
 
     @property
     def expansion(self) -> int:
         return _BLOCK_EXPANSION[self.block]
 
+    def mid_width(self, planes: int) -> int:
+        """Bottleneck middle width."""
+        return int(planes * self.base_width / 64.0) * self.groups
+
     @property
     def out_channels(self) -> int:
         return 512 * self.expansion
+
+    @property
+    def c4_channels(self) -> int:
+        return 256 * self.expansion
 
 
 RESNET_CONFIGS = {
@@ -50,6 +72,8 @@ RESNET_CONFIGS = {
     "resnet50": ResNetConfig("bottleneck", (3, 4, 6, 3), "resnet50"),
     "resnet101": ResNetConfig("bottleneck", (3, 4, 23, 3), "resnet101"),
     "resnet152": ResNetConfig("bottleneck", (3, 8, 36, 3), "resnet152"),
+    "resnext101_32x4d": ResNetConfig("bottleneck", (3, 4, 23, 3), "resnext101_32x4d",
+                                     groups=32, base_width=4),
 }
 
 
@@ -72,16 +96,26 @@ class BatchNormAffine(nn.Module):
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    """conv in ``dtype``, widened to fp32; a folded conv's bias is added in
+    fp32 (dirjax's ``_conv`` emits fp32 and adds the bias after it)."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+                 conv.padding, conv.dilation, conv.groups).float()
+    return y if conv.bias is None else y + conv.bias.float()[:, None, None]
 
 
-def _conv_layer(cin, cout, k, stride=1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
+def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, dtype: torch.dtype) -> torch.Tensor:
+    """conv, then its BN as an fp32 affine; folded (``bn`` None), the conv's
+    own bias in fp32."""
+    y = _conv(x, conv, dtype)
+    return y if bn is None else bn(y)
+
+
+def _conv_layer(cin, cout, k, stride=1, groups=1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups, bias=False)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int):
+    def __init__(self, cfg: ResNetConfig, cin: int, planes: int, stride: int):
         super().__init__()
         self.conv1 = _conv_layer(cin, planes, 3, stride)
         self.bn1 = BatchNormAffine(planes)
@@ -90,27 +124,27 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, planes, stride)
 
     def forward(self, x, dtype):
-        out = F.relu(self.bn1(_conv(x, self.conv1, dtype)))
-        out = self.bn2(_conv(out, self.conv2, dtype))
+        out = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
+        out = _conv_bn(out, self.conv2, self.bn2, dtype)
         return _finish(out, x, self.downsample, dtype)
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int):
+    def __init__(self, cfg: ResNetConfig, cin: int, planes: int, stride: int):
         super().__init__()
-        cout = planes * 4
-        self.conv1 = _conv_layer(cin, planes, 1)
-        self.bn1 = BatchNormAffine(planes)
-        self.conv2 = _conv_layer(planes, planes, 3, stride)
-        self.bn2 = BatchNormAffine(planes)
-        self.conv3 = _conv_layer(planes, cout, 1)
+        mid, cout = cfg.mid_width(planes), planes * 4
+        self.conv1 = _conv_layer(cin, mid, 1)
+        self.bn1 = BatchNormAffine(mid)
+        self.conv2 = _conv_layer(mid, mid, 3, stride, cfg.groups)
+        self.bn2 = BatchNormAffine(mid)
+        self.conv3 = _conv_layer(mid, cout, 1)
         self.bn3 = BatchNormAffine(cout)
         self.downsample = _downsample(cin, cout, stride)
 
     def forward(self, x, dtype):
-        out = F.relu(self.bn1(_conv(x, self.conv1, dtype)))
-        out = F.relu(self.bn2(_conv(out, self.conv2, dtype)))
-        out = self.bn3(_conv(out, self.conv3, dtype))
+        out = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
+        out = F.relu(_conv_bn(out, self.conv2, self.bn2, dtype))
+        out = _conv_bn(out, self.conv3, self.bn3, dtype)
         return _finish(out, x, self.downsample, dtype)
 
 
@@ -121,13 +155,16 @@ def _downsample(cin: int, cout: int, stride: int):
 
 
 def _finish(out, x, downsample, dtype):
-    residual = x if downsample is None else downsample[1](
-        _conv(x, downsample[0], dtype))
-    return F.relu(out + residual.float()).to(dtype)
+    """ReLU of the fp32 branch plus the shortcut, in fp32, written in
+    ``dtype``."""
+    residual = x if downsample is None else _conv_bn(
+        x, downsample[0], downsample[1] if len(downsample) > 1 else None, dtype)
+    return F.relu(out + residual.to(out.dtype)).to(dtype)
 
 
 class ResNet(nn.Module):
-    """Stem + four stages; ``features`` returns the C5 map (B, C5, H/32, W/32)."""
+    """Stem + four stages; ``features`` returns the C5 map (B, C5, H/32,
+    W/32), or (C4, C5) with ``out_layer=-1`` for the FPN heads."""
 
     def __init__(self, cfg: ResNetConfig):
         super().__init__()
@@ -140,16 +177,57 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(nblocks):
                 stride = 2 if (s > 0 and b == 0) else 1
-                blocks.append(block(cin, planes, stride))
+                blocks.append(block(cfg, cin, planes, stride))
                 cin = planes * cfg.expansion
             self.add_module(f"layer{s + 1}", nn.Sequential(*blocks))
 
-    def features(self, x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    def features(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                 out_layer: int = 0):
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(_conv(x, self.conv1, dtype)))
+        x = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
         # MaxPool2d(3, 2, 1) pads with -inf, as dirjax's reduce_window does
         x = F.max_pool2d(x.to(dtype), 3, 2, 1)
         for s in range(4):
             for block in getattr(self, f"layer{s + 1}"):
                 x = block(x, dtype)
-        return x
+            if s == 2:
+                c4 = x
+        return (c4, x) if out_layer == -1 else x
+
+
+def _fold_pair(conv: nn.Conv2d, bn: BatchNormAffine) -> None:
+    """w' = w * s / sqrt(v + eps) per output channel, b' = b - m * s /
+    sqrt(v + eps), in numpy's fp32 on the host as
+    ``dirjax/models/resnet.py:295-299`` (torch's CPU sqrt is not correctly
+    rounded, numpy's is: the folded weights equal dirjax's bit for bit)."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    inv = host(bn.weight) / np.sqrt(host(bn.running_var) + np.float32(BN_EPS))
+    weight = host(conv.weight) * inv[:, None, None, None]
+    bias = host(bn.bias) - host(bn.running_mean) * inv
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(weight))
+        conv.bias = nn.Parameter(torch.from_numpy(bias).to(conv.weight.device))
+
+
+def fold_batchnorm(model: ResNet) -> ResNet:
+    """A copy of ``model`` with every (conv, BN) pair folded into (conv',
+    bias); inference only. ``model`` is left as it was."""
+    model = copy.deepcopy(model)
+    _fold_pair(model.conv1, model.bn1)
+    model.bn1 = None
+    for s in range(4):
+        for block in getattr(model, f"layer{s + 1}"):
+            for c in (1, 2, 3):
+                if hasattr(block, f"conv{c}"):
+                    _fold_pair(getattr(block, f"conv{c}"), getattr(block, f"bn{c}"))
+                    setattr(block, f"bn{c}", None)
+            if block.downsample is not None:
+                _fold_pair(block.downsample[0], block.downsample[1])
+                del block.downsample[1]
+    return model
+
+
+def is_folded(model: ResNet) -> bool:
+    return model.bn1 is None

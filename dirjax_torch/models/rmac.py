@@ -1,15 +1,23 @@
-"""Global-descriptor head, plain R-MAC family (counterpart of
+"""Global-descriptor heads, R-MAC family, plain and FPN (counterpart of
 ``dirjax/models/rmac.py``): backbone -> (center bias) -> global pooling
 (GeM with learnable p / MAC / avg) -> (feature L2) -> FC -> L2-norm, giving
 a (B, out_dim) unit descriptor.
 
-The GeM -> FC -> L2 tail always goes to
+The plain head's GeM -> FC -> L2 tail always goes to
 :func:`~dirjax_torch.ops.gem_head.fused_gem_head` when the config admits it
-(the gate of ``dirjax/models/rmac.py:152-154``: GeM, no center bias, no
-feature L2, an FC layer); that function runs the CUDA kernel on the card
+(the gate of ``dirjax/models/rmac.py:145-153``: no FPN, GeM, no center bias,
+no feature L2, an FC layer); that function runs the CUDA kernel on the card
 and its plain version on the CPU. The other head variants take the plain
-composition, which is different math and not a fallback. FPN heads are not
-ported yet.
+composition, which is different math and not a fallback.
+
+The FPN heads (``dirjax/models/rmac.py:129-198``) pool C4 and C5 apart and
+concatenate [d4, d5] before the FC. ``fpn_mode`` 1 first merges C5 into C4:
+C5 upsampled x2 by nearest neighbour and cropped to C4, ``conv1x5`` (1x1),
+ReLU, added to C4, then ``conv3c4`` (3x3, pad 1) and ReLU; ``fpn_mode`` 0
+pools both maps as they are. A bucket mask reaches C4 at stride 16 and C5 at
+stride 32. Like dirjax (and the reference), the FPN head accepts
+``center_bias`` and never applies it. Dropout (``rmac.py:89``) is for
+training, which is not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ class DescriptorConfig:
     norm_features: bool = False
     without_fc: bool = False
     dropout_p: Optional[float] = None  # training only; unused at inference
+    fpn_mode: Optional[int] = None  # None: plain head; 1: merge C5 into C4; 0: no merge
 
     @property
     def feat_dim(self) -> int:
@@ -46,7 +55,9 @@ class DescriptorConfig:
 
     @property
     def fc_in_dim(self) -> int:
-        return self.backbone.out_channels
+        if self.fpn_mode is None:
+            return self.backbone.out_channels
+        return self.backbone.c4_channels + self.backbone.out_channels
 
     @property
     def preprocess(self) -> dict:
@@ -76,13 +87,24 @@ def downsample_mask(mask: torch.Tensor, stride: int, fh: int, fw: int) -> torch.
 
 class RMACDescriptor(ResNet):
     """ResNet backbone + descriptor head, with the reference's flat
-    state_dict keys (backbone keys, ``adpool.p``, ``fc``)."""
+    state_dict keys (backbone keys, ``adpool.p``, ``fc``; FPN: ``conv1x5``,
+    ``conv3c4``, ``adpoolx5.p``, ``adpoolc4.p``)."""
 
     def __init__(self, cfg: DescriptorConfig, arch: str = ""):
         super().__init__(cfg.backbone)
         self.cfg = cfg
         self.arch = arch
-        if cfg.pooling.startswith("gem"):
+        # registered in the order of dirjax's state_dict export
+        # (``dirjax/utils/checkpoints.py:146-157``), so listings agree
+        if cfg.fpn_mode is not None:
+            dim1, dim2 = cfg.backbone.c4_channels, cfg.backbone.out_channels
+            if cfg.pooling == "gem":
+                self.adpoolx5 = GeneralizedMeanPoolingP(cfg.gemp)
+                self.adpoolc4 = GeneralizedMeanPoolingP(cfg.gemp)
+            if cfg.fpn_mode == 1:
+                self.conv1x5 = nn.Conv2d(dim2, dim1, 1, bias=False)
+                self.conv3c4 = nn.Conv2d(dim1, dim1, 3, padding=1, bias=False)
+        elif cfg.pooling.startswith("gem"):
             self.adpool = GeneralizedMeanPoolingP(cfg.gemp)
         if not cfg.without_fc:
             self.fc = nn.Linear(cfg.fc_in_dim, cfg.out_dim)
@@ -93,6 +115,8 @@ class RMACDescriptor(ResNet):
         (B, H, W) bool validity map at input resolution for padded bucket
         batches. Returns (B, out_dim) fp32 unit descriptors."""
         cfg = self.cfg
+        if cfg.fpn_mode is not None:
+            return self._tail(self._fpn_pool(images, mask, dtype))
         x = self.features(images, dtype)
         nhwc = x.permute(0, 2, 3, 1)  # a view: x is channels_last
         feat_mask = None
@@ -108,7 +132,32 @@ class RMACDescriptor(ResNet):
             bias = center_bias_mask(nhwc.shape[1], nhwc.shape[2], cfg.center_bias,
                                     dtype=nhwc.dtype, device=nhwc.device)
             nhwc = nhwc * bias[None, :, :, None]
-        desc = global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask)
+        return self._tail(global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask))
+
+    def _fpn_pool(self, images, mask, dtype) -> torch.Tensor:
+        """[d4, d5]: C4 (merged with C5 in fpn_mode 1) and C5, each pooled
+        over its own mask."""
+        cfg = self.cfg
+        c4, c5 = self.features(images, dtype, out_layer=-1)
+        if cfg.fpn_mode == 1:
+            up = F.interpolate(c5, scale_factor=2, mode="nearest")[:, :, :c4.shape[2], :c4.shape[3]]
+            merged = F.conv2d(up.to(dtype), self.conv1x5.weight.to(dtype))
+            c4 = c4.float() + F.relu(merged.float())
+            c4 = F.relu(F.conv2d(c4.to(dtype), self.conv3c4.weight.to(dtype), padding=1).float())
+        c4_mask = c5_mask = None
+        if mask is not None:
+            c4_mask = downsample_mask(mask, 16, c4.shape[2], c4.shape[3])
+            c5_mask = downsample_mask(mask, 32, c5.shape[2], c5.shape[3])
+        gem = cfg.pooling == "gem"
+        d5 = global_pool(c5.permute(0, 2, 3, 1), cfg.pooling,
+                         p=self.adpoolx5.p if gem else cfg.gemp, mask=c5_mask)
+        d4 = global_pool(c4.permute(0, 2, 3, 1), cfg.pooling,
+                         p=self.adpoolc4.p if gem else cfg.gemp, mask=c4_mask)
+        return torch.cat([d4.float(), d5.float()], dim=1)
+
+    def _tail(self, desc: torch.Tensor) -> torch.Tensor:
+        """(feature L2) -> FC -> L2 of pooled (B, C) descriptors."""
+        cfg = self.cfg
         if cfg.norm_features:
             desc = l2_normalize(desc, dim=1)
         if not cfg.without_fc:

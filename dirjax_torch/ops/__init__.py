@@ -25,4 +25,4 @@ from .qe import (  # noqa: F401
 from .ranking import compute_scores, compute_scores_chunked, rank_topk  # noqa: F401
 from .topk import quantize_db, rank_topk_fused  # noqa: F401
 from .whitening import (PCAParams, apply_whitening, fit_pca,  # noqa: F401
-                        whitening_matrix)
+                        fit_pca_device, whitening_matrix)

@@ -5,19 +5,22 @@
 
 optionally followed by L2 normalization. :class:`PCAParams` holds numpy
 arrays, the checkpoint interop format; :func:`apply_whitening` runs on the
-device of its input tensor.
+device of its input tensor. :func:`fit_pca` fits on the host by SVD;
+:func:`fit_pca_device` streams row chunks through the card and
+eigendecomposes the (D, D) covariance on the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from .normalize import l2_normalize
 
-__all__ = ["PCAParams", "fit_pca", "apply_whitening", "whitening_matrix"]
+__all__ = ["PCAParams", "fit_pca", "fit_pca_device", "apply_whitening",
+           "whitening_matrix"]
 
 
 class PCAParams(NamedTuple):
@@ -52,6 +55,63 @@ def fit_pca(X: np.ndarray, n_components: Optional[int] = None) -> PCAParams:
     return PCAParams(mean=mean.astype(np.float32),
                      components=Vt[:k].astype(np.float32),
                      variance=variance[:k].astype(np.float32))
+
+
+def _device_moments(X, dev: torch.device):
+    """(rows, fp32 column sum, fp32 Gram matrix) of one (N, D) array or an
+    iterable of row chunks, accumulated on ``dev``; raises below 2 rows, and
+    on a card when TF32 is on for matmuls (a process-wide flag, which this
+    function reads and never sets: another thread may be using it)."""
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("fit_pca_device needs fp32 products: set "
+                         "torch.backends.cuda.matmul.allow_tf32 = False")
+    chunks = [X] if hasattr(X, "shape") else X
+    s1 = s2 = None
+    n = 0
+    for c in chunks:
+        c = torch.as_tensor(c).to(dev, torch.float32)
+        if s1 is None:
+            s1 = torch.zeros((c.shape[1],), dtype=torch.float32, device=dev)
+            s2 = torch.zeros((c.shape[1], c.shape[1]), dtype=torch.float32, device=dev)
+        s1 += c.sum(dim=0)
+        s2 += c.T @ c
+        n += int(c.shape[0])
+    if n < 2:
+        raise ValueError(f"need at least 2 rows to fit a PCA, got {n}")
+    return n, s1, s2
+
+
+def fit_pca_device(X: Union[torch.Tensor, np.ndarray, Iterable],
+                   n_components: Optional[int] = None, *,
+                   device="cuda") -> PCAParams:
+    """Covariance PCA for corpora too large for :func:`fit_pca`'s host SVD
+    (counterpart of ``dirjax/ops/whitening.py:71-136``).
+
+    ``X`` is one (N, D) array or tensor, or an iterable of row chunks (a
+    corpus that never fits on the card at once). On ``device`` each chunk
+    adds to an fp32 column sum and an fp32 (D, D) Gram matrix. The caller
+    keeps TF32 off for matmuls (PyTorch's default; the CLIs' device setup
+    turns it off), the counterpart of dirjax's ``precision=HIGHEST``: TF32
+    products shift small eigenvalues, so a card fit with TF32 on raises.
+    Only the sum and the Gram matrix go
+    to the host, where the covariance is eigendecomposed in fp64. Component
+    signs follow dirjax's rule (each row's largest-|entry| positive), and at
+    most min(N, D) components are kept. Raises below 2 rows."""
+    n, s1, s2 = _device_moments(X, torch.device(device))
+    mean = s1.cpu().numpy().astype(np.float64) / n
+    cov = (s2.cpu().numpy().astype(np.float64) - n * np.outer(mean, mean)) / (n - 1)
+    w, v = np.linalg.eigh(cov)                     # ascending
+    order = np.argsort(w)[::-1]
+    w = np.clip(w[order], 0.0, None)
+    comps = v[:, order].T                          # rows = principal axes
+    max_abs = np.argmax(np.abs(comps), axis=1)
+    signs = np.sign(comps[np.arange(comps.shape[0]), max_abs])
+    signs[signs == 0] = 1.0
+    comps = comps * signs[:, None]
+    k = n_components or min(n, comps.shape[0])
+    return PCAParams(mean=mean.astype(np.float32),
+                     components=comps[:k].astype(np.float32),
+                     variance=w[:k].astype(np.float32))
 
 
 def apply_whitening(X: torch.Tensor, pca: PCAParams, whitenp: float = 0.5,

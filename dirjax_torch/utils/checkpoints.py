@@ -10,7 +10,13 @@ weights:
 * dirjax's native ``.npz``: the flattened JAX parameter pytree plus JSON
   metadata. :func:`state_dict_from_jax_params` and
   :func:`jax_params_from_state_dict` convert between that pytree (HWIO
-  convs, (in, out) fc) and the port's state_dict (OIHW, (out, in)).
+  convs, grouped ones included, (in, out) fc, the FPN heads' ``conv1x5``,
+  ``conv3c4``, ``pool_p_x5`` and ``pool_p_c4``) and the port's state_dict
+  (OIHW, (out, in), ``adpoolx5.p``/``adpoolc4.p``).
+
+:func:`save_torch_checkpoint` writes the reference schema, and
+:func:`load_tolerant` overlays a state_dict onto a fresh model where names
+and shapes match (``dirjax/utils/checkpoints.py:160,334``).
 """
 
 from __future__ import annotations
@@ -23,13 +29,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import DescriptorConfig, RMACDescriptor, create_model
+from ..models import DescriptorConfig, RMACDescriptor, create_model, is_folded
 from ..ops.binary import BinaryCodec
 from ..ops.ivf import IVFArrays
 from ..ops.whitening import PCAParams
 
 __all__ = ["Checkpoint", "load_checkpoint", "load_native", "save_native",
-           "load_torch_checkpoint", "load_state", "state_dict_from_jax_params",
+           "load_torch_checkpoint", "save_torch_checkpoint", "load_state",
+           "load_tolerant", "state_dict_from_jax_params",
            "jax_params_from_state_dict", "binary_codec_from_jax", "pq_from_jax",
            "ivf_arrays_from_jax"]
 
@@ -75,9 +82,18 @@ def state_dict_from_jax_params(params: Dict[str, Any],
         if "downsample" in block:
             conv(f"{pre}.downsample.0", block["downsample"]["conv"])
             bn(f"{pre}.downsample.1", block["downsample"]["bn"])
-    if cfg.pooling.startswith("gem"):
-        sd["adpool.p"] = np.asarray(params.get("pool_p", cfg.gemp),
-                                    np.float32).reshape(1)
+    if cfg.fpn_mode is None:
+        if cfg.pooling.startswith("gem"):
+            sd["adpool.p"] = np.asarray(params.get("pool_p", cfg.gemp),
+                                        np.float32).reshape(1)
+    else:
+        if cfg.pooling == "gem":
+            for name in ("x5", "c4"):
+                sd[f"adpool{name}.p"] = np.asarray(params.get(f"pool_p_{name}", cfg.gemp),
+                                                   np.float32).reshape(1)
+        if cfg.fpn_mode == 1:
+            conv("conv1x5", params["conv1x5"])
+            conv("conv3c4", params["conv3c4"])
     if not cfg.without_fc:
         sd["fc.weight"] = np.asarray(params["fc"]["kernel"], np.float32).T.copy()
         sd["fc.bias"] = np.asarray(params["fc"]["bias"], np.float32)
@@ -136,23 +152,64 @@ def jax_params_from_state_dict(sd: Dict[str, Any],
     params: Dict[str, Any] = {"backbone": backbone}
     if "adpool.p" in sd:
         params["pool_p"] = np.float32(sd["adpool.p"].reshape(()))
+    for name in ("x5", "c4"):
+        if f"adpool{name}.p" in sd:
+            params[f"pool_p_{name}"] = np.float32(sd[f"adpool{name}.p"].reshape(()))
+    if "conv1x5.weight" in sd:
+        params["conv1x5"] = conv("conv1x5")
+        params["conv3c4"] = conv("conv3c4")
     if "fc.weight" in sd:
         params["fc"] = {"kernel": sd["fc.weight"].T.copy(), "bias": sd["fc.bias"]}
     return params
 
 
-def load_state(model: RMACDescriptor, state_dict: Dict[str, Any]) -> RMACDescriptor:
-    """Load reference-named weights strictly: a ``module.`` prefix and
-    ``num_batches_tracked`` are dropped, and a GeM model whose checkpoint
-    has no ``adpool.p`` keeps p = gemp (the reference's default)."""
+def _incoming(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A state_dict as fp32 tensors, without a ``module.`` prefix or
+    ``num_batches_tracked``."""
     sd = {k[7:] if k.startswith("module.") else k: v
           for k, v in state_dict.items()}
-    sd = {k: v.float() if torch.is_tensor(v) else torch.tensor(
-              np.asarray(v), dtype=torch.float32)
-          for k, v in sd.items() if not k.endswith("num_batches_tracked")}
-    if model.cfg.pooling.startswith("gem") and "adpool.p" not in sd:
+    return {k: v.float() if torch.is_tensor(v) else torch.tensor(
+                np.asarray(v), dtype=torch.float32)
+            for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
+def load_state(model: RMACDescriptor, state_dict: Dict[str, Any]) -> RMACDescriptor:
+    """Load reference-named weights strictly: a ``module.`` prefix and
+    ``num_batches_tracked`` are dropped, and a plain GeM model whose
+    checkpoint has no ``adpool.p`` keeps p = gemp (the reference's default).
+    ResNeXt's grouped convs and the FPN heads' keys load as they are."""
+    sd = _incoming(state_dict)
+    if hasattr(model, "adpool") and "adpool.p" not in sd:
         sd["adpool.p"] = torch.full((1,), float(model.cfg.gemp))
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_tolerant(model: RMACDescriptor, state_dict: Dict[str, Any],
+                  delete_fc: bool = False, verbose: bool = True) -> RMACDescriptor:
+    """Tolerant loading (counterpart of ``dirjax/utils/checkpoints.py:160``,
+    the reference's ``nets/__init__.py:67-96``): over ``model``'s own
+    (freshly initialised) state_dict, take every entry of ``state_dict``
+    whose name and shape match; keep the model's value for missing layers
+    and shape mismatches, reporting both in dirjax's words; under
+    ``delete_fc`` keep the fresh FC (fine-tuning to a new output dim).
+    Loads into ``model`` and returns it."""
+    incoming = _incoming(state_dict)
+    merged = {}
+    for name, init_val in model.state_dict().items():
+        got = incoming.get(name)
+        if delete_fc and name in ("fc.weight", "fc.bias"):
+            got = None
+        elif got is None:
+            if verbose:
+                print(f"Loading weights for {model.arch}: Missing layer {name}")
+        elif tuple(got.shape) != tuple(init_val.shape):
+            if verbose:
+                print(f"Loading weights for {model.arch}: Bad shape for "
+                      f"layer {name}, skipping")
+            got = None
+        merged[name] = init_val if got is None else got
+    model.load_state_dict(merged, strict=True)
     return model
 
 
@@ -178,6 +235,33 @@ def load_torch_checkpoint(path: str) -> Checkpoint:
     extra = {k: ckpt[k] for k in ("epoch", "iter", "current_iter") if k in ckpt}
     return Checkpoint(model=model, preprocess=ckpt.get("preprocess", model.cfg.preprocess),
                       pca=pca, extra=extra)
+
+
+def save_torch_checkpoint(path: str, ckpt: Checkpoint) -> None:
+    """Write a Checkpoint in the reference's ``.pt`` schema (counterpart of
+    ``dirjax/utils/checkpoints.py:334``): ``state_dict`` (fp32 CPU tensors),
+    ``model_options`` (arch and the head's options), ``preprocess``, and
+    ``pca`` as plain dicts of arrays; numeric extras (epoch, iter) at the
+    top level. :func:`load_torch_checkpoint` and dirjax's reader take it."""
+    if is_folded(ckpt.model):
+        raise ValueError("a folded model has no reference state_dict: save the "
+                         "model before fold_batchnorm")
+    sd = {k: v.detach().to("cpu", torch.float32).clone()
+          for k, v in ckpt.model.state_dict().items()}
+    payload = {
+        "state_dict": sd,
+        "model_options": {"arch": ckpt.model.arch,
+                          **_config_options(ckpt.model.cfg)},
+        "preprocess": ckpt.preprocess,
+        "pca": {name: {"mean": np.asarray(p.mean),
+                       "components": np.asarray(p.components),
+                       "variance": np.asarray(p.variance),
+                       "whiten": bool(p.whiten)}
+                for name, p in ckpt.pca.items()},
+        **{k: v for k, v in ckpt.extra.items() if isinstance(v, (int, float, str))},
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, path)
 
 
 def _flatten(tree, prefix="", out=None):

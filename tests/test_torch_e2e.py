@@ -70,7 +70,8 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "from dirjax_torch.test_dir import main\n"
         f"res = main({_argv(synth_root, ckpt_path)!r})\n"
         "assert 'mAP-medium' in res\n"
-        "import dirjax_torch.kernels.build, dirjax_torch.utils.checkpoints\n"
+        "import dirjax_torch.kernels.build, dirjax_torch.kernels.concurrency\n"
+        "import dirjax_torch.utils.checkpoints\n"
         "import numpy as np, torch\n"
         "import dirjax_torch.cli.index, dirjax_torch.index, dirjax_torch.serve\n"
         "from dirjax_torch.ops.topk import rank_topk_fused\n"
@@ -89,6 +90,15 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "assert p.search(db[:3], k=9, aqe={'k': 3, 'alpha': 3.0})[1].shape == (3, 9)\n"
         "v = IVFPQIndex(db, nlist=4, m=8, ksub=16, train_iters=3, device='cpu')\n"
         "assert v.search(db[:3], k=9, nprobe=2)[1].shape == (3, 9)\n"
+        "import dirjax_torch.extract_features, dirjax_torch.fit_whitening\n"
+        "import dirjax_torch.extract_kapture\n"
+        "from dirjax_torch.models import create_model, fold_batchnorm\n"
+        "from dirjax_torch.ops import fit_pca_device\n"
+        "for arch in ('resnet18_fpn_rmac', 'resnext101_32x4d_rmac'):\n"
+        "    m = fold_batchnorm(create_model(arch, out_dim=16)).eval()\n"
+        "    with torch.inference_mode():\n"
+        "        assert m(torch.rand(1, 3, 64, 48)).shape == (1, 16)\n"
+        "assert fit_pca_device(db, device='cpu').components.shape == (32, 32)\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,

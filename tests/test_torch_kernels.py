@@ -53,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from dirjax_torch.kernels import concurrency
 from dirjax_torch.ops import binary, gem_head, ivf, pq, topk
 
 torch.set_num_threads(1)
@@ -515,3 +516,22 @@ class TestADCKernels:
             pq.adc_gather_scores(luts, codes, bids.int(), 64)
         with pytest.raises(ValueError, match="block"):
             pq.adc_gather_scores(luts, codes, bids, 0)
+
+
+# --- launches from several host threads --------------------------------------
+
+@pytest.mark.cuda
+class TestConcurrentLaunches:
+    """Launches of one kernel from 8 host threads at once, 50 a thread,
+    alternating two shapes whose dynamic shared memory differs
+    (``dirjax_torch.kernels.concurrency``): K6 resident m 8 / 64 at ksub 16,
+    57,472 / 172,160 bytes; K6 streamed ksub 256 / 100 at m 32, 172,288 /
+    147,712; the rescore at m 64, ksub 256, kf 300, nq 1 / 256, 65,680 /
+    66,016; K1's projection C 1024 / 2048, 32,768 / 65,536; K3, a constant
+    of its instantiation, the control. No launch may fail, and each result
+    is its plain version's (K6 and the rescore exactly, K1 within rtol 2e-4
+    / atol 2e-5, K3 within 1e-5)."""
+
+    @pytest.mark.parametrize("case", concurrency.CASES)
+    def test_threads_with_other_shared_memory(self, cuda, case):
+        concurrency.race(concurrency.alternation(case, cuda, seed=5), threads=8, per_thread=50)

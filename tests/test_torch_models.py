@@ -211,3 +211,198 @@ class TestCheckpoints:
         images = np.random.default_rng(9).normal(size=(2, 64, 48, 3)).astype(np.float32)
         _assert_parity(_torch_descs(model, images),
                        _jax_descs(back.model, back.params, images))
+
+
+# --- every dirjax architecture: FPN heads, ResNeXt, BN folding ---------------
+
+NEW_ARCHS = ["resnet18_fpn_rmac", "resnet50_fpn_rmac", "resnet101_fpn_rmac",
+             "resnet152_fpn_rmac", "resnet101_fpn0_rmac", "resnext101_32x4d_rmac"]
+DESC_ATOL = 1e-5   # fp32 unit descriptors, TF32 off on both sides
+
+
+def _perturb_all(params, rng):
+    """Non-identity BN statistics, the last BN of each residual branch
+    scaled down (activations stay bounded through 50 blocks, as in trained
+    ResNets), non-default GeM powers (each pool its own) and a non-zero fc
+    bias."""
+    def bn(c, lo, hi):
+        return {"scale": rng.uniform(lo, hi, c).astype(np.float32),
+                "bias": rng.normal(0, 0.1, c).astype(np.float32),
+                "mean": rng.normal(0, 0.1, c).astype(np.float32),
+                "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+    def walk(node, last=False):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return np.asarray(node)
+        if set(node) == {"scale", "bias", "mean", "var"}:
+            return bn(node["scale"].shape[0], *((0.1, 0.3) if last else (0.5, 1.5)))
+        last_bn = "bn3" if "bn3" in node else "bn2"
+        return {k: walk(v, "conv1" in node and k == last_bn) for k, v in node.items()}
+
+    params = walk(params)
+    for i, name in enumerate(k for k in sorted(params) if k.startswith("pool_p")):
+        params[name] = np.float32(2.6 + 0.4 * i)
+    params["fc"]["bias"] = rng.normal(0, 0.05, params["fc"]["bias"].shape).astype(np.float32)
+    return params
+
+
+@pytest.fixture(scope="module")
+def arch_models():
+    """arch -> (dirjax model, perturbed params, the port's model with the
+    same weights); keeps only the last arch asked for (full-width models)."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cache.clear()
+            jmodel = jcreate(arch)
+            params = _perturb_all(jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(11))),
+                                  np.random.default_rng(12))
+            model = create_model(arch)
+            tckpt.load_state(model, tckpt.state_dict_from_jax_params(params, model.cfg))
+            cache[arch] = (jmodel, params, model.eval())
+        return cache[arch]
+    return get
+
+
+def _small_bucket_batch(rng):
+    """Two 64x48 canvases, the second holding a 40x32 image (bucket mask)."""
+    images = rng.normal(size=(2, 64, 48, 3)).astype(np.float32)
+    mask = np.ones((2, 64, 48), bool)
+    mask[1, 40:] = False
+    mask[1, :, 32:] = False
+    images[1][~mask[1]] = 0.0
+    return images, mask
+
+
+def test_every_dirjax_name_resolves():
+    from dirjax.models import model_names as jnames
+    from dirjax_torch.models import model_config, model_names
+
+    assert model_names() == jnames()
+    for arch in jnames():
+        j, t = jcreate(arch).config, model_config(arch)
+        assert (t.out_dim, t.fc_in_dim, t.fpn_mode, t.pooling, t.gemp) == \
+            (j.out_dim, j.fc_in_dim, j.fpn_mode, j.pooling, j.gemp), arch
+        assert (t.backbone.layers, t.backbone.groups, t.backbone.base_width,
+                t.backbone.block) == (j.backbone.layers, j.backbone.groups,
+                                      j.backbone.base_width, j.backbone.block), arch
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "bucket"])
+def test_new_architecture_descriptors(arch_models, arch, masked):
+    """dirjax's descriptors within 1e-5 for the FPN heads (fpn_mode 1 and 0)
+    and ResNeXt-101 32x4d at full width, with and without a bucket mask
+    (C4 masked at stride 16, C5 at 32)."""
+    jmodel, params, model = arch_models(arch)
+    images, mask = _small_bucket_batch(np.random.default_rng(13))
+    m = mask if masked else None
+    got, want = _torch_descs(model, images, m), _jax_descs(jmodel, params, images, m)
+    assert got.shape == (2, jmodel.config.out_dim)
+    np.testing.assert_allclose(got, want, rtol=0, atol=DESC_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["resnet18_rmac", "resnext101_32x4d_rmac", "resnet50_fpn_rmac"])
+def test_fold_batchnorm(arch_models, arch):
+    """The folded copy's weights are dirjax's fold bit for bit; its
+    descriptors are dirjax's folded model's and the unfolded model's within
+    1e-5; the model it was made from is left as it was. In bf16 its
+    descriptors are dirjax's folded bf16 model's within cosine 0.9999 and
+    1e-3 (dirjax's own bf16 is 4.3e-4 from its fp32 on these inputs)."""
+    from dirjax.models import fold_batchnorm as jfold
+    from dirjax_torch.models import fold_batchnorm, is_folded
+
+    jmodel, params, model = arch_models(arch)
+    folded = fold_batchnorm(model)
+    assert is_folded(folded) and not is_folded(model)
+    jparams = dict(params, backbone=jfold(params["backbone"]))
+    stem = jparams["backbone"]["stem"]
+    np.testing.assert_array_equal(folded.conv1.weight.detach().numpy(),
+                                  stem["conv"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(folded.conv1.bias.detach().numpy(), stem["bias"])
+    block = jparams["backbone"]["layer2"][0]
+    np.testing.assert_array_equal(folded.layer2[0].downsample[0].bias.detach().numpy(),
+                                  block["downsample"]["bias"])
+    np.testing.assert_array_equal(folded.layer2[0].conv2.weight.detach().numpy(),
+                                  block["conv2"].transpose(3, 2, 0, 1))
+    assert not any("bn" in k or "downsample.1" in k for k in folded.state_dict())
+    images, mask = _small_bucket_batch(np.random.default_rng(14))
+    got = _torch_descs(folded, images, mask)
+    np.testing.assert_allclose(got, _jax_descs(jmodel, jparams, images, mask),
+                               rtol=0, atol=DESC_ATOL)
+    np.testing.assert_allclose(got, _torch_descs(model, images, mask), rtol=0, atol=DESC_ATOL)
+    with torch.inference_mode():
+        got = folded(torch.from_numpy(images).permute(0, 3, 1, 2), mask=torch.from_numpy(mask),
+                     dtype=torch.bfloat16).float().numpy()
+    want = np.asarray(jmodel.apply(jparams, jnp.asarray(images), mask=jnp.asarray(mask),
+                                   dtype=jnp.bfloat16))
+    cos = np.sum(got * want, axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() > 0.9999, cos
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["basic", "bottleneck"])
+def test_folded_block_epilogue_in_fp32(kind):
+    """A folded block adds its biases and its shortcut in fp32 and rounds
+    to bf16 once, at its end, as dirjax/models/resnet.py:327-347 does. The
+    branch here nearly cancels its shortcut (bias -4 against inputs in
+    [4, 4.25)), so the outputs lie below 1 and are held to two bf16 ulps
+    there (2^-7); a bf16 epilogue rounds at magnitude 4 (ulp 2^-5) and
+    misses by about 0.019."""
+    from dirjax.models import resnet as jr
+    from dirjax_torch.models import resnet as tr
+
+    name, cin = ("resnet18", 64) if kind == "basic" else ("resnet50", 256)
+    rng = np.random.default_rng(21)
+    p = jax.tree.map(np.asarray, jr._init_block(jax.random.PRNGKey(3), jr.RESNET_CONFIGS[name],
+                                                cin, 64, 1))
+    for key in [k for k in p if k.startswith("bn")]:
+        c = p[key]["scale"].shape[0]
+        p[key] = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                  "bias": rng.normal(0, 0.1, c).astype(np.float32),
+                  "mean": rng.normal(0, 0.1, c).astype(np.float32),
+                  "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+    last = "bn2" if kind == "basic" else "bn3"
+    p[last]["scale"] *= 0.01
+    p[last]["bias"][:] = -4.0
+    fp = jr.fold_batchnorm(p)
+    cfg = tr.RESNET_CONFIGS[name]
+    block = (tr.BasicBlock if kind == "basic" else tr.Bottleneck)(cfg, cin, 64, 1)
+    for key in [k for k in fp if k.startswith("conv")]:
+        conv = getattr(block, key)
+        conv.weight.data = torch.from_numpy(fp[key].transpose(3, 2, 0, 1).copy())
+        conv.bias = torch.nn.Parameter(torch.from_numpy(fp["bias" + key[4:]]))
+        setattr(block, "bn" + key[4:], None)
+    x = torch.from_numpy(rng.uniform(4.0, 4.25, (2, 12, 10, cin)).astype(np.float32)).bfloat16()
+    want = np.asarray(jr._apply_block_folded(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), fp, jr.RESNET_CONFIGS[name], 1,
+        dtype=jnp.bfloat16, precision=None).astype(jnp.float32))
+    with torch.inference_mode():
+        got = block(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last),
+                    torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert np.abs(want).max() < 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("arch,fused", [("resnext101_32x4d_rmac", True),
+                                        ("resnet18_fpn_rmac", False),
+                                        ("resnet101_fpn0_rmac", False)])
+def test_fpn_heads_skip_the_fused_head(monkeypatch, arch, fused):
+    """K1's wrapper serves the plain heads only, ResNeXt's included; the
+    FPN heads pool and project without it, as dirjax gates it
+    (dirjax/models/rmac.py:145-153)."""
+    from dirjax_torch.models import rmac
+
+    calls = []
+    real = rmac.fused_gem_head
+    monkeypatch.setattr(rmac, "fused_gem_head",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = _torch_descs(create_model(arch, out_dim=OUT_DIM),
+                       np.random.default_rng(15).normal(size=(1, 64, 48, 3)).astype(np.float32))
+    assert out.shape == (1, OUT_DIM) and np.isfinite(out).all()
+    assert len(calls) == int(fused)

@@ -184,6 +184,51 @@ class TestWhitening:
         for a, b in zip(tops.whitening_matrix(tp, 0.5), jops.whitening_matrix(jp, 0.5)):
             np.testing.assert_array_equal(a, b)
 
+    @pytest.mark.parametrize("stream", ["array", "numpy_chunks", "tensor_chunks"])
+    @pytest.mark.parametrize("n_components", [None, 10])
+    def test_fit_pca_device(self, rng, stream, n_components):
+        """dirjax's fit_pca_device on the same rows, streamed in uneven
+        chunks: component |cos| > 1 - 1e-6, variances within 1e-5
+        relative, the same signs (each row's largest |entry| positive). The
+        rows are what the fit is given in use: L2-normalised descriptors,
+        here with a decaying spectrum and a common mean."""
+        n, d = 700, 32
+        rot, _ = np.linalg.qr(rng.normal(size=(d, d)))
+        X = (rng.normal(size=(n, d)) * np.geomspace(1.0, 0.1, d)) @ rot + 0.2
+        X = (X / np.linalg.norm(X, axis=1, keepdims=True)).astype(np.float32)
+        bounds = [(0, 97), (97, 350), (350, 351), (351, n)]
+        want = jops.fit_pca_device([jnp.asarray(X[a:b]) for a, b in bounds], n_components)
+        if stream == "array":
+            data = _t(X)
+        elif stream == "numpy_chunks":
+            data = (X[a:b] for a, b in bounds)
+        else:
+            data = [_t(X[a:b]) for a, b in bounds]
+        got = tops.fit_pca_device(data, n_components, device="cpu")
+        k = n_components or d
+        assert got.components.shape == (k, d) and got.variance.shape == (k,)
+        np.testing.assert_allclose(got.mean, want.mean, rtol=0, atol=1e-6)
+        cos = np.abs(np.sum(got.components * np.asarray(want.components), axis=1))
+        assert cos.min() > 1 - 1e-6, cos
+        np.testing.assert_array_equal(np.sign(got.components[np.arange(k), np.argmax(
+            np.abs(got.components), axis=1)]), np.ones(k))
+        assert np.abs(got.components - np.asarray(want.components)).max() < 1e-3
+        np.testing.assert_allclose(got.variance, want.variance, rtol=1e-5)
+
+    def test_fit_pca_device_needs_two_rows(self, rng):
+        with pytest.raises(ValueError, match="at least 2 rows"):
+            tops.fit_pca_device(rng.normal(size=(1, 8)), device="cpu")
+        with pytest.raises(ValueError, match="at least 2 rows"):
+            tops.fit_pca_device([], device="cpu")
+
+    def test_fit_pca_device_refuses_tf32(self, rng, monkeypatch):
+        """A card fit with TF32 on raises before it touches the card, and
+        leaves the process-wide flag as the caller set it."""
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        with pytest.raises(ValueError, match="allow_tf32 = False"):
+            tops.fit_pca_device(rng.normal(size=(4, 8)), device="cuda")
+        assert torch.backends.cuda.matmul.allow_tf32
+
 
 class TestQueryExpansion:
     @pytest.mark.parametrize("alpha", [3, 2])
