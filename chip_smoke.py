@@ -88,7 +88,12 @@ Phases, each of which raises on failure:
    must have risen just after; every answer must equal the index's own
    direct search (values within 1e-5, an index differing only at a
    near-tie). Requests, batches, latency percentiles and QPS are printed
-   as information.
+   as information. Then a DynamicBatcher with upload_bf16 over the bf16
+   RetrievalIndex and over a PQIndex of the same codebooks without rerank
+   (ADC scores, as dirjax's upload test), with ml_dtypes made unimportable,
+   against the fp32-upload batcher on the same burst (8 client threads):
+   bf16 indices equal and values within rtol 1e-6, PQ values within 0.02;
+   the kernels' counters must rise; each burst's QPS and latency printed.
 8. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
    131,072-row chunks on the card; its time (host clock), and against an
    fp64 accumulation of the same chunks on the card: the covariance's
@@ -124,9 +129,24 @@ Phases, each of which raises on failure:
    chains at once); each JSON answer must equal the in-process search
    exactly.
 
-    python3 chip_smoke.py --profile DIR   # also phase 14
+14. training — resnet101_rmac (2048-D) at 224x224 from seeded random
+   weights: the card's AP loss and full gradient (batch 4, two classes)
+   against the port's CPU path, fp32 (loss within 1e-5, gradient cosine >
+   0.9999) and bf16 (loss within 1e-2, cosine > 0.9: train_bf16_study.py
+   puts dirjax's own bf16 gradient near 0.96); the two-pass step (batch 16,
+   microbatch 4) against the whole-batch step after one SGD step (loss
+   1e-5, weights atol 1e-5 / rtol 1e-4); step ms (CUDA events), img/s,
+   peak memory and MFU, fp32 and bf16, whole-batch at batch 16 and
+   two-pass at batch 64 / microbatch 16; then ``dirjax_torch.cli.train``
+   on a synthetic labeled set (2 epochs x 3 steps with a benchmark
+   evaluated each epoch, then --resume for a third): finite losses, BN
+   unchanged, K1 launched in the evaluations and never in a train step,
+   the resumed run at epoch 2 with the saved optimizer count, and test_dir
+   on the last checkpoint.
 
-14. profile — where a warm database extraction's time goes, fp32 and bf16:
+    python3 chip_smoke.py --profile DIR   # also phase 15
+
+15. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -1256,9 +1276,92 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"the serving path launched {missing} no time")
+    # PQ as dirjax's upload test has it, without the int8 rerank: on random
+    # rows a rerank shortlist that gains or loses one row shifts every
+    # exact score after it, which says nothing about the upload
+    upload_bf16_check({"bf16": indexes["bf16"],
+                       "pq": PQIndex(db32, device=device, _trained=(None, pq_books))})
     if profile_dir:
         serving_profile(indexes, profile_dir, card)
     return launches
+
+
+UPLOAD_REQUESTS, UPLOAD_CLIENTS = 24, 8   # per client, on each batcher
+
+
+def upload_bf16_check(indexes: dict) -> None:
+    """DynamicBatcher(upload_bf16=True) against the fp32-upload batcher over
+    the bf16 RetrievalIndex and a PQIndex (ADC scores), with ``ml_dtypes`` made
+    unimportable: the same burst (8 client threads, 1-16 queries a request,
+    k = 10 and 100) through each; bf16 indices equal and values within rtol
+    1e-6, PQ values within 0.02 (dirjax's test_upload_bf16_pq_close_to_f32).
+    The kernels' counters must rise in the bf16-upload bursts. QPS and
+    latency percentiles of each burst are printed as information."""
+    from dirjax_torch.ops import pq, topk
+    from dirjax_torch.server import DynamicBatcher
+
+    saved = sys.modules.get("ml_dtypes")
+    sys.modules["ml_dtypes"] = None   # the port must not need it
+    try:
+        rng = np.random.default_rng(8)
+        plan = []
+        for _ in range(UPLOAD_CLIENTS):
+            reqs = []
+            for _ in range(UPLOAD_REQUESTS):
+                q = rng.standard_normal((int(rng.integers(1, 17)), SERVE_D))
+                reqs.append(((q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32),
+                             int(rng.choice([10, 100]))))
+            plan.append(reqs)
+        rows = sum(len(q) for reqs in plan for q, _ in reqs)
+
+        def burst(batcher):
+            def client(reqs):
+                return [batcher.submit(q, k=k).result(timeout=300) for q, k in reqs]
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(UPLOAD_CLIENTS) as pool:
+                answers = list(pool.map(client, plan))
+            return answers, time.perf_counter() - t0, batcher.latency_stats()
+
+        for name, index in indexes.items():
+            results = {}
+            for upload in (False, True):
+                batcher = DynamicBatcher(index, max_batch=256, max_wait_ms=2.0, pipeline=3,
+                                         upload_bf16=upload)
+                try:
+                    burst(batcher)       # warm the first calls
+                    for counts in (topk.launches, pq.launches):
+                        for key in counts:
+                            counts[key] = 0
+                    batcher.reset_latency_stats()
+                    results[upload] = burst(batcher)
+                    launches = {k: v for k, v in {**topk.launches, **pq.launches}.items() if v}
+                finally:
+                    batcher.close()
+                if upload and not launches:
+                    raise AssertionError(f"upload_bf16 {name}: no kernel launched")
+                answers, wall, lat = results[upload]
+                print(f"serving upload_bf16={upload} {name}: {rows} query rows from "
+                      f"{UPLOAD_CLIENTS} client threads in {wall:.3f} s = {rows / wall:.1f} QPS "
+                      "(host clock); latency ms " +
+                      " ".join(f"{k[:-3]} {v:.2f}" for k, v in lat.items()) +
+                      f"; launches {launches}")
+            worst = 0.0
+            for reqs, want_c, got_c in zip(plan, results[False][0], results[True][0]):
+                for (q, k), (wv, wi), (gv, gi) in zip(reqs, want_c, got_c):
+                    if name == "pq":
+                        np.testing.assert_allclose(gv, wv, rtol=0.02, atol=0.02)
+                    else:
+                        np.testing.assert_array_equal(gi, wi)
+                        np.testing.assert_allclose(gv, wv, rtol=1e-6)
+                    worst = max(worst, float(np.abs(gv - wv).max()))
+            print(f"serving upload_bf16 {name}: answers equal the fp32 upload's "
+                  f"(max |diff| {worst:.3e}; ml_dtypes not importable)")
+    finally:
+        if saved is None:
+            del sys.modules["ml_dtypes"]
+        else:
+            sys.modules["ml_dtypes"] = saved
 
 
 def cli_phase(device, work: str) -> None:
@@ -1729,6 +1832,284 @@ def cli_chain_phase(bench: str, ckpt: str, device, work: str) -> None:
           f"--whiten: {json.dumps(res)}; in {time.perf_counter() - t0:.1f} s")
 
 
+TRAIN_ARCH, TRAIN_SIZE = "resnet101_rmac", 224
+# (loss diff, gradient cosine) against the fp32 CPU path. The bf16 gradient
+# of a random-weight resnet101_rmac sits near cosine 0.95 to the fp32 one in
+# dirjax too (train_bf16_study.py: 0.960 at 96x96 on the CPU): 23 blocks of
+# bf16 conv outputs and ReLU kinks, not a fault; 0.9 still catches a lost or
+# misrouted gradient, and the loss is held to 1e-2
+TRAIN_BOUND = {"fp32": (1e-5, 0.9999), "bf16": (1e-2, 0.9)}
+# step timings: (tag, batch, microbatch); the two-pass step runs the forward twice
+TRAIN_TIMINGS = (("whole_b16", 16, 0), ("two_pass_b64_mb16", 64, 16))
+
+
+def train_model(seed: int, device):
+    """resnet101_rmac (2048-D) with seeded random weights, on ``device``."""
+    from dirjax_torch.models import create_model
+    from dirjax_torch.utils.checkpoints import load_state
+
+    model = create_model(TRAIN_ARCH)
+    load_state(model, random_state_dict(model, seed))
+    return model.to(device).train()
+
+
+def loss_and_gradient(model, cfg, images, labels, dtype):
+    """The train step's loss and the gradient of every trained tensor,
+    flattened into one fp64 host vector (no optimizer step)."""
+    from dirjax_torch import train as TT
+
+    params = TT._trained_parameters(model, cfg.freeze_bn)
+    x, y = TT._device_batch(model, images, labels)
+    loss = TT.make_batch_objective(cfg)(model(x, dtype=dtype, train=True), y)
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), torch.cat([g.reshape(-1).double().cpu() for g in grads])
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def train_step_checks(device) -> dict:
+    """The card's loss and gradient against the port's CPU path (one batch
+    of 4, two classes, AP loss, fp32 and bf16 against fp32 on the CPU), and
+    the two-pass step against the whole-batch step on the card (batch 16,
+    microbatch 4, SGD without momentum: dirjax's bounds, loss 1e-5, weights
+    atol 1e-5 / rtol 1e-4). Neither may launch K1."""
+    from dataclasses import replace
+
+    from dirjax_torch import train as TT
+    from dirjax_torch.ops import gem_head
+
+    row, before = {}, gem_head.launches
+    rng = np.random.default_rng(21)
+    images = rng.standard_normal((4, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32)
+    labels = np.array([0, 0, 1, 1])
+    cfg = TT.TrainConfig()
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_gradient(train_model(30, "cpu"), cfg, images, labels,
+                                        torch.float32)
+    cpu_s = time.perf_counter() - t0
+    card = train_model(30, device)
+    fc = card.fc.weight.numel()   # the last trained tensors: fc.weight, fc.bias
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        loss, got = loss_and_gradient(card, cfg, images, labels, dt)
+        cos = _cosine(got, want)
+        fc_cos = _cosine(got[-fc - MAIN_D:-MAIN_D], want[-fc - MAIN_D:-MAIN_D])
+        loss_tol, cos_bound = TRAIN_BOUND[tag]
+        print(f"training {tag} card vs cpu fp32 (batch 4, {TRAIN_SIZE}x{TRAIN_SIZE}, AP loss): "
+              f"loss {loss:.7f} vs {want_loss:.7f} (|diff| {abs(loss - want_loss):.2e}, bound "
+              f"{loss_tol}); gradient cosine {cos:.7f} over {got.numel()} values (bound > "
+              f"{cos_bound}), fc.weight's {fc_cos:.7f}")
+        row[f"{tag}_fc_grad_cosine"] = fc_cos
+        if not (abs(loss - want_loss) <= loss_tol and cos > cos_bound):
+            raise AssertionError(f"training {tag}: the card's loss or gradient disagrees "
+                                 "with the CPU path")
+        row[f"{tag}_loss_diff"], row[f"{tag}_grad_cosine"] = abs(loss - want_loss), cos
+    row["cpu_loss_and_grad_s"] = cpu_s
+    del card
+
+    cfg = TT.TrainConfig(batch_size=16, microbatch=4, optimizer="sgd", momentum=0.0,
+                         weight_decay=0.0, learning_rate=1e-3)
+    images = rng.standard_normal((16, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32)
+    labels = np.arange(16) % 4
+    whole, two = train_model(31, device), train_model(31, device)
+    whole_cfg = replace(cfg, microbatch=0)
+    l1 = float(TT.make_train_step(whole, whole_cfg, TT.make_optimizer(whole_cfg, whole))(
+        images, labels))
+    l2 = float(TT.make_two_pass_train_step(two, cfg, TT.make_optimizer(cfg, two))(
+        images, labels))
+    worst = 0.0
+    for (name, a), b in zip(whole.state_dict().items(), two.state_dict().values()):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-4, msg=lambda m: f"{name}: {m}")
+        worst = max(worst, float((a - b).abs().max()))
+    if abs(l1 - l2) > 1e-5:
+        raise AssertionError(f"two-pass loss {l2} != whole-batch loss {l1}")
+    print(f"training two-pass (batch 16, microbatch 4) vs whole-batch on the card, one SGD "
+          f"step: loss {l2:.7f} vs {l1:.7f}; weights max |diff| {worst:.2e} (bounds: loss "
+          "1e-5, weights atol 1e-5 / rtol 1e-4)")
+    row["two_pass_loss_diff"], row["two_pass_weight_max_diff"] = abs(l1 - l2), worst
+    if gem_head.launches != before:
+        raise AssertionError("a train step launched K1 (it has no backward)")
+    return row
+
+
+def forward_flops(model, device, dtype) -> float:
+    """FLOPs of one image's descriptor forward at TRAIN_SIZE, counted from
+    the convolutions' and the FC's shapes (torch's FlopCounterMode)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.zeros(1, 3, TRAIN_SIZE, TRAIN_SIZE, device=device)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(x, dtype=dtype, train=True)
+    return float(counter.get_total_flops())
+
+
+_CONV_GEMM = ("xmma", "conv", "dgrad", "wgrad", "gemm", "nvjet", "cutlass")
+
+
+def step_breakdown(kernels: list, steps: int):
+    """A step's device time from a trace of ``steps`` steps: the summed
+    kernel ms a step, split into convolutions and GEMMs, copies and layout
+    conversions, and the rest (elementwise, reductions, the optimizer),
+    with the kernel count a step; None when the trace held no kernel."""
+    if not kernels:
+        return None
+    split = {"conv_gemm_ms": 0.0, "copy_ms": 0.0, "other_ms": 0.0}
+    for name, ms in kernels:
+        low = name.lower()
+        kind = ("copy_ms" if "copy" in low or "nhwcto" in low or "nchwto" in low else
+                "conv_gemm_ms" if any(k in low for k in _CONV_GEMM) else "other_ms")
+        split[kind] += ms / steps
+    split["device_ms"] = sum(ms for _, ms in kernels) / steps
+    split["kernels"] = len(kernels) // steps
+    return split
+
+
+def train_timing(device) -> dict:
+    """Step ms (CUDA events over 10 steps after 3 warm-up steps, batches
+    already on the card), img/s, peak memory and MFU of the whole-batch step
+    at batch 16 and the two-pass step at batch 64 (microbatch 16), fp32 (TF32
+    off) and bf16, AdamW. MFU: the step's FLOPs (3x the forward, 4x for the
+    two-pass step, whose forward runs twice) over the H100 SXM's peak for
+    the dtype (fp32 67, bf16 989 TFLOP/s). For the whole-batch step also its
+    device time (torch.profiler, :func:`step_breakdown`) and busy share
+    (device ms over step ms)."""
+    from dirjax_torch import train as TT
+
+    row = {}
+    model = train_model(32, device)
+    flops = {tag: forward_flops(model, device, dt) for tag, dt in
+             (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    row["forward_gflop_per_image"] = flops["fp32"] / 1e9
+    for name, batch, micro in TRAIN_TIMINGS:
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            model = train_model(32, device)
+            cfg = TT.TrainConfig(batch_size=batch, microbatch=micro)
+            make = TT.make_two_pass_train_step if micro else TT.make_train_step
+            step = make(model, cfg, TT.make_optimizer(cfg, model), dtype=dt)
+            x = torch.randn(batch, TRAIN_SIZE, TRAIN_SIZE, 3, device=device)
+            y = torch.arange(batch, device=device) % (batch // 4)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _time_ms(lambda: step(x, y), iters=10)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            step_flops = flops[tag] * batch * (4 if micro else 3)
+            mfu = step_flops / (ms / 1e3) / PEAK_OPS_PER_S[tag]
+            key = f"{name}_{tag}"
+            row.update({f"{key}_step_ms": ms, f"{key}_img_per_s": batch / ms * 1e3,
+                        f"{key}_peak_gib": peak, f"{key}_mfu": mfu})
+            busy = ""
+            if not micro:   # where the whole-batch step's device time goes
+                split = step_breakdown(kernel_trace(lambda: step(x, y), iters=3), 3)
+                if split:
+                    row[f"{key}_device"] = split
+                    busy = (f"; device {split['device_ms']:.2f} ms a step (busy share "
+                            f"{split['device_ms'] / ms:.3f}) in {split['kernels']} kernels: "
+                            f"conv/gemm {split['conv_gemm_ms']:.2f}, copies "
+                            f"{split['copy_ms']:.2f}, other {split['other_ms']:.2f} ms")
+            print(f"training step {name} {tag} ({TRAIN_ARCH}, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+                  f"AdamW; CUDA events): {ms:.2f} ms = {batch / ms * 1e3:.1f} img/s, peak "
+                  f"{peak:.2f} GiB, MFU {mfu:.3f} of {PEAK_OPS_PER_S[tag] / 1e12:.0f} TFLOP/s "
+                  f"({step_flops / 1e12:.3f} TFLOP a step){busy}")
+            del model, step, x
+            torch.cuda.empty_cache()
+    return row
+
+
+def train_cli_check(work: str, gpu: int = 0) -> dict:
+    """``dirjax_torch.cli.train.main`` on the card: SyntheticLabels (6
+    classes of 320x256 images, 224 random crops, batch 16) from a seeded
+    resnet101_rmac checkpoint, 2 epochs x 3 steps with a Synthetic benchmark
+    evaluated each epoch, then ``--resume`` for a third. Checks: finite
+    losses; BN tensors bitwise unchanged (frozen by default); K1 launched in
+    the evaluations and never in a train step; the resumed run starts at
+    epoch 2 with the saved optimizer step count (6); the last checkpoint goes
+    through ``test_dir`` on the card with finite mAPs."""
+    from dirjax_torch import train as TT
+    from dirjax_torch.cli import test_dir
+    from dirjax_torch.cli import train as cli_train
+    from dirjax_torch.datasets import make_synthetic_benchmark
+    from dirjax_torch.models import create_model
+    from dirjax_torch.ops import gem_head
+    from dirjax_torch.utils.checkpoints import (Checkpoint, load_native, load_state,
+                                                save_native)
+
+    root = os.path.join(work, "train")
+    bench, out = os.path.join(root, "bench"), os.path.join(root, "run")
+    make_synthetic_benchmark(os.path.join(bench, "revisited"), n_classes=6, per_class=12,
+                             n_junk=2, image_size=(320, 256), seed=3)
+    start = os.path.join(root, "start.npz")
+    model = create_model(TRAIN_ARCH)
+    load_state(model, random_state_dict(model, 33))
+    save_native(start, Checkpoint(model=model, preprocess=model.cfg.preprocess))
+
+    counts = {"step_k1": 0, "steps": 0, "eval_k1": 0, "start_count": []}
+    make_step, evaluate = TT.make_train_step, TT.evaluate_retrieval
+
+    def counted_make(model, cfg, optimizer, dtype=torch.float32):
+        step = make_step(model, cfg, optimizer, dtype)
+        counts["start_count"].append(TT._step_count(optimizer))
+
+        def counted(images, labels):
+            before = gem_head.launches
+            out = step(images, labels)
+            counts["step_k1"] += gem_head.launches - before
+            counts["steps"] += 1
+            return out
+        return counted
+
+    def counted_eval(*args, **kw):
+        before = gem_head.launches
+        res = evaluate(*args, **kw)
+        counts["eval_k1"] += gem_head.launches - before
+        return res
+
+    def opt_steps():
+        with np.load(os.path.join(out, "checkpoint.npz.opt")) as f:
+            return json.loads(bytes(f["__meta__"]).decode())["step_count"]
+
+    argv = ["--dataset", f"SyntheticLabels('{bench}')", "--arch", TRAIN_ARCH,
+            "--steps-per-epoch", "3", "--eval-dataset", f"Synthetic('{bench}')",
+            "--out-dir", out, "--gpu", str(gpu)]
+    TT.make_train_step, TT.evaluate_retrieval = counted_make, counted_eval
+    t0 = time.perf_counter()
+    try:
+        first = cli_train.main(argv + ["--epochs", "2", "--checkpoint", start])
+        saved = opt_steps()
+        resumed = cli_train.main(argv + ["--epochs", "3", "--resume",
+                                         os.path.join(out, "checkpoint.npz")])
+    finally:
+        TT.make_train_step, TT.evaluate_retrieval = make_step, evaluate
+    seconds = time.perf_counter() - t0
+    losses = [h["loss"] for h in first + resumed]
+    if not (len(first) == 2 and np.isfinite(losses).all()):
+        raise AssertionError(f"train CLI: history {first} {resumed}")
+    if [h["epoch"] for h in resumed] != [2] or counts["start_count"] != [0, saved] \
+            or saved != 6 or opt_steps() != 9:
+        raise AssertionError(f"resume: epochs {[h['epoch'] for h in resumed]}, optimizer "
+                             f"counts at start {counts['start_count']}, saved {saved}")
+    if counts["step_k1"] or not counts["eval_k1"]:
+        raise AssertionError(f"K1 launches: {counts['step_k1']} in train steps, "
+                             f"{counts['eval_k1']} in the evaluations")
+    before = load_native(start).model.state_dict()
+    after = load_native(os.path.join(out, "checkpoint.npz")).model.state_dict()
+    bn = [k for k in before if "bn" in k or "downsample.1" in k]
+    if not all(torch.equal(before[k], after[k]) for k in bn) or \
+            torch.equal(before["fc.weight"], after["fc.weight"]):
+        raise AssertionError("frozen BN tensors moved, or the FC did not")
+    res = test_dir.main(["--dataset", f"Synthetic('{bench}')", "--checkpoint",
+                         os.path.join(out, "checkpoint.npz"), "--whiten", "", "--gpu", str(gpu)])
+    if not (res and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values())):
+        raise AssertionError(f"test_dir on the trained checkpoint: {res}")
+    print(f"train CLI: epochs {[h['epoch'] for h in first + resumed]}, losses {losses}, "
+          f"mAP-medium {[h.get('mAP-medium') for h in first + resumed]}; {counts['steps']} "
+          f"steps (K1 launches 0), evaluations launched K1 {counts['eval_k1']} times; resumed "
+          f"at epoch 2 from optimizer step {saved}; {len(bn)} BN tensors unchanged; test_dir "
+          f"on the last checkpoint: {json.dumps(res)}; in {seconds:.1f} s")
+    return {"eval_k1_launches": counts["eval_k1"], "cli_seconds": seconds,
+            "losses": losses}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="", metavar="DIR",
@@ -1823,12 +2204,17 @@ def main(argv=None) -> int:
             cli_chain_phase(bench, ckpt, device, work)
             enter("index CLI")
             cli_phase(device, work)
+            enter("training")
+            train_row = {**train_step_checks(device), **train_timing(device),
+                         **train_cli_check(work)}
+            k1_by_path["train eval"] = train_row["eval_k1_launches"]
             if args.profile:
                 enter("profile")
                 profile_phase(bench, ckpt, device, args.profile, card)
         enter("report")
         print("extraction side: " + json.dumps({"architectures": arch_rows, "folded_bn": folded_row,
                                                 "fit_pca_device": pca_row}))
+        print("training: " + json.dumps(train_row))
         print("phase seconds: " + json.dumps(seconds) +
               f"; total {time.perf_counter() - started:.1f} s")
 

@@ -18,11 +18,13 @@ Layout:
     dirjax_torch.tuning   — recall auto-tuning of nprobe / rerank_factor
     dirjax_torch.server   — dynamic batcher, socket server, client
     dirjax_torch.serve    — the index server's command line
+    dirjax_torch.loss     — AP, tie-aware AP and triplet losses
+    dirjax_torch.train    — descriptor training (fit, steps, optimizers, CLI)
     dirjax_torch.datasets — benchmark datasets, registry, synthetic fixture
     dirjax_torch.data     — host decode, transforms and batching
     dirjax_torch.utils    — checkpoint I/O (.pt reference schema, dirjax .npz),
                             evaluation (mAP)
-    dirjax_torch.cli      — command-line entry points (test_dir, index)
+    dirjax_torch.cli      — command-line entry points (test_dir, index, train, ...)
     dirjax_torch.kernels  — nvcc build of csrc/*.cu, ctypes loading
 """
 

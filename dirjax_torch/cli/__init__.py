@@ -6,4 +6,5 @@
     python -m dirjax_torch.extract_kapture  — kapture global features (needs kapture)
     python -m dirjax_torch.index            — build / query a dense serving index
     python -m dirjax_torch.serve            — serve an index (see dirjax_torch.serve)
+    python -m dirjax_torch.train            — fine-tune a descriptor model
 """

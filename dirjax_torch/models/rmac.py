@@ -16,8 +16,14 @@ C5 upsampled x2 by nearest neighbour and cropped to C4, ``conv1x5`` (1x1),
 ReLU, added to C4, then ``conv3c4`` (3x3, pad 1) and ReLU; ``fpn_mode`` 0
 pools both maps as they are. A bucket mask reaches C4 at stride 16 and C5 at
 stride 32. Like dirjax (and the reference), the FPN head accepts
-``center_bias`` and never applies it. Dropout (``rmac.py:89``) is for
-training, which is not ported.
+``center_bias`` and never applies it.
+
+``forward(..., train=True)`` is the training forward
+(``dirjax/models/rmac.py:130-201``): the plain head takes the plain
+composition, never the kernel (which has no backward; dirjax gates it the
+same way), and ``dropout_p`` drops backbone features (C4 and C5 in the FPN
+heads) with a caller's ``torch.Generator``. :func:`init_weights` draws
+dirjax's initial distributions (``init_descriptor``).
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ from torch import nn
 from ..ops.gem_head import fused_gem_head
 from ..ops.normalize import l2_normalize
 from ..ops.pooling import center_bias_mask, global_pool
-from .resnet import RGB_MEANS, RGB_STDS, ResNet, ResNetConfig
+from .resnet import RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig
 
-__all__ = ["DescriptorConfig", "RMACDescriptor", "downsample_mask"]
+__all__ = ["DescriptorConfig", "RMACDescriptor", "downsample_mask", "init_weights"]
 
 
 @dataclass(frozen=True)
@@ -46,7 +52,7 @@ class DescriptorConfig:
     center_bias: float = 0.0
     norm_features: bool = False
     without_fc: bool = False
-    dropout_p: Optional[float] = None  # training only; unused at inference
+    dropout_p: Optional[float] = None  # training only (forward(train=True))
     fpn_mode: Optional[int] = None  # None: plain head; 1: merge C5 into C4; 0: no merge
 
     @property
@@ -85,6 +91,38 @@ def downsample_mask(mask: torch.Tensor, stride: int, fh: int, fw: int) -> torch.
     return (-F.max_pool2d(-m, stride, stride))[:, 0, :fh, :fw] > 0.5
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """dirjax's rule: keep with probability ``1 - rate`` and scale by
+    ``1 / keep``, zero otherwise."""
+    keep = 1.0 - rate
+    drawn = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(drawn < keep, x / keep, 0.0)
+
+
+def init_weights(model: "RMACDescriptor", generator: torch.Generator) -> "RMACDescriptor":
+    """dirjax's initial distributions (``init_descriptor``, ``init_resnet``):
+    every conv He-normal with fan = kh*kw*cout (the FPN head's too), BN the
+    identity, GeM's p = gemp, the FC uniform in +-1/sqrt(fan_in) with a zero
+    bias. Draws from ``generator``; returns ``model``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                cout, _, kh, kw = m.weight.shape
+                m.weight.normal_(0.0, (2.0 / (kh * kw * cout)) ** 0.5, generator=generator)
+            elif isinstance(m, nn.Linear):
+                bound = m.in_features ** -0.5
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, BatchNormAffine):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, GeneralizedMeanPoolingP):
+                m.p.fill_(model.cfg.gemp)
+    return model
+
+
 class RMACDescriptor(ResNet):
     """ResNet backbone + descriptor head, with the reference's flat
     state_dict keys (backbone keys, ``adpool.p``, ``fc``; FPN: ``conv1x5``,
@@ -110,20 +148,29 @@ class RMACDescriptor(ResNet):
             self.fc = nn.Linear(cfg.fc_in_dim, cfg.out_dim)
 
     def forward(self, images: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``images``: NCHW float, already normalized. ``mask``: optional
         (B, H, W) bool validity map at input resolution for padded bucket
-        batches. Returns (B, out_dim) fp32 unit descriptors."""
+        batches. ``train``: the training forward (plain head; ``dropout_p``
+        draws from ``generator``, which it then needs). Returns (B, out_dim)
+        fp32 unit descriptors."""
         cfg = self.cfg
+        drop = cfg.dropout_p is not None and train
+        if drop and generator is None:
+            raise ValueError("dropout_p with train=True needs a torch.Generator")
         if cfg.fpn_mode is not None:
-            return self._tail(self._fpn_pool(images, mask, dtype))
+            return self._tail(self._fpn_pool(images, mask, dtype,
+                                             generator if drop else None))
         x = self.features(images, dtype)
+        if drop:
+            x = _dropout(x, cfg.dropout_p, generator)
         nhwc = x.permute(0, 2, 3, 1)  # a view: x is channels_last
         feat_mask = None
         if mask is not None:
             feat_mask = downsample_mask(mask, 32, x.shape[2], x.shape[3])
         p = self.adpool.p if cfg.pooling.startswith("gem") else cfg.gemp
-        if (cfg.pooling.startswith("gem") and cfg.center_bias == 0
+        if (not train and cfg.pooling.startswith("gem") and cfg.center_bias == 0
                 and not cfg.norm_features and not cfg.without_fc):
             # the kernel widens bf16 itself and reads fc.weight in place
             return fused_gem_head(nhwc, p, self.fc.weight.T, self.fc.bias,
@@ -134,9 +181,9 @@ class RMACDescriptor(ResNet):
             nhwc = nhwc * bias[None, :, :, None]
         return self._tail(global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask))
 
-    def _fpn_pool(self, images, mask, dtype) -> torch.Tensor:
+    def _fpn_pool(self, images, mask, dtype, generator=None) -> torch.Tensor:
         """[d4, d5]: C4 (merged with C5 in fpn_mode 1) and C5, each pooled
-        over its own mask."""
+        over its own mask; with a ``generator``, both dropped out first."""
         cfg = self.cfg
         c4, c5 = self.features(images, dtype, out_layer=-1)
         if cfg.fpn_mode == 1:
@@ -144,6 +191,9 @@ class RMACDescriptor(ResNet):
             merged = F.conv2d(up.to(dtype), self.conv1x5.weight.to(dtype))
             c4 = c4.float() + F.relu(merged.float())
             c4 = F.relu(F.conv2d(c4.to(dtype), self.conv3c4.weight.to(dtype), padding=1).float())
+        if generator is not None:
+            c4 = _dropout(c4, cfg.dropout_p, generator)
+            c5 = _dropout(c5, cfg.dropout_p, generator)
         c4_mask = c5_mask = None
         if mask is not None:
             c4_mask = downsample_mask(mask, 16, c4.shape[2], c4.shape[3])

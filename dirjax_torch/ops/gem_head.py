@@ -10,6 +10,13 @@ kernel's oracle. No other path exists.
 The kernel reads W in ``torch.nn.Linear``'s own (D, C) row-major storage, so
 on the card W must be the transposed view ``linear.weight.T``: the model
 passes its weight without a copy, and any other layout raises.
+
+The kernel has no backward: its output has no autograd link. So on the card
+it raises when grad mode is on and any of ``x``, ``p``, ``w``, ``b``
+requires grad, where a forward would otherwise drop every gradient without
+an error. Training takes the plain head (``RMACDescriptor.forward(...,
+train=True)``, as dirjax gates its kernel), and evaluations run under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,11 @@ def fused_gem_head(x: torch.Tensor, p, w: torch.Tensor, b: torch.Tensor,
         return gem_head_reference(x.float(), mask, p, w, b, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gem_head runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (x, p, w, b)):
+        raise RuntimeError("fused_gem_head has no backward: call it under "
+                           "torch.no_grad() or inference_mode(), or train through "
+                           "the plain head (forward(..., train=True))")
     return _launch(x, p, w, b, mask, eps)
 
 

@@ -3,9 +3,10 @@
 The port's own copy of ``dirjax/server.py``, which it mirrors: dirjax_torch
 imports nothing of the JAX package, so it carries this jax-free host module
 itself. The wire protocol is byte-identical, so a client of either package
-talks to a server of either. Two differences: :meth:`Client.close` shuts its
-socket down before closing it, and ``main`` lives in
-:mod:`dirjax_torch.serve`.
+talks to a server of either. Three differences: :meth:`Client.close` shuts its
+socket down before closing it, ``upload_bf16`` makes each batch a CPU
+``torch.bfloat16`` tensor (dirjax makes an ``ml_dtypes`` array, and the port
+does not need that package), and ``main`` lives in :mod:`dirjax_torch.serve`.
 
 The reference toolbox stops at offline evaluation
 (``dirtorch/test_dir.py`` — one process, one score matrix);
@@ -49,6 +50,7 @@ from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["DynamicBatcher", "IndexServer", "Client"]
 
@@ -61,6 +63,13 @@ def _parse_addr(addr: str):
     if sep and port.isdigit() and "/" not in addr:
         return socket.AF_INET, (host or "0.0.0.0", int(port))
     return socket.AF_UNIX, addr
+
+
+def _to_bf16(qs: np.ndarray) -> torch.Tensor:
+    """A coalesced fp32 batch as a CPU ``torch.bfloat16`` tensor (rounded to
+    nearest even, as ``ml_dtypes`` rounds): the index casts it as its tier
+    needs."""
+    return torch.from_numpy(qs).to(torch.bfloat16)
 
 
 def _freeze(v):
@@ -125,10 +134,13 @@ class DynamicBatcher:
         self.upload_bf16 = bool(upload_bf16)
         if self.upload_bf16:
             d = getattr(index, "dtype", None)   # fp32 dense RetrievalIndex
-            try:
-                is_fp32 = d is not None and np.dtype(d) == np.float32
-            except TypeError:
-                is_fp32 = False
+            if isinstance(d, torch.dtype):
+                is_fp32 = d == torch.float32
+            else:
+                try:
+                    is_fp32 = d is not None and np.dtype(d) == np.float32
+                except TypeError:
+                    is_fp32 = False
             if is_fp32:
                 import warnings
 
@@ -233,9 +245,7 @@ class DynamicBatcher:
     def _dispatch(self, requests) -> None:
         qs = np.concatenate([r[0] for r in requests])
         if self.upload_bf16:
-            import ml_dtypes
-
-            qs = qs.astype(ml_dtypes.bfloat16)
+            qs = _to_bf16(qs)
         k, opts = requests[0][4], requests[0][5]
         try:
             vals, idxs = self.index.search(qs, k=k, **opts)
@@ -284,9 +294,7 @@ class DynamicBatcher:
         for b in buckets:
             qs = rng.standard_normal((b, dim)).astype(np.float32)
             if self.upload_bf16:   # match the dispatch dtype signature
-                import ml_dtypes
-
-                qs = qs.astype(ml_dtypes.bfloat16)
+                qs = _to_bf16(qs)
             self.index.search(qs, k=k, **opts)
         self.reset_latency_stats()
 

@@ -53,7 +53,17 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 def _as_tensor(x) -> torch.Tensor:
-    return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    """A tensor as it is; an array through ``torch.from_numpy``. A bfloat16
+    array (dirjax's batcher makes ``ml_dtypes.bfloat16``) becomes a
+    ``torch.bfloat16`` tensor of the same bits, without importing
+    ``ml_dtypes``: bf16 queries pass through, and each index casts them as
+    its tier needs (``dirjax/serving.py:632-634``)."""
+    if torch.is_tensor(x):
+        return x
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 class _Tombstones:

@@ -62,11 +62,14 @@ def test_test_dir_prints_the_same_map(synth_root, ckpt_path, extra):
 
 
 def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
+    """With jax, dirjax and ml_dtypes made unimportable, the port's CLIs,
+    indexes, a CPU train step and a bf16-upload batcher all run."""
     script = (
         "import sys\n"
         # any `import jax` or `import dirjax...` now raises
         "sys.modules['jax'] = None\n"
         "sys.modules['dirjax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "from dirjax_torch.test_dir import main\n"
         f"res = main({_argv(synth_root, ckpt_path)!r})\n"
         "assert 'mAP-medium' in res\n"
@@ -99,6 +102,18 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "    with torch.inference_mode():\n"
         "        assert m(torch.rand(1, 3, 64, 48)).shape == (1, 16)\n"
         "assert fit_pca_device(db, device='cpu').components.shape == (32, 32)\n"
+        "import dirjax_torch.loss, dirjax_torch.cli.train\n"
+        "from dirjax_torch.train import TrainConfig, make_optimizer, make_train_step\n"
+        "cfg = TrainConfig(arch='resnet18_rmac', out_dim=8, nq=5, batch_size=4)\n"
+        "m = create_model(cfg.arch, out_dim=8)\n"
+        "loss = make_train_step(m, cfg, make_optimizer(cfg, m))(\n"
+        "    np.random.default_rng(0).normal(size=(4, 32, 32, 3)), [0, 0, 1, 1])\n"
+        "assert np.isfinite(float(loss))\n"
+        "from dirjax_torch.serve import DynamicBatcher\n"
+        "bt = DynamicBatcher(RetrievalIndex(db, dtype=torch.bfloat16, device='cpu'),\n"
+        "                    max_wait_ms=0.0, upload_bf16=True)\n"
+        "assert bt.search(db[:3], k=4)[1][:, 0].tolist() == [0, 1, 2]\n"
+        "bt.close()\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,

@@ -130,6 +130,23 @@ class TestGemHeadKernel:
         _close(gem_head.fused_gem_head(xin, p, w, b),
                gem_head.gem_head_reference(xin.float(), None, p, w, b))
 
+    def test_refuses_a_gradient(self, rng, cuda):
+        """The kernel has no backward: with grad mode on, an operand that
+        requires grad raises rather than drop its gradient; the same call
+        launches under no_grad and inference_mode."""
+        x, w, b, _ = _head_inputs(rng, cuda, 2, 4, 4, 64, 64)
+        p = torch.tensor([3.0], device=cuda)
+        for args in ((x.requires_grad_(True), p, w, b), (x.detach(), p.requires_grad_(True), w, b),
+                     (x.detach(), 3.0, w.detach().requires_grad_(True), b)):
+            with pytest.raises(RuntimeError, match="no backward"):
+                gem_head.fused_gem_head(*args)
+            before = gem_head.launches
+            with torch.no_grad():
+                got = gem_head.fused_gem_head(*args)
+            with torch.inference_mode():
+                again = gem_head.fused_gem_head(*args)
+            assert gem_head.launches == before + 2 and torch.equal(got, again)
+
     def test_rejects_bad_layout(self, rng, cuda):
         x, w, b, _ = _head_inputs(rng, cuda, 2, 4, 4, 64, 64)
         with pytest.raises(ValueError, match="contiguous"):

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import threading
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -618,3 +619,126 @@ def test_serve_compressed_index_to_both_clients(data, kind, tmp_path):
         assert hit_keys == served.lookup(want10[1])
         np.testing.assert_array_equal(v30, want30[0])
         np.testing.assert_array_equal(i30, want30[1])
+
+
+class TestUploadBf16:
+    """The batcher's ``upload_bf16`` (counterparts of dirjax's
+    ``tests/test_server.py`` and ``tests/test_round5_fixes.py`` upload
+    tests): each batch reaches the index as a CPU torch.bfloat16 tensor,
+    which the index casts as its tier needs. Tolerances as dirjax's: a bf16
+    index answers exactly as with fp32 upload (values within rtol 1e-6,
+    indices equal); PQ stays within its quantization noise (0.02); every
+    tier answers as its direct search over the bf16-rounded queries,
+    exactly."""
+
+    @staticmethod
+    def _unit_rows(seed, n, d=32):
+        x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    def test_upload_bf16_matches_f32_on_bf16_index(self):
+        x = self._unit_rows(3, 128)
+        index = TS.RetrievalIndex(x, dtype=torch.bfloat16, device="cpu")
+        plain = DynamicBatcher(index, max_batch=8, max_wait_ms=0.0)
+        bf16 = DynamicBatcher(index, max_batch=8, max_wait_ms=0.0, upload_bf16=True)
+        try:
+            bf16.warmup(k=5)
+            q = x[:4] + 0.01 * np.random.default_rng(3).standard_normal((4, 32)).astype(np.float32)
+            v1, i1 = plain.search(q, k=5)
+            v2, i2 = bf16.search(q, k=5)
+        finally:
+            plain.close()
+            bf16.close()
+        np.testing.assert_array_equal(i1, i2)
+        np.testing.assert_allclose(v1, v2, rtol=1e-6)
+
+    def test_upload_bf16_pq_close_to_f32(self):
+        x = self._unit_rows(4, 400)
+        index = TS.PQIndex(x, m=4, ksub=16, train_iters=5, device="cpu")
+        plain = DynamicBatcher(index, max_batch=8, max_wait_ms=0.0)
+        bf16 = DynamicBatcher(index, max_batch=8, max_wait_ms=0.0, upload_bf16=True)
+        try:
+            v1, _ = plain.search(x[:4], k=5)
+            v2, _ = bf16.search(x[:4], k=5)
+        finally:
+            plain.close()
+            bf16.close()
+        np.testing.assert_allclose(v1, v2, rtol=0.02, atol=0.02)
+
+    @pytest.mark.parametrize("tier", ["fp32", "int8", "int8_queries", "binary", "pq", "ivf"])
+    def test_each_tier_casts_the_bf16_queries(self, tier):
+        """An fp32 index widens the bf16 values; int8 (with int8 queries
+        too), binary, PQ and IVF quantize from them. So the served answer
+        equals the direct search over the queries rounded to bf16, and
+        dirjax's batcher, whose batches are ml_dtypes.bfloat16 arrays, gets
+        the same answer from the port's index."""
+        from dirjax.server import DynamicBatcher as JBatcher
+
+        x = self._unit_rows(5, 300)
+        opts = {"int8_queries": True} if tier == "int8_queries" else {}
+        index = {"fp32": lambda: TS.RetrievalIndex(x, device="cpu"),
+                 "int8": lambda: TS.RetrievalIndex(x, dtype=torch.int8, device="cpu"),
+                 "int8_queries": lambda: TS.RetrievalIndex(x, dtype=torch.int8, device="cpu"),
+                 "binary": lambda: TS.BinaryIndex(x, 32, itq_iters=3, device="cpu"),
+                 "pq": lambda: TS.PQIndex(x, m=4, ksub=16, train_iters=3, device="cpu"),
+                 "ivf": lambda: TS.IVFPQIndex(x, nlist=4, m=4, ksub=16, train_iters=3,
+                                              nprobe=2, device="cpu")}[tier]()
+        q = x[:5] + 0.05 * self._unit_rows(6, 5)
+        rounded = torch.from_numpy(q).bfloat16().float().numpy()
+        want = index.search(rounded, k=7, **opts)
+        with pytest.warns(UserWarning, match="fp32 dense") if tier == "fp32" \
+                else warnings.catch_warnings():
+            ours = DynamicBatcher(index, max_batch=8, max_wait_ms=0.0, upload_bf16=True)
+        theirs = JBatcher(index, max_batch=8, max_wait_ms=0.0, upload_bf16=True)
+        try:
+            got = [ours.search(q, k=7, **opts), theirs.search(q, k=7, **opts)]
+        finally:
+            ours.close()
+            theirs.close()
+        for vals, idxs in got:
+            np.testing.assert_array_equal(vals, want[0])
+            np.testing.assert_array_equal(idxs, want[1])
+
+    def test_warns_on_fp32_dense_index(self):
+        index = TS.RetrievalIndex(self._unit_rows(0, 64), device="cpu")
+        assert index.dtype == torch.float32
+        with pytest.warns(UserWarning, match="fp32 dense"):
+            b = DynamicBatcher(index, upload_bf16=True)
+        b.close()
+
+    def test_silent_on_bf16_index(self):
+        index = TS.RetrievalIndex(self._unit_rows(0, 32, 16), dtype=torch.bfloat16,
+                                  device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            b = DynamicBatcher(index, upload_bf16=True)
+        b.close()
+
+    def test_serve_main_takes_upload_bf16(self, tmp_path):
+        """``python -m dirjax_torch.serve --upload-bf16`` hands the flag to
+        its batcher, and a client's answer equals the direct search."""
+        from dirjax_torch.serve import build_parser, main as serve_main
+
+        assert build_parser().parse_args(
+            ["--index", "i.npz", "--socket", "s", "--upload-bf16"]).upload_bf16
+        assert not build_parser().parse_args(["--index", "i.npz", "--socket", "s"]).upload_bf16
+        x = self._unit_rows(7, 200)
+        TS.RetrievalIndex(x, dtype=torch.int8, device="cpu").save(str(tmp_path / "b.npz"))
+        sock = str(tmp_path / "b.sock")
+        result = {}
+        thread = threading.Thread(target=lambda: result.setdefault("server", serve_main(
+            ["--index", str(tmp_path / "b.npz"), "--socket", sock, "--gpu", "-1",
+             "--max-wait-ms", "1", "--upload-bf16", "--warmup-k", "5"])), daemon=True)
+        thread.start()
+        try:
+            with Client(sock, connect_timeout=60) as client:
+                vals, idxs = client.search(x[:3], k=5)
+        finally:
+            with Client(sock) as client:
+                client.shutdown_server()
+        thread.join(timeout=60)
+        assert not thread.is_alive() and result["server"].batcher.upload_bf16
+        served = TS.RetrievalIndex.load(str(tmp_path / "b.npz"), device="cpu")
+        want = served.search(torch.from_numpy(x[:3]).bfloat16(), k=5)
+        np.testing.assert_array_equal(vals, want[0])
+        np.testing.assert_array_equal(idxs, want[1])
