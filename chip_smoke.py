@@ -94,12 +94,33 @@ Phases, each of which raises on failure:
    against the fp32-upload batcher on the same burst (8 client threads):
    bf16 indices equal and values within rtol 1e-6, PQ values within 0.02;
    the kernels' counters must rise; each burst's QPS and latency printed.
-8. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
+8. sharded — the mesh paths of dirjax_torch.parallel at world 1 (NCCL in
+   this process over a FileStore, make_mesh(1, 1)) on the same rows, codes
+   and IVF: sharded_topk on bf16 and int8 rows (nq 256 and 16, k 10 and
+   100, int8 with and without quantized queries) and fp32 at nq 16, each
+   bit for bit the single-device rank_topk_fused; sharded_hamming_topk
+   (symmetric, and a rerank_factor-4 shortlist rescored with the projected
+   queries), sharded_pq_topk and sharded_ivf_topk at full probe, bit for bit
+   the single-device functions; sharded_scores against one matmul and
+   sharded_aqe against expand_queries_chunked / expand_queries_quantized
+   (1e-5); RetrievalIndex (bf16, int8), BinaryIndex (symmetric) and PQIndex
+   (int8 rerank) with mesh= equal to the index without it after add,
+   remove and compact. The launch counters of K2-K6 and the ADC rescore,
+   zeroed first, must rise (the single-device references run uncounted).
+   ShardedExtractor against FeatureExtractor on resnet101_rmac, 1024x768,
+   batch 8 (fp32 within 1e-6, bf16 cosine > 0.999; K1's launches), the
+   sharded train step at (1, 1) against the unsharded one (resnet101_rmac
+   224x224, SGD, batch 16 and two-pass 64 / 16: loss within 1e-5, weights
+   within rtol 2e-4 / atol 2e-5), each pair timed in turns; then the train
+   CLI with --mesh 1,1 --ckpt-format orbax under torch.distributed.run for
+   2 epochs, and --resume from its directory for a third in this process.
+   One "sharded:" JSON line of readings.
+9. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
    131,072-row chunks on the card; its time (host clock), and against an
    fp64 accumulation of the same chunks on the card: the covariance's
    relative error (at most 1e-5), the first 64 components' |cos| (at least
    1 - 1e-6) and their variances' relative error.
-9. main path — a synthetic Revisited benchmark at 1024x768 and a
+10. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
@@ -110,26 +131,26 @@ Phases, each of which raises on failure:
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path. Prints which host decoder ran (the
    native one, or PIL where it cannot build).
-10. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
+11. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
    resnext101_32x4d_rmac the same way on a smaller benchmark (16 images),
    each with its own seeded checkpoint: K1 launches above 0 for ResNeXt and
    none for the FPN head (as dirjax gates it), the same cosine bounds, and
    each forward's ms per batch of 8 (CUDA events), fp32 and bf16.
-11. folded BN — resnet101_rmac with every BN folded into its conv
+12. folded BN — resnet101_rmac with every BN folded into its conv
    (fold_batchnorm) against the BN-affine model on 8 database images:
    cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
    K1 launches above 0, forward ms per batch of 8 in fp32 and bf16, timed
    in turns affine/folded/folded/affine.
-12. CLI chain — ``extract_features`` -> ``fit_whitening --device-fit``
+13. CLI chain — ``extract_features`` -> ``fit_whitening --device-fit``
    (into a .pt) -> ``test_dir --whiten`` on the card; the saved
    descriptors must equal an in-process extraction bit for bit.
-13. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
+14. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
    --binary 2048``, ``build --pq 32`` and ``build --ivf 1024``, each then
    ``query -k 100 --gpu 0``, as subprocesses on 65,536 rows (the four
    chains at once); each JSON answer must equal the in-process search
    exactly.
 
-14. training — resnet101_rmac (2048-D) at 224x224 from seeded random
+15. training — resnet101_rmac (2048-D) at 224x224 from seeded random
    weights: the card's AP loss and full gradient (batch 4, two classes)
    against the port's CPU path, fp32 (loss within 1e-5, gradient cosine >
    0.9999) and bf16 (loss within 1e-2, cosine > 0.9: train_bf16_study.py
@@ -144,9 +165,9 @@ Phases, each of which raises on failure:
    the resumed run at epoch 2 with the saved optimizer count, and test_dir
    on the last checkpoint.
 
-    python3 chip_smoke.py --profile DIR   # also phase 15
+    python3 chip_smoke.py --profile DIR   # also phase 16
 
-15. profile — where a warm database extraction's time goes, fp32 and bf16:
+16. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -163,14 +184,16 @@ kernel's launches on the main paths, error against its plain version, time,
 its plain version's time, its bound (the larger of its bytes over 3.35 TB/s
 and its operations over the peak rate of their type on an H100 SXM) and the
 time of one PyTorch call that computes the same function, where there is
-one (K1's launches summed over the extraction paths, with
-``launches_by_path``); and last a JSON line with "ok": true. Exits
+one (launches summed over the paths that ran each kernel, with
+``launches_by_path``: K1's extraction paths, the others' serving and
+sharded phases); and last a JSON line with "ok": true. Exits
 non-zero, printing no result, when CUDA is not available.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1364,6 +1387,318 @@ def upload_bf16_check(indexes: dict) -> None:
             sys.modules["ml_dtypes"] = saved
 
 
+# --- sharded: the mesh paths at world 1 over NCCL ---------------------------
+
+SHARDED_KERNELS = ("fused_topk", "finemax", "gather_scores", "bits_finemax", "adc_finemax",
+                   "adc_gather_scores")
+SHARDED_TRAIN_BOUND = {"loss": 1e-5, "rtol": 2e-4, "atol": 2e-5}   # dirjax's mesh bounds
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (the single-device references) leave every
+    kernel counter as it was."""
+    from dirjax_torch.ops import binary, gem_head, pq, topk
+
+    saved = [dict(topk.launches), dict(binary.launches), dict(pq.launches), gem_head.launches]
+    try:
+        yield
+    finally:
+        for counts, old in zip((topk.launches, binary.launches, pq.launches), saved):
+            counts.update(old)
+        gem_head.launches = saved[3]
+
+
+def same_bits(tag: str, got, want) -> None:
+    for g, w in zip(got, want):
+        g, w = (torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x.cpu()
+                for x in (g, w))
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{tag}: the sharded answer differs from one device's")
+
+
+def sharded_phase(device, db16, db32, codec, pq_books, ivf_index, card: str):
+    """The mesh paths of ``dirjax_torch.parallel`` at world 1 (NCCL over a
+    FileStore, ``make_mesh(1, 1)``), each held against the port's
+    single-device function on the same data. Returns the readings and the
+    launches of K2-K6 and the rescores while the sharded calls ran (the
+    single-device references run uncounted), and K1's in ShardedExtractor."""
+    import torch.distributed as dist
+
+    from dirjax_torch import parallel as par
+    from dirjax_torch.ops import binary, gem_head, pq, topk
+    from dirjax_torch.ops import expand_queries_chunked, expand_queries_quantized
+    from dirjax_torch.ops.ivf import ivf_topk
+    from dirjax_torch.serving import BinaryIndex, PQIndex, RetrievalIndex
+
+    t_phase = time.perf_counter()
+    mesh = par.make_mesh(1, 1)
+    readings, done = {"card": card}, []
+    try:
+        for counts in (topk.launches, binary.launches, pq.launches):
+            for key in counts:
+                counts[key] = 0
+        rng = np.random.default_rng(12)
+        q32 = torch.from_numpy(rng.standard_normal((SERVE_NQ, SERVE_D)).astype(np.float32))
+        q32 = torch.nn.functional.normalize(q32, dim=1).to(device)
+        q16 = q32.to(torch.bfloat16)
+
+        # dense: bit for bit the single-device kernels plus a trivial merge
+        sh16, n = par.shard_database(db16, mesh)
+        sh32, _ = par.shard_database(db32, mesh)
+        d8, s8, _ = par.shard_database_quantized(db16, mesh)
+        cases = [(f"bf16 nq={nq} k={k}", q16[:nq], sh16, {}) for nq in (256, 16)
+                 for k in (10, 100)]
+        cases += [(f"int8 nq={nq} k={k} qq={qq}", q32[:nq], d8,
+                   {"db_scales": s8, "quantize_queries": qq}) for nq in (256, 16)
+                  for k in (10, 100) for qq in (False, True)]
+        cases += [(f"fp32 nq=16 k={k}", q32[:16], sh32, {}) for k in (10, 100)]
+        for tag, q, db, kw in cases:
+            k = int(tag.split("k=")[1].split()[0])
+            got = par.sharded_topk(q, db, k, mesh, n, **kw)
+            with uncounted():
+                want = topk.rank_topk_fused(q, db, k, **kw)
+            same_bits(f"sharded_topk {tag}", got, want)
+        done.append(f"sharded_topk bit-identical to rank_topk_fused in {len(cases)} cases")
+        got = par.sharded_scores(q32[:16], sh32, mesh, n)
+        with uncounted():
+            want = q32[:16] @ db32.T
+        err = float((got - want).abs().max())
+        if err > TOPK_ATOL:
+            raise AssertionError(f"sharded_scores: max |diff| {err} against one matmul")
+        readings["scores_max_abs_err"] = err
+        for tag, db, kw, ref in (("bf16", sh16, {}, lambda: expand_queries_chunked(
+                q16[:16], db16, k=10).float()),
+                ("int8", d8, {"db_scales": s8}, lambda: expand_queries_quantized(
+                    q32[:16], d8, s8, k=10))):
+            got = par.sharded_aqe(q16[:16] if tag == "bf16" else q32[:16], db, mesh, n, k=10,
+                                  **kw)
+            with uncounted():
+                want = ref()
+            err = float((got - want).abs().max())
+            if err > TOPK_ATOL:
+                raise AssertionError(f"sharded_aqe {tag}: max |diff| {err}")
+            readings[f"aqe_{tag}_max_abs_err"] = err
+        done.append("sharded_scores and sharded_aqe (bf16, int8) within 1e-5")
+
+        # binary (2048-bit codes), PQ (m = 32) and IVF (nlist 1024, full probe)
+        codes = binary.binarize(db32, codec)
+        qb, vq = binary.binarize_and_project(q32, codec)
+        bsh, _ = par.shard_codes_binary(codes, mesh)
+        for nq, k in ((256, 10), (16, 100)):
+            got = par.sharded_hamming_topk(qb[:nq], bsh, k, mesh, n)
+            with uncounted():
+                want = binary.hamming_topk_mxu(qb[:nq], codes, k)
+            same_bits(f"sharded_hamming_topk sym nq={nq} k={k}", got, want)
+            got = par.sharded_hamming_topk(qb[:nq], bsh, k, mesh, n, vq=vq[:nq],
+                                           rerank_factor=4)
+            with uncounted():
+                short = binary.hamming_topk_mxu(qb[:nq], codes, 4 * k)[1]
+                want = binary.asym_rescore(vq[:nq], codes, short, k)
+            same_bits(f"sharded_hamming_topk vq rf=4 nq={nq} k={k}", got, want)
+        pq_codes = pq.encode_pq(db32, pq_books)
+        csh, _ = par.shard_codes(pq_codes, mesh)
+        ivf = ivf_index._ivf
+        ivf_sh = par.shard_ivf(ivf, mesh)
+        for nq, k in ((256, 100), (16, 10)):
+            luts = pq.pq_lookup(q32[:nq], pq_books)
+            got = par.sharded_pq_topk(luts, csh, k, mesh, n)
+            with uncounted():
+                want = pq.pq_topk(luts, pq_codes, k)
+            same_bits(f"sharded_pq_topk nq={nq} k={k}", got, want)
+            rl = pq.pq_lookup(q32[:nq], ivf_index.codebooks)
+            got = par.sharded_ivf_topk(rl, q32[:nq], ivf_sh, k, mesh, nprobe=ivf.nvlist)
+            with uncounted():
+                want = ivf_topk(rl, q32[:nq], ivf, k, nprobe=ivf.nvlist)
+            same_bits(f"sharded_ivf_topk full probe nq={nq} k={k}", got, want)
+        done.append("sharded_hamming_topk (sym, and vq at rerank_factor 4), sharded_pq_topk "
+                    "and sharded_ivf_topk bit-identical to one device's")
+
+        # indexes: mesh= against one device, after add + remove + compact
+        extra = db32[:1000] * 0.5 + db32[1000:2000] * 0.5
+        removed = np.arange(0, SERVE_N, SERVE_N // 50)
+        specs = {"bf16": (RetrievalIndex, (db16,), {"dtype": torch.bfloat16}),
+                 "int8": (RetrievalIndex, (db16,), {"dtype": torch.int8}),
+                 "binary sym": (BinaryIndex, (db32,), {"_codec": codec, "asym": False}),
+                 "pq rerank": (PQIndex, (db32,), {"rerank": True,
+                                                  "_trained": (None, pq_books)})}
+        for name, (cls, args, kw) in specs.items():
+            index = cls(*args, mesh=mesh, **kw)
+            index.add(extra)
+            index.remove(indices=removed)
+            index.compact()
+            got = [index.search(q32[:16].cpu().numpy(), k=k) for k in (10, 100)]
+            del index
+            with uncounted():
+                ref = cls(*args, device=device, **kw)
+                ref.add(extra)
+                ref.remove(indices=removed)
+                ref.compact()
+                want = [ref.search(q32[:16].cpu().numpy(), k=k) for k in (10, 100)]
+                del ref
+            for g, w in zip(got, want):
+                same_bits(f"{name} index with mesh=", g, w)
+            torch.cuda.empty_cache()
+        done.append("RetrievalIndex (bf16, int8), BinaryIndex (symmetric) and PQIndex "
+                    "(int8 rerank) with mesh= answer exactly as without it after add, "
+                    "remove and compact")
+        launches = {**topk.launches, **binary.launches, **pq.launches}
+        missing = [name for name in SHARDED_KERNELS if not launches[name]]
+        if missing:
+            raise AssertionError(f"the sharded paths launched {missing} no time")
+        del d8, s8, codes, pq_codes, ivf_sh, csh, bsh
+        torch.cuda.empty_cache()
+
+        # timings: the sharded call against the single-device one, in turns
+        for tag, sharded, single in (
+                ("topk_bf16_nq256_k10", lambda: par.sharded_topk(q16, sh16, 10, mesh, n),
+                 lambda: topk.rank_topk_fused(q16, db16, 10)),
+                ("topk_bf16_nq256_k100", lambda: par.sharded_topk(q16, sh16, 100, mesh, n),
+                 lambda: topk.rank_topk_fused(q16, db16, 100))):
+            with uncounted():
+                ms, single_ms = time_in_turns(tag, single, sharded, iters=5)
+            readings[f"{tag}_ms"], readings[f"{tag}_single_ms"] = ms, single_ms
+
+        readings.update(sharded_extraction(device, mesh))
+        readings.update(sharded_training(device, mesh))
+        launches["gem_head"] = readings.pop("k1_launches")
+    finally:
+        dist.destroy_process_group()
+    readings["cli"] = sharded_cli()
+    readings["seconds"] = time.perf_counter() - t_phase
+    for line in done:
+        print("sharded: " + line)
+    print("sharded: " + json.dumps(readings))
+    return readings, launches
+
+
+def sharded_extraction(device, mesh) -> dict:
+    """ShardedExtractor against FeatureExtractor on resnet101_rmac, 1024x768,
+    batch 8: fp32 within 1e-6, bf16 cosine > 0.999; K1's launches in the
+    sharded calls; forward ms a batch of each (CUDA events, in turns)."""
+    from dirjax_torch import parallel as par
+    from dirjax_torch.extraction import FeatureExtractor
+    from dirjax_torch.models import create_model
+    from dirjax_torch.ops import gem_head
+    from dirjax_torch.utils.checkpoints import load_state
+
+    model = create_model("resnet101_rmac")
+    load_state(model, random_state_dict(model, 40))
+    images = np.random.default_rng(41).integers(
+        0, 256, size=(8, MAIN_SHAPE[1] * 32, MAIN_SHAPE[2] * 32, 3), dtype=np.uint8)
+    row, before = {}, gem_head.launches
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        sharded = par.ShardedExtractor(model, mesh, dtype=dt)
+        got = sharded(images)
+        with uncounted():
+            single = FeatureExtractor(model, device, dtype=dt)
+            want = single(images)
+            ms, single_ms = time_in_turns(f"extraction {tag}", lambda: single(images),
+                                          lambda: sharded(images), iters=5)
+        if tag == "fp32":
+            err = float((got - want).abs().max())
+            if err > 1e-6:
+                raise AssertionError(f"ShardedExtractor fp32: max |diff| {err}")
+            row["extract_fp32_max_abs_err"] = err
+        else:
+            cos = float(torch.nn.functional.cosine_similarity(got, want, dim=1).min())
+            if cos <= COS_BOUND["bf16"]:
+                raise AssertionError(f"ShardedExtractor bf16: cosine {cos}")
+            row["extract_bf16_min_cosine"] = cos
+        row[f"extract_{tag}_ms"], row[f"extract_{tag}_single_ms"] = ms, single_ms
+    row["k1_launches"] = gem_head.launches - before
+    if not row["k1_launches"]:
+        raise AssertionError("ShardedExtractor launched K1 no time")
+    return row
+
+
+def sharded_training(device, mesh) -> dict:
+    """make_sharded_train_step at (1, 1) against the unsharded step on
+    resnet101_rmac at 224x224, SGD: batch 16 whole-batch and 64 /
+    microbatch 16 two-pass, loss within 1e-5 and every tensor within dirjax's
+    mesh bounds (rtol 2e-4, atol 2e-5) after one step; then both step times
+    (CUDA events, in turns)."""
+    from dataclasses import replace
+
+    from dirjax_torch import train as TT
+
+    row = {}
+    rng = np.random.default_rng(42)
+    for tag, batch, micro in (("whole_b16", 16, 0), ("two_pass_b64_mb16", 64, 16)):
+        cfg = TT.TrainConfig(batch_size=batch, microbatch=micro, optimizer="sgd",
+                             learning_rate=1e-3)
+        x = torch.from_numpy(rng.standard_normal((batch, TRAIN_SIZE, TRAIN_SIZE, 3))
+                             .astype(np.float32)).to(device)
+        y = torch.arange(batch, device=device) % 4
+        sharded, single = train_model(34, device), train_model(34, device)
+        opt_s, opt_1 = TT.make_optimizer(cfg, sharded), TT.make_optimizer(cfg, single)
+        TT.shard_fc(sharded, opt_s, mesh)
+        step_s = TT.make_sharded_train_step(sharded, cfg, opt_s, mesh)
+        make = TT.make_two_pass_train_step if micro else TT.make_train_step
+        step_1 = make(single, replace(cfg), opt_1)
+        l_s, l_1 = float(step_s(x, y)), float(step_1(x, y))
+        TT.unshard_fc(sharded, opt_s, mesh)
+        worst = 0.0
+        for (name, a), b in zip(single.state_dict().items(), sharded.state_dict().values()):
+            torch.testing.assert_close(b, a, rtol=SHARDED_TRAIN_BOUND["rtol"],
+                                       atol=SHARDED_TRAIN_BOUND["atol"],
+                                       msg=lambda m: f"sharded step {tag} {name}: {m}")
+            worst = max(worst, float((a - b).abs().max()))
+        if abs(l_s - l_1) > SHARDED_TRAIN_BOUND["loss"]:
+            raise AssertionError(f"sharded step {tag}: loss {l_s} != {l_1}")
+        TT.shard_fc(sharded, opt_s, mesh)
+        ms, single_ms = time_in_turns(f"train step {tag}", lambda: step_1(x, y),
+                                      lambda: step_s(x, y), iters=2)
+        row.update({f"train_{tag}_loss_diff": abs(l_s - l_1),
+                    f"train_{tag}_weight_max_diff": worst,
+                    f"train_{tag}_ms": ms, f"train_{tag}_single_ms": single_ms})
+        print(f"sharded train step {tag} ({TRAIN_ARCH}, {TRAIN_SIZE}x{TRAIN_SIZE}, SGD, mesh "
+              f"(1, 1)): loss {l_s:.7f} vs {l_1:.7f}, weights max |diff| {worst:.2e}; "
+              f"{ms:.2f} ms against {single_ms:.2f} ms unsharded (CUDA events)")
+        del sharded, single, opt_s, opt_1, step_s, step_1, x
+        torch.cuda.empty_cache()
+    return row
+
+
+def sharded_cli(gpu: int = 0) -> dict:
+    """The train CLI on a mesh: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m dirjax_torch.train --mesh 1,1 --ckpt-format orbax
+    --gpu 0`` (``gpu``) for 2 epochs x 2 steps of resnet101_rmac at 224 on
+    SyntheticLabels, then ``--resume`` from its checkpoint directory for a
+    third, in this process without torchrun (a world of 1). Checks the
+    epochs each run reports and the steps the directory keeps."""
+    from dirjax_torch.cli import train as cli_train
+    from dirjax_torch.datasets import make_synthetic_benchmark
+    from dirjax_torch.utils.dist_ckpt import TrainCheckpointer
+
+    with tempfile.TemporaryDirectory(prefix="dirjax_torch_mesh_cli_") as work:
+        bench, out = os.path.join(work, "bench"), os.path.join(work, "run")
+        make_synthetic_benchmark(os.path.join(bench, "revisited"), n_classes=4, per_class=8,
+                                 n_junk=0, image_size=(288, 256), seed=5)
+        argv = ["--dataset", f"SyntheticLabels('{bench}')", "--arch", TRAIN_ARCH,
+                "--batch-size", "8", "--steps-per-epoch", "2", "--threads", "4",
+                "--out-dir", out, "--mesh", "1,1", "--ckpt-format", "orbax", "--gpu", str(gpu)]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", "1", "-m", "dirjax_torch.train", *argv,
+                              "--epochs", "2"], capture_output=True, text=True, cwd=REPO,
+                             timeout=300)
+        if res.returncode:
+            raise AssertionError(f"mesh train CLI exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+        epochs = [[int(e) for e in re.findall(r"^epoch (\d+): loss", res.stdout, re.M)]]
+        resumed = cli_train.main(argv + ["--epochs", "3", "--resume", os.path.join(out, "orbax")])
+        epochs.append([h["epoch"] for h in resumed])
+        with TrainCheckpointer(os.path.join(out, "orbax"), async_save=False) as ck:
+            steps = ck.all_steps()
+        seconds = time.perf_counter() - t0
+    if epochs != [[0, 1], [2]] or steps != [1, 2] or not np.isfinite(resumed[0]["loss"]):
+        raise AssertionError(f"mesh train CLI: epochs {epochs}, checkpoint steps {steps}")
+    print(f"sharded: train CLI --mesh 1,1 --ckpt-format orbax, under torchrun then resumed "
+          f"in-process: epochs {epochs}, steps kept {steps}, in {seconds:.1f} s")
+    return {"epochs": epochs, "steps": steps, "seconds": seconds}
+
+
 def cli_phase(device, work: str) -> None:
     """``python -m dirjax_torch.index build --int8``, ``--binary 2048``,
     ``--pq 32`` and ``--ivf 1024``, each then ``query``, as subprocesses (the
@@ -2153,13 +2488,16 @@ def main(argv=None) -> int:
         enter("serving")
         serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index,
                                          args.profile, card)
+        enter("sharded")
+        sharded_row, sharded_launches = sharded_phase(device, db16, db32, codec, pq_books,
+                                                      ivf_index, card)
         del db16, db32, ivf_index
         torch.cuda.empty_cache()
         enter("fit_pca_device")
         pca_row = fit_pca_phase(device)
         torch.cuda.empty_cache()
 
-        k1_by_path = {}
+        k1_by_path = {"sharded": sharded_launches["gem_head"]}
         with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
             enter("main path resnet101_rmac")
             t0 = time.perf_counter()
@@ -2215,13 +2553,16 @@ def main(argv=None) -> int:
         print("extraction side: " + json.dumps({"architectures": arch_rows, "folded_bn": folded_row,
                                                 "fit_pca_device": pca_row}))
         print("training: " + json.dumps(train_row))
+        print("sharded: " + json.dumps(sharded_row))
         print("phase seconds: " + json.dumps(seconds) +
               f"; total {time.perf_counter() - started:.1f} s")
 
         entries[0]["launches"] = sum(k1_by_path.values())
         entries[0]["launches_by_path"] = k1_by_path
         for entry in topk_entries + binary_entries + pq_entries:
-            entry["launches"] = serving_launches[entry["name"]]
+            by_path = {"serving": serving_launches[entry["name"]],
+                       "sharded": sharded_launches[entry["name"]]}
+            entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
         print(json.dumps({"kernels": entries + topk_entries + binary_entries + pq_entries}))
         print(card)
         print(json.dumps({"ok": True, "device": {

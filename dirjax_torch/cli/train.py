@@ -2,14 +2,25 @@
 descriptor model with the listwise AP loss (or batch-hard triplets) on a
 labeled dataset, BN frozen by default, and writes dirjax's native
 checkpoints, which ``python -m dirjax_torch.test_dir`` and
-``python -m dirjax.test_dir`` both read. Same flags as dirjax's but
-``--mesh`` and ``--ckpt-format`` (orbax): the sharded step and orbax
-checkpoints are ROADMAP M13. ``--gpu -1`` trains on the CPU; any other
-value on ``cuda:N``, which must exist.
+``python -m dirjax.test_dir`` both read. Same flags as dirjax's. ``--gpu -1``
+trains on the CPU; any other value on ``cuda:N``, which must exist.
 
-Example:
+``--mesh DATA[,DB]`` runs the sharded step (``fit(mesh=...)``) over every
+process of a ``torchrun`` world, whose size must equal DATA x DB; one
+process per device: ``--gpu -1`` runs gloo on the CPU, any other value
+NCCL on ``cuda:LOCAL_RANK``.
+Without a ``torchrun`` environment ``--mesh 1`` (or ``1,1``) runs a world
+of 1. ``--ckpt-format orbax`` writes sharded checkpoints with
+``torch.distributed.checkpoint`` under OUT_DIR/orbax (dirjax's option name;
+the format is torch's) and ``--resume`` takes that directory.
+
+Examples:
     python -m dirjax_torch.train --dataset Landmarks_clean --arch resnet101_rmac \\
         --loss ap --epochs 10 --batch-size 64 --out-dir runs/r101-ap --gpu 0
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m dirjax_torch.train --dataset "SyntheticLabels('/tmp/s')" \\
+        --arch resnet18_rmac --out-dim 16 --batch-size 4 --epochs 1 \\
+        --trfs "Scale(40), CenterCrop(32)" --out-dir /tmp/run --mesh 2 --gpu -1
 """
 
 from __future__ import annotations
@@ -69,7 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--delete-fc", action="store_true",
                         help="drop the checkpoint's FC (new out_dim)")
     parser.add_argument("--resume", type=str, default="",
-                        help="resume from a previous fit's checkpoint.npz")
+                        help="resume from a previous fit's checkpoint.npz "
+                             "(or its --ckpt-format orbax directory)")
+    parser.add_argument("--ckpt-format", type=str, default="npz",
+                        choices=("npz", "orbax"),
+                        help="npz: dirjax's native files, gathered to one "
+                             "process; orbax: sharded async checkpoints "
+                             "under OUT_DIR/orbax, written with "
+                             "torch.distributed.checkpoint (dirjax's name "
+                             "for the option; the format is torch's)")
     parser.add_argument("--out-dir", type=str, required=True)
     parser.add_argument("--threads", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
@@ -77,6 +96,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="CUDA device id; -1 selects the CPU")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 convolutions (fp32 parameters)")
+    parser.add_argument("--mesh", type=str, default="",
+                        help="train over a DATA[,DB] mesh of the torchrun "
+                             "world: the batch data-parallel over DATA "
+                             "ranks, the FC tensor-parallel over DB; e.g. "
+                             "'4,2', or '8' (pure data parallel)")
     return parser
 
 
@@ -86,7 +110,36 @@ def main(argv=None):
     from .common import setup_device
 
     args = build_parser().parse_args(argv)
-    device = setup_device(args.gpu)
+    owns_group = mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import axis_size, make_mesh, mesh_device
+
+        dims = [int(v) for v in args.mesh.split(",")]
+        if len(dims) not in (1, 2):
+            raise ValueError("--mesh takes 'data' or 'data,db'")
+        gpu = (args.gpu if isinstance(args.gpu, (list, tuple)) else [args.gpu])[0]
+        # as setup_device: fp32 convolutions and matmuls without TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        owns_group = not dist.is_initialized()
+        mesh = make_mesh(dims[0], dims[1] if len(dims) == 2 else 1,
+                         device_type="cpu" if gpu < 0 else "cuda")
+        device = mesh_device(mesh)
+        print(f"Mesh: data={axis_size(mesh, 'data')} x db={axis_size(mesh, 'db')} "
+              f"on {device}")
+    else:
+        device = setup_device(args.gpu)
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh):
+    import torch
 
     from .. import datasets
     from ..models import create_model, init_weights
@@ -125,7 +178,8 @@ def main(argv=None):
         dataset, cfg, val_dataset=val_dataset, model=model,
         out_dir=args.out_dir, dtype=dtype, resume=args.resume or None,
         steps_per_epoch=args.steps_per_epoch, progress=True,
-        eval_dataset=eval_dataset, eval_trfs=args.eval_trfs, device=device)
+        eval_dataset=eval_dataset, eval_trfs=args.eval_trfs, device=device,
+        mesh=mesh, ckpt_format=args.ckpt_format)
     for h in history:
         line = f"epoch {h['epoch']}: loss {h['loss']:.4f}"
         if "val_loss" in h:

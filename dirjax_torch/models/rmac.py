@@ -159,27 +159,40 @@ class RMACDescriptor(ResNet):
         drop = cfg.dropout_p is not None and train
         if drop and generator is None:
             raise ValueError("dropout_p with train=True needs a torch.Generator")
+        if (not train and cfg.fpn_mode is None and cfg.pooling.startswith("gem")
+                and cfg.center_bias == 0 and not cfg.norm_features and not cfg.without_fc):
+            x = self.features(images, dtype)
+            feat_mask = None
+            if mask is not None:
+                feat_mask = downsample_mask(mask, 32, x.shape[2], x.shape[3])
+            # the kernel widens bf16 itself and reads fc.weight in place
+            return fused_gem_head(x.permute(0, 2, 3, 1), self.adpool.p, self.fc.weight.T,
+                                  self.fc.bias, mask=feat_mask)
+        return self._tail(self.pooled(images, mask, dtype, generator if drop else None))
+
+    def pooled(self, images: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               dtype: torch.dtype = torch.float32,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The plain forward up to the tail: (B, C) pooled features, before
+        the feature L2, the FC and the L2 (what the tensor-parallel train
+        step projects itself). With a ``generator``, ``dropout_p`` drops the
+        backbone features first."""
+        cfg = self.cfg
         if cfg.fpn_mode is not None:
-            return self._tail(self._fpn_pool(images, mask, dtype,
-                                             generator if drop else None))
+            return self._fpn_pool(images, mask, dtype, generator)
         x = self.features(images, dtype)
-        if drop:
+        if generator is not None:
             x = _dropout(x, cfg.dropout_p, generator)
         nhwc = x.permute(0, 2, 3, 1)  # a view: x is channels_last
         feat_mask = None
         if mask is not None:
             feat_mask = downsample_mask(mask, 32, x.shape[2], x.shape[3])
         p = self.adpool.p if cfg.pooling.startswith("gem") else cfg.gemp
-        if (not train and cfg.pooling.startswith("gem") and cfg.center_bias == 0
-                and not cfg.norm_features and not cfg.without_fc):
-            # the kernel widens bf16 itself and reads fc.weight in place
-            return fused_gem_head(nhwc, p, self.fc.weight.T, self.fc.bias,
-                                  mask=feat_mask)
         if cfg.center_bias > 0:
             bias = center_bias_mask(nhwc.shape[1], nhwc.shape[2], cfg.center_bias,
                                     dtype=nhwc.dtype, device=nhwc.device)
             nhwc = nhwc * bias[None, :, :, None]
-        return self._tail(global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask))
+        return global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask)
 
     def _fpn_pool(self, images, mask, dtype, generator=None) -> torch.Tensor:
         """[d4, d5]: C4 (merged with C5 in fpn_mode 1) and C5, each pooled

@@ -52,7 +52,7 @@ from .topk import _RPB, _device, _hier_select, _run, _topk
 
 __all__ = ["BinaryCodec", "fit_itq", "binarize", "project_queries",
            "binarize_and_project", "unpack_pm1", "bytes_for_search",
-           "hamming_topk", "hamming_topk_mxu", "hamming_search_fused",
+           "hamming_topk", "hamming_topk_mxu", "hamming_search_fused", "asym_rescore",
            "bits_finemax", "bits_gather_scores", "bits_finemax_reference",
            "bits_gather_scores_reference", "launches"]
 
@@ -421,6 +421,28 @@ def hamming_topk(q_packed, db_packed, k: int, *, n_valid: Optional[int] = None):
         v, pos = _topk(cand[0], k)
         best = (v, torch.gather(cand[1], 1, pos))
     return best
+
+
+def asym_rescore(vq, codes, idxs, k: int):
+    """Asymmetric rescore of a Hamming shortlist (dirjax's ``asym_rescore``):
+    the continuous fp32 projected queries ``vq`` (:func:`project_queries`,
+    not rounded to bf16) against the ±1 unpacked codes of each query's
+    candidate rows ``idxs`` (nq, c), an fp32 product over the shortlist.
+    Slots of -1 are ignored. Returns the top ``min(k, c)`` (values, int64
+    indices) of the shortlist, -inf/-1 where fewer candidates are real."""
+    codes = _to_bytes(codes)
+    vq = _as_tensor(vq).to(codes.device, torch.float32)
+    idxs = _as_tensor(idxs).to(codes.device, torch.int64)
+    nq, c = idxs.shape
+    scores = torch.empty((nq, c), device=codes.device)
+    step = max(1, (1 << 24) // max(c * codes.shape[1] * 8, 1))
+    for i in range(0, nq, step):
+        cand = unpack_pm1(codes[idxs[i:i + step].clamp_min(0)])   # (b, c, bits)
+        scores[i:i + step] = torch.bmm(cand, vq[i:i + step, :, None])[:, :, 0]
+    scores = torch.where(idxs >= 0, scores, _NEG)
+    vals, pos = _topk(scores, min(k, c))
+    sel = torch.gather(idxs, 1, pos)
+    return vals, torch.where(torch.isfinite(vals), sel, -1)
 
 
 def hamming_topk_mxu(q_packed, db_bytes, k: int, *, n_valid: Optional[int] = None,

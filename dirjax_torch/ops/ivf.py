@@ -30,8 +30,9 @@ dirjax's files hold them). Training samples come from a ``torch.Generator``
 (it cannot reproduce ``jax.random``'s draws). The union path gathers only
 the distinct probed cells (dirjax gathers every probe and masks repeats, a
 static-shape rule); the surviving slabs keep dirjax's order, so ties break
-alike. Not carried over: ``mesh=`` sharding, the 12-bit row-id split of the
-one-hot select, and the union's Pallas geometry fallback.
+alike. An inverted file is sharded over a mesh by
+:func:`dirjax_torch.parallel.ranking.shard_ivf`. Not carried over: the 12-bit
+row-id split of the one-hot select, and the union's Pallas geometry fallback.
 """
 
 from __future__ import annotations

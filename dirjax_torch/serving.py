@@ -25,10 +25,22 @@
 * ``save``/``load`` use dirjax's ``.npz`` layout, so an index file written
   by either package loads in the other; :meth:`RetrievalIndex.load` opens a
   binary, PQ or IVF file as its class, as dirjax's does.
+* ``mesh=`` (a :mod:`dirjax_torch.parallel` mesh) row-shards the database
+  of :class:`RetrievalIndex`, :class:`BinaryIndex` and :class:`PQIndex`
+  over the mesh's "db" axis, on each rank's device (``cuda:LOCAL_RANK``, or
+  the CPU for a ``"cpu"`` mesh), and searches through the sharded tiers of
+  :mod:`dirjax_torch.parallel.ranking`. Every rank makes the same calls
+  and gets the same answers. ``add``, ``compact`` and ``save`` gather the
+  shards (one pass over the database; ``add`` and ``compact`` re-shard);
+  rank 0 writes the file. A binary mesh search rescores a symmetric shortlist of
+  ``rerank_factor * k`` rows a rank, as dirjax's mesh path does, where the
+  single-chip search is exact. :class:`IVFPQIndex` stays single-chip, as
+  dirjax's does: IVF on a mesh goes through
+  :func:`~dirjax_torch.parallel.ranking.shard_ivf`.
 
-Not ported: ``mesh=`` (ROADMAP M13), dirjax's query-count buckets, which
-exist only because XLA compiles per shape (nothing here does), and its
-packed single pull of values and indices.
+Not ported: dirjax's query-count buckets, which exist only because XLA
+compiles per shape (nothing here does), and its packed single pull of
+values and indices.
 """
 
 from __future__ import annotations
@@ -37,8 +49,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .ops.binary import (BinaryCodec, _to_bytes, binarize, fit_itq,
+from .ops.binary import (BinaryCodec, _to_bytes, binarize, binarize_and_project, fit_itq,
                          hamming_search_fused)
 from .ops.ivf import IVFArrays, bin_ivf, build_ivf, ivf_assign, ivf_topk, unbin_ivf
 from .ops.pq import (encode_pq, pq_lookup, pq_topk, reconstruct_pq, train_opq,
@@ -46,6 +59,8 @@ from .ops.pq import (encode_pq, pq_lookup, pq_topk, reconstruct_pq, train_opq,
 from .ops.qe import (_drop_excluded, _weights, expand_queries_chunked,
                      expand_queries_quantized)
 from .ops.topk import _topk, quantize_db, rank_topk_fused
+from .parallel import ranking as shr
+from .parallel.mesh import mesh_device
 
 __all__ = ["RetrievalIndex", "BinaryIndex", "PQIndex", "IVFPQIndex"]
 
@@ -80,6 +95,7 @@ class _Tombstones:
     _removed = None            # np.bool_ (n,), None until the first remove()
     _n_removed = 0
     _removed_dev = None        # lazy device copy for the expansion filter
+    mesh = None                # a DeviceMesh: the rows are sharded over "db"
 
     @property
     def n_removed(self) -> int:
@@ -118,9 +134,10 @@ class _Tombstones:
         self._removed_dev = None
         return newly
 
-    def _set_rows(self, descriptors, keys, device) -> torch.Tensor:
+    def _set_rows(self, descriptors, keys, device, mesh=None) -> torch.Tensor:
         """Validate (N, D) descriptors and their keys; set ``n``, ``dim``,
-        ``keys`` and ``device``. Returns the descriptors as a tensor."""
+        ``keys``, ``mesh`` and ``device`` (the rank's, on a mesh). Returns the
+        descriptors as a tensor."""
         descs = _as_tensor(descriptors)
         if descs.dim() != 2:
             raise ValueError(f"descriptors must be (N, D), got {tuple(descs.shape)}")
@@ -128,8 +145,28 @@ class _Tombstones:
         self.keys = list(keys) if keys is not None else None
         if self.keys is not None and len(self.keys) != self.n:
             raise ValueError(f"{len(self.keys)} keys for {self.n} descriptors")
-        self.device = torch.device(device)
+        self._set_mesh(mesh, device)
         return descs
+
+    def _set_mesh(self, mesh, device) -> None:
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh_device(mesh)
+
+    def _writes(self) -> bool:
+        """Whether this process writes the index file: always off a mesh,
+        rank 0 on one."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _written(self) -> None:
+        """On a mesh, wait until rank 0 has written the file: a rank's
+        ``save`` returns when the file exists."""
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _gathered(self, local: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The first ``n`` rows (columns for ``dim=1``) of the "db" shards."""
+        full = shr.gather_shards(local, self.mesh, "db", dim=dim)
+        return full[:self.n] if dim == 0 else full[:, :self.n]
 
     def _new_rows(self, descriptors, keys) -> torch.Tensor:
         """Validate rows (and keys) for ``add``; returns them as a tensor."""
@@ -212,19 +249,46 @@ class RetrievalIndex(_Tombstones):
     """Dot-product top-k search over a descriptor database on ``device``.
 
     ``dtype`` is ``torch.float32``, ``torch.bfloat16`` or ``torch.int8``
-    (per-row quantized, :func:`.ops.topk.quantize_db`)."""
+    (per-row quantized, :func:`.ops.topk.quantize_db`). ``mesh=``: rows
+    (and int8 scales) sharded over the mesh's "db" axis."""
 
     def __init__(self, descriptors, keys: Optional[Sequence[str]] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda", mesh=None):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
-        descs = self._set_rows(descriptors, keys, device)
+        descs = self._set_rows(descriptors, keys, device, mesh)
         self.dtype = dtype
         self._scales = None
         if dtype == torch.int8:
-            self._db, self._scales = quantize_db(descs.to(self.device))
-        else:
+            self._set_int8(*quantize_db(descs.to(self.device)))
+        elif mesh is None:
             self._db = descs.to(self.device, dtype).contiguous()
+        else:
+            self._set_float(descs)
+
+    def _set_float(self, rows: torch.Tensor) -> None:
+        """Place full float rows: this rank's slice on a mesh."""
+        if self.mesh is None:
+            self._db = rows.to(self.device, self.dtype).contiguous()
+            return
+        local, self._n_valid = shr.shard_database(rows, self.mesh)
+        self._db = local.to(self.dtype)
+
+    def _set_int8(self, rows: torch.Tensor, scales: torch.Tensor) -> None:
+        """Place full int8 rows and their (1, n) scales, as they are: this
+        rank's slices on a mesh (pad rows carry scale 0)."""
+        if self.mesh is None:
+            self._db, self._scales = rows.to(self.device), scales.to(self.device)
+            return
+        self._db, self._n_valid = shr.shard_database(rows, self.mesh)
+        self._scales = shr.shard_database(scales.reshape(-1, 1), self.mesh)[0].reshape(1, -1)
+
+    def _full(self):
+        """(rows, scales or None) of the whole index on this device."""
+        if self.mesh is None:
+            return self._db, self._scales
+        scales = None if self._scales is None else self._gathered(self._scales, dim=1)
+        return self._gathered(self._db), scales
 
     # --- search ---------------------------------------------------------
     def search(self, queries, k: int = 10, *, aqe: Optional[dict] = None,
@@ -251,6 +315,8 @@ class RetrievalIndex(_Tombstones):
         return self._tomb_filter(vals, idxs, k)
 
     def _search(self, q, k: int, aqe: Optional[dict], int8_queries: bool):
+        if self.mesh is not None:
+            return self._search_mesh(q, k, aqe, int8_queries)
         if self._scales is not None:
             q = q.to(self.device, torch.float32)
             if aqe:
@@ -268,55 +334,85 @@ class RetrievalIndex(_Tombstones):
             vals, idxs = rank_topk_fused(q, self._db, k)
         return vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
 
+    def _search_mesh(self, q, k: int, aqe: Optional[dict], int8_queries: bool):
+        """AQE against the shards, then the sharded top-k (the single-device
+        contract: ``k`` at most ``n``). A float index takes the query at its
+        own dtype into the expansion, as its single-device search does
+        (dirjax's mesh path expands the fp32 query of a bf16 index)."""
+        if k > self.n:
+            raise ValueError(f"k={k} exceeds the {self.n} database rows")
+        q = q.to(self.device, torch.float32 if self._scales is not None else self.dtype)
+        if aqe:
+            q = shr.sharded_aqe(q, self._db, self.mesh, self._n_valid, alpha=aqe["alpha"],
+                                k=aqe["k"], db_scales=self._scales,
+                                **self._tomb_aqe_kwargs())
+            if self._scales is None:
+                q = q.to(self.dtype)
+        vals, idxs = shr.sharded_topk(q, self._db, k, self.mesh, self._n_valid,
+                                      db_scales=self._scales,
+                                      quantize_queries=self._scales is not None and int8_queries)
+        return vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
+
     # --- mutation -------------------------------------------------------
     def add(self, descriptors, keys: Optional[Sequence[str]] = None) -> None:
         """Append rows (and keys, for a keyed index). An int8 index quantizes
-        the new rows with their own scales; existing rows are untouched."""
+        the new rows with their own scales; existing rows are untouched. A
+        mesh index gathers its shards and re-shards."""
         new = self._new_rows(descriptors, keys)
+        rows, scales = self._full()
         if self._scales is not None:
             q8, s8 = quantize_db(new.to(self.device))
-            self._db = torch.cat([self._db, q8])
-            self._scales = torch.cat([self._scales, s8], dim=1)
+            self._set_int8(torch.cat([rows, q8]), torch.cat([scales, s8], dim=1))
         else:
-            self._db = torch.cat([self._db, new.to(self.device, self.dtype)])
+            self._set_float(torch.cat([rows, new.to(self.device, self.dtype)]))
         self._append_keys(keys, len(new))
 
     def _compact_rows(self, keep_idx: np.ndarray) -> None:
         keep = torch.from_numpy(keep_idx).to(self.device)
-        self._db = self._db[keep]
+        rows, scales = self._full()
         if self._scales is not None:
-            self._scales = self._scales[:, keep].contiguous()
+            self._set_int8(rows[keep], scales[:, keep].contiguous())
+        else:
+            self._set_float(rows[keep])
 
     # --- persistence ----------------------------------------------------
     def save(self, path: str) -> None:
         """int8 indexes persist quantized (rows and (1, n) scales), others as
-        fp32 rows; tombstones as packed bits. dirjax's layout."""
-        arrays = {}
-        self._tomb_save(arrays)
-        if self._scales is not None:
-            arrays["descriptors_i8"] = self._db.cpu().numpy()
-            arrays["scales"] = self._scales.cpu().numpy()
-        else:
-            arrays["descriptors"] = self._db.float().cpu().numpy()
-        if self.keys is not None:
-            arrays["keys"] = np.asarray(self.keys)
-        with open(path, "wb") as f:
-            np.savez(f, **arrays)
+        fp32 rows; tombstones as packed bits. dirjax's layout. A mesh index
+        gathers its shards on every rank; rank 0 writes."""
+        rows, scales = self._full()
+        if self._writes():
+            arrays = {}
+            self._tomb_save(arrays)
+            if scales is not None:
+                arrays["descriptors_i8"] = rows.cpu().numpy()
+                arrays["scales"] = scales.cpu().numpy()
+            else:
+                arrays["descriptors"] = rows.float().cpu().numpy()
+            if self.keys is not None:
+                arrays["keys"] = np.asarray(self.keys)
+            with open(path, "wb") as f:
+                np.savez(f, **arrays)
+        self._written()
 
     @classmethod
     def load(cls, path: str, dtype: Optional[torch.dtype] = None,
-             device="cuda"):
+             device="cuda", mesh=None):
         """``dtype=None`` keeps the stored representation: an int8 archive
         loads as int8 without requantizing, an fp32 one as fp32. A binary,
         PQ or IVF archive loads as a :class:`BinaryIndex`, :class:`PQIndex`
-        or :class:`IVFPQIndex`."""
+        or :class:`IVFPQIndex`. ``mesh=`` shards what it loads (an IVF file
+        is refused: that index is single-chip)."""
         with np.load(path, allow_pickle=False) as data:
             if "ivf_codes" in data.files:
+                if mesh is not None:
+                    raise ValueError(f"{path} is an IVF-PQ index, which is single-chip; "
+                                     "shard its inverted file with parallel.shard_ivf")
                 return IVFPQIndex.load(path, device=device)
             if "pq_codes" in data.files:
-                return PQIndex.load(path, device=device)
+                return PQIndex.load(path, device=device, mesh=mesh)
             if "binary_codes" in data.files:
-                return BinaryIndex.load(path, device=device)
+                return BinaryIndex.load(path, device=device, mesh=mesh)
             keys = [str(k) for k in data["keys"]] if "keys" in data else None
             quantized = "descriptors_i8" in data
             rows = data["descriptors_i8" if quantized else "descriptors"]
@@ -326,14 +422,13 @@ class RetrievalIndex(_Tombstones):
             idx = cls.__new__(cls)
             idx.n, idx.dim = rows.shape
             idx.keys = keys
-            idx.device = torch.device(device)
+            idx._set_mesh(mesh, device)
             idx.dtype = torch.int8
-            idx._db = torch.from_numpy(rows).to(idx.device)
-            idx._scales = torch.from_numpy(scales).to(idx.device)
+            idx._set_int8(torch.from_numpy(rows), torch.from_numpy(scales))
         else:
             if quantized:   # a float index from an int8 archive: dequantize
                 rows = rows.astype(np.float32) * scales.T
-            idx = cls(rows, keys=keys, device=device,
+            idx = cls(rows, keys=keys, device=device, mesh=mesh,
                       dtype=torch.float32 if dtype is None else dtype)
         idx._tomb_restore(removed)
         return idx
@@ -349,27 +444,39 @@ class BinaryIndex(_Tombstones):
     by the exact asymmetric score, the continuous projected query against
     the ±1 codes; ``asym=False`` by the symmetric ``n_bits - 2*hamming``
     (exact integers, so ties are common: tie-broken indices rank the lower
-    candidate first). Codes are stored unpadded in the byte layout."""
+    candidate first). Codes are stored unpadded in the byte layout; on a
+    mesh (``mesh=``) each rank keeps its slice, padded as
+    :func:`~dirjax_torch.parallel.ranking.shard_codes_binary` pads it."""
 
     def __init__(self, descriptors, n_bits: Optional[int] = None,
                  keys: Optional[Sequence[str]] = None, *, itq_iters: int = 30,
                  asym: bool = True, seed: int = 0, sample: Optional[int] = 131072,
-                 device="cuda", _codec: Optional[BinaryCodec] = None):
-        descs = self._set_rows(descriptors, keys, device).to(device, torch.float32)
+                 device="cuda", mesh=None, _codec: Optional[BinaryCodec] = None):
+        descs = self._set_rows(descriptors, keys, device, mesh).to(self.device, torch.float32)
         self.asym = bool(asym)
         if _codec is None:
             _codec = fit_itq(descs, n_bits, iters=itq_iters, seed=seed, sample=sample)
         self.codec = BinaryCodec(*(t.to(self.device, torch.float32) for t in _codec))
-        self._codes = binarize(descs, self.codec)
+        self._set_codes(binarize(descs, self.codec))
 
     n_bits = property(lambda self: self.codec.n_bits)
+
+    def _set_codes(self, codes: torch.Tensor) -> None:
+        """Place the full byte codes: this rank's slice on a mesh."""
+        self._codes = codes if self.mesh is None else \
+            shr.shard_codes_binary(codes, self.mesh)[0]
+
+    def _all_codes(self) -> torch.Tensor:
+        return self._codes if self.mesh is None else self._gathered(self._codes)
 
     # --- search ---------------------------------------------------------
     def search(self, queries, k: int = 10, *, rerank_factor: int = 4
                ) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k (fp32 scores, int32 indices) per query row, as numpy. Every
-        search is exact under its score; ``rerank_factor`` sizes dirjax's
-        mesh shortlist and is ignored, as on dirjax's single chip."""
+        """Top-k (fp32 scores, int32 indices) per query row, as numpy. A
+        single-device search is exact under its score and ignores
+        ``rerank_factor``, as dirjax's single chip does; on a mesh, an
+        asymmetric index rescores each rank's symmetric shortlist of
+        ``rerank_factor * k`` rows (dirjax's mesh path)."""
         q = _as_tensor(queries)
         if q.dim() == 1:
             q = q[None, :]
@@ -378,9 +485,15 @@ class BinaryIndex(_Tombstones):
         if k > self.n:
             raise ValueError(f"k={k} exceeds the {self.n} database rows")
         pad = self._tomb_pad() if self.n_removed else 0
-        vals, idxs = hamming_search_fused(q.to(self.device, torch.float32),
-                                          self.codec, self._codes,
-                                          min(k + pad, self.n), asym=self.asym)
+        q = q.to(self.device, torch.float32)
+        if self.mesh is None:
+            vals, idxs = hamming_search_fused(q, self.codec, self._codes,
+                                              min(k + pad, self.n), asym=self.asym)
+        else:
+            qb, vq = binarize_and_project(q, self.codec)
+            vals, idxs = shr.sharded_hamming_topk(
+                qb, self._codes, min(k + pad, self.n), self.mesh, self.n,
+                vq=vq if self.asym else None, rerank_factor=rerank_factor)
         vals, idxs = vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
         if pad:
             vals, idxs = self._tomb_filter(vals, idxs, k)
@@ -390,30 +503,33 @@ class BinaryIndex(_Tombstones):
     def add(self, descriptors, keys: Optional[Sequence[str]] = None) -> None:
         """Encode new rows with the existing codec and append them."""
         new = self._new_rows(descriptors, keys)
-        self._codes = torch.cat([self._codes, binarize(new, self.codec)])
+        self._set_codes(torch.cat([self._all_codes(), binarize(new, self.codec)]))
         self._append_keys(keys, len(new))
 
     def _compact_rows(self, keep_idx: np.ndarray) -> None:
-        self._codes = self._codes[torch.from_numpy(keep_idx).to(self.device)]
+        self._set_codes(self._all_codes()[torch.from_numpy(keep_idx).to(self.device)])
 
     # --- persistence ----------------------------------------------------
     def save(self, path: str) -> None:
         """One npz in dirjax's layout: uint32 code words, the codec, the
-        score mode, keys and tombstones."""
-        arrays = {
-            "binary_codes": self._codes.cpu().numpy().view("<u4"),
-            "binary_mean": self.codec.mean.cpu().numpy(),
-            "binary_proj": self.codec.proj.cpu().numpy(),
-            "binary_asym": np.asarray(int(self.asym)),
-        }
-        self._tomb_save(arrays)
-        if self.keys is not None:
-            arrays["keys"] = np.asarray(self.keys)
-        with open(path, "wb") as f:
-            np.savez(f, **arrays)
+        score mode, keys and tombstones (rank 0 writes a mesh index)."""
+        codes = self._all_codes()
+        if self._writes():
+            arrays = {
+                "binary_codes": codes.cpu().numpy().view("<u4"),
+                "binary_mean": self.codec.mean.cpu().numpy(),
+                "binary_proj": self.codec.proj.cpu().numpy(),
+                "binary_asym": np.asarray(int(self.asym)),
+            }
+            self._tomb_save(arrays)
+            if self.keys is not None:
+                arrays["keys"] = np.asarray(self.keys)
+            with open(path, "wb") as f:
+                np.savez(f, **arrays)
+        self._written()
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "BinaryIndex":
+    def load(cls, path: str, device="cuda", mesh=None) -> "BinaryIndex":
         with np.load(path, allow_pickle=False) as data:
             codes = data["binary_codes"]
             mean, proj = data["binary_mean"], data["binary_proj"]
@@ -424,10 +540,10 @@ class BinaryIndex(_Tombstones):
         idx.n, idx.dim = len(codes), int(mean.shape[0])
         idx.keys = keys
         idx.asym = asym
-        idx.device = torch.device(device)
+        idx._set_mesh(mesh, device)
         idx.codec = BinaryCodec(torch.from_numpy(mean).to(idx.device, torch.float32),
                                 torch.from_numpy(proj).to(idx.device, torch.float32))
-        idx._codes = _to_bytes(codes).to(idx.device)
+        idx._set_codes(_to_bytes(codes).to(idx.device))
         idx._tomb_restore(removed)
         return idx
 
@@ -534,8 +650,8 @@ class _ADCIndex(_Tombstones):
         with open(path, "wb") as f:
             np.savez(f, **arrays)
 
-    def _load_common(self, data, n: int, device) -> None:
-        self.device = torch.device(device)
+    def _load_common(self, data, n: int, device, mesh=None) -> None:
+        self._set_mesh(mesh, device)
         self.n = n
         self.keys = [str(k) for k in data["keys"]] if "keys" in data else None
         self.codebooks = torch.from_numpy(data["pq_codebooks"]).to(self.device, torch.float32)
@@ -559,14 +675,16 @@ class PQIndex(_ADCIndex):
     ADC candidates exactly against the unrotated query.
     ``compute_dtype=torch.bfloat16`` rounds the ADC tables to bf16.
     ``_trained=(rotation, codebooks)`` skips training (a rotation may be
-    None). Codes are stored unpadded; K6 masks rows >= n itself."""
+    None). Codes are stored unpadded; K6 masks rows >= n itself. ``mesh=``:
+    codes sharded over the mesh's "db" axis; the int8 rerank rows, the
+    codebooks and the rotation are whole on every rank."""
 
     def __init__(self, descriptors, m: int = 32, ksub: int = 16,
                  keys: Optional[Sequence[str]] = None, *, opq: bool = False,
                  rerank: bool = False, train_iters: int = 25, seed: int = 0,
                  sample: Optional[int] = 262144, compute_dtype=None, device="cuda",
-                 _trained=None):
-        descs = self._set_rows(descriptors, keys, device).to(device, torch.float32)
+                 mesh=None, _trained=None):
+        descs = self._set_rows(descriptors, keys, device, mesh).to(self.device, torch.float32)
         self.compute_dtype = compute_dtype
         if _trained is not None:
             rotation, codebooks = _trained
@@ -580,18 +698,29 @@ class PQIndex(_ADCIndex):
         else:
             self.codebooks = train_pq(descs, m, ksub, iters=train_iters, seed=seed,
                                       sample=sample)
-        self._codes = self._encode(descs)
+        self._set_codes(self._encode(descs))
         self._set_rerank(descs, rerank)
+
+    def _set_codes(self, codes: torch.Tensor) -> None:
+        """Place the full codes: this rank's slice on a mesh."""
+        if self.mesh is None:
+            self._codes = codes.to(self.device).contiguous()
+        else:
+            self._codes, self._n_valid = shr.shard_codes(codes, self.mesh)
+
+    def _all_codes(self) -> torch.Tensor:
+        return self._codes if self.mesh is None else self._gathered(self._codes)
 
     @classmethod
     def from_codes(cls, codebooks, codes, *, keys: Optional[Sequence[str]] = None,
-                   rotation=None, compute_dtype=None, device="cuda") -> "PQIndex":
+                   rotation=None, compute_dtype=None, device="cuda",
+                   mesh=None) -> "PQIndex":
         """An index of pre-encoded rows: ``codebooks`` (m, ksub, D/m) from
         :func:`.ops.pq.train_pq` and ``codes`` (n, m) uint8 from
         :func:`.ops.pq.encode_pq`. No training; no int8 rescore (it needs
         the original rows)."""
         self = cls.__new__(cls)
-        self.device = torch.device(device)
+        self._set_mesh(mesh, device)
         self.compute_dtype = compute_dtype
         self.codebooks = _as_tensor(codebooks).to(self.device, torch.float32)
         self.rotation = None if rotation is None else \
@@ -605,7 +734,7 @@ class PQIndex(_ADCIndex):
         self.keys = list(keys) if keys is not None else None
         if self.keys is not None and len(self.keys) != self.n:
             raise ValueError(f"{len(self.keys)} keys for {self.n} codes")
-        self._codes = codes.to(self.device).contiguous()
+        self._set_codes(codes)
         self._rerank_db = self._rerank_scales = None
         return self
 
@@ -628,6 +757,9 @@ class PQIndex(_ADCIndex):
 
     def _adc_topk(self, q, k: int):
         luts = pq_lookup(self._rotate_queries(q), self.codebooks)
+        if self.mesh is not None:
+            return shr.sharded_pq_topk(luts, self._codes, k, self.mesh, self._n_valid,
+                                       compute_dtype=self.compute_dtype)
         return pq_topk(luts, self._codes, k, compute_dtype=self.compute_dtype)
 
     def _expand_queries(self, q, k: int, alpha: float) -> torch.Tensor:
@@ -636,7 +768,13 @@ class PQIndex(_ADCIndex):
         k = min(int(k), self.n)
         pad = self._tomb_pad() if self.n_removed else 0
         vals, idxs = self._neighbours(*self._adc_topk(q, min(k + pad, self.n)), k)
-        nb = reconstruct_pq(self._codes[idxs.clamp_min(0).reshape(-1)], self.codebooks)
+        if self.mesh is None:
+            codes = self._codes[idxs.clamp_min(0).reshape(-1)]
+        else:   # each rank fills the neighbours it holds
+            codes = shr.gather_rows(self._codes, idxs.clamp_min(0), self.mesh, self.n,
+                                    transform=lambda rows, _: rows.int())
+            codes = codes.to(torch.uint8).reshape(-1, self.m)
+        nb = reconstruct_pq(codes, self.codebooks)
         return self._expanded(q, vals, idxs, nb.reshape(*idxs.shape, self.dim), k, alpha)
 
     # --- mutation -------------------------------------------------------
@@ -644,31 +782,35 @@ class PQIndex(_ADCIndex):
         """Encode new rows with the existing codebooks (and rotation) and
         append them."""
         new = self._new_rows(descriptors, keys).to(self.device, torch.float32)
-        self._codes = torch.cat([self._codes, self._encode(new)])
+        self._set_codes(torch.cat([self._all_codes(), self._encode(new)]))
         self._grow_rerank(new)
         self._append_keys(keys, len(new))
 
     def _compact_rows(self, keep_idx: np.ndarray) -> None:
         keep = torch.from_numpy(keep_idx).to(self.device)
-        self._codes = self._codes[keep]
+        self._set_codes(self._all_codes()[keep])
         self._compact_rerank(keep)
 
     # --- persistence ----------------------------------------------------
     def save(self, path: str) -> None:
         """One npz in dirjax's layout: codes, codebooks, and the rotation,
-        int8 rerank rows, keys and tombstones where present."""
-        self._save_common({"pq_codes": self._codes.cpu().numpy()}, path)
+        int8 rerank rows, keys and tombstones where present (rank 0 writes
+        a mesh index)."""
+        codes = self._all_codes()
+        if self._writes():
+            self._save_common({"pq_codes": codes.cpu().numpy()}, path)
+        self._written()
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "PQIndex":
+    def load(cls, path: str, device="cuda", mesh=None) -> "PQIndex":
         idx = cls.__new__(cls)
         with np.load(path, allow_pickle=False) as data:
             codes = data["pq_codes"]
-            idx._load_common(data, len(codes), device)
+            idx._load_common(data, len(codes), device, mesh)
         if codes.shape[1] != idx.m:
             raise ValueError(f"{path}: codes of {codes.shape[1]} subspaces for "
                              f"{idx.m} codebooks")
-        idx._codes = torch.from_numpy(codes).to(idx.device)
+        idx._set_codes(torch.from_numpy(codes))
         return idx
 
 

@@ -1,6 +1,5 @@
 """Training: AP-loss fine-tuning of descriptor models (counterpart of
-``dirjax/train.py``, without its sharded step and orbax checkpoints, which
-belong to ROADMAP M13).
+``dirjax/train.py``).
 
 * listwise AP-loss on in-batch similarity matrices (each image queries the
   rest of the batch — the Siamese multi-crop recipe of Revaud et al.), or
@@ -18,7 +17,11 @@ belong to ROADMAP M13).
 * checkpoint/resume in dirjax's native npz format (which dirjax's
   ``load_native`` reads) with the reference's ``.best`` copy, and the
   optimizer state in ``checkpoint.npz.opt``, an npz of named arrays that
-  belongs to the port.
+  belongs to the port; or sharded checkpoints of
+  :mod:`.utils.dist_ckpt` (``ckpt_format="orbax"``, dirjax's name),
+* the sharded step (:func:`make_sharded_train_step`, ``fit(mesh=...)``):
+  data parallel over the mesh's "data" axis and the FC tensor parallel over
+  "db", computing exactly the unsharded step, as dirjax's GSPMD step does.
 
 On the card the step runs the backbone forward and backward on cuDNN and the
 plain GeM -> FC -> L2 head (the fused kernel K1 has no backward and is
@@ -34,23 +37,29 @@ import json
 import math
 import os
 import shutil
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import loss as losses
 from .data.loader import BalancedSampler, get_loader, iterate_batches
 from .models import RMACDescriptor, create_model, init_weights
 from .models.resnet import BatchNormAffine
+from .ops.normalize import l2_normalize
+from .parallel.mesh import axis_rank, axis_size, mesh_device
+from .parallel.ranking import gather_shards
 from .utils.checkpoints import Checkpoint, load_native, save_native
 
 __all__ = ["TrainConfig", "make_loss", "batch_ap_loss", "make_lr_schedule",
            "make_two_pass_train_step", "make_batch_objective",
            "batch_hard_triplet_loss", "make_optimizer", "make_train_step",
+           "make_sharded_train_step", "shard_fc", "unshard_fc",
            "fit", "save_checkpoint", "evaluate_val_loss", "evaluate_retrieval"]
 
 
@@ -340,6 +349,219 @@ def make_two_pass_train_step(model: RMACDescriptor, cfg: TrainConfig,
     return step
 
 
+# --------------------------------------------------------------------------
+# the sharded step: DP over "data", the FC's TP over "db"
+# --------------------------------------------------------------------------
+
+class _Copy(torch.autograd.Function):
+    """Megatron's input function of a column-parallel layer: identity
+    forward, ``all_reduce(SUM)`` of the gradient over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """``all_gather`` of each rank's part along ``dim`` over a mesh axis
+    forward, this rank's slice of the gradient backward: every rank of the
+    axis computes the same function of the gathered tensor, so its own
+    slice of that function's gradient is the whole gradient of its part."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.width, ctx.index = dim, x.shape[dim], axis_rank(mesh, axis)
+        return gather_shards(x, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width).contiguous(), None, None, None
+
+
+def _sharded_descriptors(model: RMACDescriptor, x, dtype, mesh):
+    """The training forward of this rank's images with the FC split over
+    "db" (this rank holds its rows of ``fc.weight`` and ``fc.bias``): the
+    pooled features enter through :class:`_Copy`, the partial projections
+    leave through :class:`_Gather`, and the L2 is taken on the full vector."""
+    cfg = model.cfg
+    d = model.pooled(x, dtype=dtype)
+    if cfg.norm_features:
+        d = l2_normalize(d, dim=1)
+    if not cfg.without_fc:
+        d = _Copy.apply(d.float(), mesh.get_group("db"))
+        d = _Gather.apply(d @ model.fc.weight.T + model.fc.bias, mesh, "db", 1)
+    return l2_normalize(d, dim=-1)
+
+
+def _sum_gradients(model: nn.Module, mesh) -> None:
+    """``all_reduce(SUM)`` of every gradient over "data", in one buffer:
+    each rank's gradient is its slice's share of the global loss's."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.get_group("data"))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def make_sharded_train_step(model: RMACDescriptor, cfg: TrainConfig,
+                            optimizer: torch.optim.Optimizer, mesh, dtype=torch.float32):
+    """The SPMD train step on a ("data", "db") mesh: ``step(images, labels)
+    -> loss``, every rank given the same global batch, which must divide by
+    the "data" size. It computes exactly the unsharded step, as dirjax's
+    GSPMD step does (``dirjax/train.py:295-353``):
+
+    * DP over "data": each rank forwards its contiguous slice of the batch;
+      the descriptors are all-gathered (:class:`_Gather`), every rank takes
+      the listwise loss over the GLOBAL batch, and the gradients are summed
+      over "data" (a per-rank loss with averaged gradients, as DDP would
+      take it, is another loss);
+    * TP over "db": ``model``'s FC must hold this rank's output rows
+      (:func:`shard_fc`, before the optimizer's first step); every other
+      tensor is whole on every rank. The optimizers act element by element,
+      so a rank's update of its rows is the slice of the full update;
+    * ``cfg.microbatch``: the two-pass step on the rank's slice, in
+      microbatches of ``microbatch / data`` rows (:func:`make_two_pass_train_step`),
+      with the descriptors gathered before the loss.
+
+    BN is affine in the training forward (no batch statistics), so no rank
+    needs another's activations."""
+    batch_obj = make_batch_objective(cfg)
+    m = cfg.microbatch
+    if m and cfg.batch_size % m:
+        raise ValueError(f"microbatch {m} must divide batch_size {cfg.batch_size}")
+    n_data, r = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    m_local = max(1, m // n_data)
+    if not model.cfg.without_fc and \
+            model.fc.weight.shape[0] * axis_size(mesh, "db") != model.cfg.out_dim:
+        raise ValueError("the FC must hold this rank's rows over db: call "
+                         "shard_fc(model, optimizer, mesh) first")
+
+    def step(images, labels):
+        if len(images) % n_data:
+            raise AssertionError(f"a batch of {len(images)} must divide by data axis {n_data}")
+        b = len(images) // n_data
+        x, y = _device_batch(model, images[r * b:(r + 1) * b], labels)
+        optimizer.zero_grad(set_to_none=True)
+        if m:
+            loss_val = _sharded_two_pass(model, x, y, batch_obj, m_local, dtype, mesh)
+        else:
+            descs = _Gather.apply(_sharded_descriptors(model, x, dtype, mesh), mesh, "data", 0)
+            loss_val = batch_obj(descs, y)
+            loss_val.backward()
+            loss_val = loss_val.detach()
+        _sum_gradients(model, mesh)
+        optimizer.step()
+        return loss_val
+
+    return step
+
+
+def _sharded_two_pass(model, x, y, objective, m: int, dtype, mesh):
+    """:func:`_two_pass_loss_and_grads` on a mesh: the rank's microbatches
+    without grad, the descriptors gathered over "data", the global loss's
+    gradient at the descriptors, the rank's slice of it pulled back through
+    each recomputed microbatch."""
+    micro = list(zip(x.split(m), range(0, len(x), m)))
+    with torch.no_grad():
+        local = torch.cat([_sharded_descriptors(model, xb, dtype, mesh) for xb, _ in micro])
+    descs = gather_shards(local, mesh, "data")
+    descs.requires_grad_(True)
+    loss_val = objective(descs, y)
+    (ddescs,) = torch.autograd.grad(loss_val, descs)
+    b = len(x)
+    own = ddescs[axis_rank(mesh, "data") * b:][:b]
+    for xb, start in micro:
+        _sharded_descriptors(model, xb, dtype, mesh).backward(own[start:start + len(xb)])
+    return loss_val.detach()
+
+
+def _fc_tensors(model: RMACDescriptor) -> list:
+    return [] if model.cfg.without_fc else [model.fc.weight, model.fc.bias]
+
+
+def shard_fc(model: RMACDescriptor, optimizer: torch.optim.Optimizer, mesh) -> None:
+    """Keep this rank's rows of ``fc.weight`` and ``fc.bias`` (output
+    features ``c*w .. (c+1)*w`` for the rank's "db" coordinate ``c``), and
+    the same rows of their optimizer state, in place: the optimizer keeps
+    its tensors. ``out_dim`` must divide by the "db" size."""
+    n_db, c = axis_size(mesh, "db"), axis_rank(mesh, "db")
+    for p in _fc_tensors(model):
+        full = p.shape[0]
+        if full % n_db:
+            raise ValueError(f"out_dim {full} must divide by the db axis {n_db}")
+        rows = slice(c * (full // n_db), (c + 1) * (full // n_db))
+        p.grad = None
+        p.data = p.data[rows].clone()
+        state = optimizer.state.get(p, {})
+        for key, v in state.items():
+            if torch.is_tensor(v) and v.dim() and v.shape[0] == full:
+                state[key] = v[rows].clone()
+
+
+def unshard_fc(model: RMACDescriptor, optimizer: torch.optim.Optimizer, mesh) -> None:
+    """The inverse of :func:`shard_fc`: gather the FC rows (and their
+    optimizer state) over "db", in place, on every rank."""
+    for p in _fc_tensors(model):
+        local = p.shape[0]
+        p.grad = None
+        p.data = gather_shards(p.data, mesh, "db")
+        state = optimizer.state.get(p, {})
+        for key, v in state.items():
+            if torch.is_tensor(v) and v.dim() and v.shape[0] == local:
+                state[key] = gather_shards(v, mesh, "db")
+
+
+@contextmanager
+def _whole_fc(model, optimizer, mesh):
+    """The whole FC inside the block (evaluation, npz checkpoints); this
+    rank's rows again after it. Nothing to do off a mesh."""
+    if mesh is None:
+        yield
+        return
+    unshard_fc(model, optimizer, mesh)
+    try:
+        yield
+    finally:
+        shard_fc(model, optimizer, mesh)
+
+
+def _mesh_batches(make_batches, device):
+    """Rank 0 decodes each global batch and broadcasts it to every rank as
+    ``(images, labels)`` tensors on ``device``: the loader's random
+    transforms draw from process-global state, so ranks decoding on their
+    own would crop differently. The end of the epoch is broadcast too."""
+    src = dist.get_rank() == 0
+    batches = iter(make_batches()) if src else None
+    while True:
+        head = torch.zeros(5, dtype=torch.int64, device=device)
+        batch = next(batches, None) if src else None
+        if batch is not None:
+            head = torch.tensor([1, *batch.images.shape], dtype=torch.int64, device=device)
+        dist.broadcast(head, 0)
+        if not int(head[0]):
+            return
+        shape = tuple(int(v) for v in head[1:])
+        if src:
+            images = torch.as_tensor(batch.images, dtype=torch.float32, device=device)
+            labels = torch.as_tensor(np.asarray(batch.fields["label"]), device=device)
+            images, labels = images.contiguous(), labels.to(torch.int64)
+        else:
+            images = torch.empty(shape, dtype=torch.float32, device=device)
+            labels = torch.empty(shape[0], dtype=torch.int64, device=device)
+        dist.broadcast(images, 0)
+        dist.broadcast(labels, 0)
+        yield images, labels
+
+
 def save_checkpoint(state: Checkpoint, is_best: bool, filename: str):
     """Native-format save with the reference's ``.best`` copy semantics
     (``common.py:102-114``)."""
@@ -428,14 +650,20 @@ def evaluate_val_loss(model: RMACDescriptor, cfg: TrainConfig, val_dataset,
 
 
 def evaluate_retrieval(model: RMACDescriptor, eval_db, cfg: TrainConfig,
-                       dtype=torch.float32, trfs: str = "") -> dict:
+                       dtype=torch.float32, trfs: str = "", mesh=None) -> dict:
     """mAP of the current weights on a retrieval benchmark (the metric that
     matters for model selection; loss is only a proxy). The extractor shares
-    ``model`` (and sets it to eval mode)."""
+    ``model`` (and sets it to eval mode); on a mesh it is a
+    :class:`~dirjax_torch.parallel.ShardedExtractor` over "data" (the model
+    whole on every rank)."""
     from .extraction import FeatureExtractor, eval_model
 
-    device = next(model.parameters()).device
-    extractor = FeatureExtractor(model, device, dtype=dtype)
+    if mesh is not None:
+        from .parallel.extraction import ShardedExtractor
+
+        extractor = ShardedExtractor(model, mesh, dtype=dtype)
+    else:
+        extractor = FeatureExtractor(model, next(model.parameters()).device, dtype=dtype)
     return eval_model(eval_db, extractor, trfs, threads=cfg.threads)
 
 
@@ -446,6 +674,83 @@ def _retrieval_monitor(res: dict) -> Optional[float]:
         if key in res:
             return -float(res[key])
     return None
+
+
+def _ckpt_state(model: RMACDescriptor, optimizer: torch.optim.Optimizer, mesh):
+    """``(params, opt_state)`` for :class:`~.utils.dist_ckpt.TrainCheckpointer`:
+    the model's state_dict, and the optimizer's per-tensor state as
+    ``state/<tensor name>/<field>`` with its step count. On a mesh the FC
+    rows (and their state) are DTensors sharded over "db", replicated over
+    "data", so each shard is written once."""
+    sharded = set()
+    if mesh is not None and not model.cfg.without_fc:
+        sharded = {"fc.weight", "fc.bias"}
+
+    def wrap(name, t):
+        if name not in sharded or not t.dim():
+            return t
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        return DTensor.from_local(t, mesh, [Replicate(), Shard(0)], run_check=False)
+
+    params = {k: wrap(k, v) for k, v in model.state_dict().items()}
+    names = _param_names(model, optimizer)
+    opt_state = {"step_count": torch.tensor(_step_count(optimizer))}
+    for idx, fields in optimizer.state_dict()["state"].items():
+        for field_name, v in fields.items():
+            if torch.is_tensor(v):
+                opt_state[f"state/{names[idx]}/{field_name}"] = wrap(names[idx], v)
+    return params, opt_state
+
+
+def _restore_ckpt(ckptr, model: RMACDescriptor, optimizer: torch.optim.Optimizer, mesh) -> None:
+    """Load the latest step of ``ckptr`` into ``model`` and ``optimizer``
+    (this rank's FC rows on a mesh), whatever layout wrote it. The
+    optimizer's state templates come from the step's own shapes; its class
+    and trained tensors must match the run's (``extra``)."""
+    extra = ckptr.read_extra()
+    names = _param_names(model, optimizer)
+    if extra.get("optimizer") != type(optimizer).__name__ or extra.get("params") != names:
+        raise ValueError(f"{ckptr.directory} holds the state of {extra.get('optimizer')} over "
+                         f"{len(extra.get('params', []))} tensors; this run trains "
+                         f"{len(names)} tensors with {type(optimizer).__name__}")
+    params, _ = _ckpt_state(model, optimizer, mesh)
+    tensors = dict(model.named_parameters())
+    opt_t = {}
+    for key, (size, dtype) in ckptr.saved_shapes().items():
+        if not key.startswith("opt_state."):
+            continue
+        key = key[len("opt_state."):]
+        p = tensors[key.split("/")[1]] if key.startswith("state/") else None
+        if p is None or not len(size):
+            opt_t[key] = torch.zeros(tuple(size), dtype=dtype)
+        else:   # shaped as its tensor, sharded where its tensor is
+            like = torch.zeros(p.shape, dtype=dtype, device=p.device)
+            opt_t[key] = _ckpt_state_wrap(params, key.split("/")[1], like)
+    params, opt, _ = ckptr.restore(params, opt_t)
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+    model.load_state_dict({k: local(v) for k, v in params.items()})
+    state = {}
+    for idx, name in enumerate(names):
+        prefix = f"state/{name}/"
+        fields = {k[len(prefix):]: local(v) for k, v in opt.items() if k.startswith(prefix)}
+        if fields:
+            state[idx] = fields
+    sd = optimizer.state_dict()
+    sd["state"] = state
+    optimizer.load_state_dict(sd)
+    _set_step_count(optimizer, int(opt["step_count"]))
+
+
+def _ckpt_state_wrap(params: dict, name: str, like: torch.Tensor):
+    """``like`` wrapped as ``params[name]`` is: a DTensor on the same mesh
+    and placements where the parameter is sharded."""
+    ref = params.get(name)
+    if ref is None or not hasattr(ref, "to_local"):
+        return like
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(like, ref.device_mesh, ref.placements, run_check=False)
 
 
 def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
@@ -460,28 +765,50 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
     ``cfg.arch`` drawn from dirjax's initial distributions with a generator
     seeded by ``cfg.seed``. It moves to ``device`` and is trained in place.
 
-    ``resume``: path to a checkpoint.npz written by a previous fit — weights,
-    optimizer state (``.opt``, when present), epoch counter and best monitor
-    are restored.
+    ``resume``: a checkpoint.npz written by a previous fit (weights,
+    optimizer state from ``.opt`` when present, epoch counter and best
+    monitor), or a checkpoint directory of ``ckpt_format="orbax"``.
 
     ``eval_dataset``: a retrieval benchmark evaluated each epoch; its mAP
     is recorded in the history and becomes the best-checkpoint monitor.
 
-    ``mesh`` and ``ckpt_format="orbax"`` (dirjax's sharded step and
-    checkpoints) are ROADMAP M13 and raise here; so does a config with
-    ``dropout_p``, which dirjax's steps cannot train (they pass no key).
-    On the card in fp32, TF32 is turned off for the process, as the CLIs'
-    ``setup_device`` turns it off."""
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...): the sharded train step is not "
-                                  "ported yet (ROADMAP M13)")
-    if ckpt_format != "npz":
-        raise NotImplementedError(f"ckpt_format={ckpt_format!r}: orbax checkpoints "
-                                  "are not ported yet (ROADMAP M13); use 'npz'")
+    ``mesh``: a ("data", "db") mesh (:func:`dirjax_torch.parallel.make_mesh`;
+    every rank calls ``fit`` alike). The step is
+    :func:`make_sharded_train_step` on the mesh's device: the batch
+    data-parallel over "data", the FC tensor-parallel over "db". Rank 0
+    decodes each global batch and broadcasts it; a batch too short to
+    train (< 2 rows) is skipped and a ragged one truncated to a multiple of
+    ``lcm(microbatch, data)``, each decided on the global batch, so every
+    rank makes the same collectives and ends with the same history. The
+    evaluations see the whole FC (the retrieval one through a
+    :class:`~dirjax_torch.parallel.ShardedExtractor`); npz checkpoints hold
+    the whole FC and rank 0 writes them. The returned model is whole.
+
+    ``ckpt_format``: ``"npz"`` (dirjax's native files) or ``"orbax"``:
+    sharded, async checkpoints under ``out_dir/orbax``, written by
+    :mod:`dirjax_torch.utils.dist_ckpt` on ``torch.distributed.checkpoint``
+    (the option keeps dirjax's name; the format is torch's, and a dirjax
+    orbax directory is refused by name).
+
+    A config with ``dropout_p`` is refused, since dirjax's steps cannot
+    train it (they pass no key). On the card in fp32, TF32 is turned off
+    for the process, as the CLIs' ``setup_device`` turns it off."""
+    from .utils.dist_ckpt import TrainCheckpointer
+
+    if ckpt_format not in ("npz", "orbax"):
+        raise ValueError(f"ckpt_format must be 'npz' or 'orbax', got {ckpt_format!r}")
     if cfg.microbatch and cfg.batch_size % cfg.microbatch:
         raise ValueError(f"microbatch {cfg.microbatch} must divide batch_size "
                          f"{cfg.batch_size}")
+    n_data = 1
+    if mesh is not None:
+        n_data = axis_size(mesh, "data")
+        if cfg.batch_size % n_data:
+            raise AssertionError(f"batch_size {cfg.batch_size} must divide by data axis "
+                                 f"{n_data}")
+        device = mesh_device(mesh)
     device = torch.device(device)
+    writer = mesh is None or dist.get_rank() == 0
     if device.type == "cuda" and dtype == torch.float32:
         # fp32 training runs fp32 convolutions and matmuls, as setup_device
         # sets them for the CLIs (torch lets cuDNN take TF32 by default)
@@ -496,8 +823,15 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
 
     start_epoch = 0
     best = float("inf")
-    opt_path = None
-    if resume:
+    opt_path = resume_ckptr = None
+    if resume and os.path.isdir(resume):
+        resume_ckptr = TrainCheckpointer(resume)
+        rex = resume_ckptr.read_extra()
+        if rex.get("arch", cfg.arch) != cfg.arch:
+            raise ValueError(f"resume arch {rex.get('arch')} != config arch {cfg.arch}")
+        start_epoch = int(rex.get("epoch", -1)) + 1
+        best = float(rex.get("best", float("inf")))
+    elif resume:
         ckpt = load_native(resume)
         if ckpt.model.arch != cfg.arch:
             raise ValueError(f"resume arch {ckpt.model.arch} != config arch {cfg.arch}")
@@ -524,10 +858,20 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
     optimizer = make_optimizer(cfg, model, total_steps=total_steps)
     if opt_path and os.path.exists(opt_path):
         _load_opt_state(opt_path, model, optimizer)
-    make = make_two_pass_train_step if cfg.microbatch else make_train_step
-    step = make(model, cfg, optimizer, dtype=dtype)
+    if mesh is not None:
+        shard_fc(model, optimizer, mesh)
+        step = make_sharded_train_step(model, cfg, optimizer, mesh, dtype=dtype)
+    else:
+        make = make_two_pass_train_step if cfg.microbatch else make_train_step
+        step = make(model, cfg, optimizer, dtype=dtype)
+    if resume_ckptr is not None:
+        _restore_ckpt(resume_ckptr, model, optimizer, mesh)
+    # a ragged group batch is cut to a multiple of this (the balanced
+    # sampler re-draws the rest next epoch)
+    multiple = math.lcm(max(1, cfg.microbatch), n_data)
 
     history = []
+    ckptr = None
     for epoch in range(start_epoch, cfg.epochs):
         order = list(iter(sampler))
         if cfg.crops_per_image > 1:
@@ -537,20 +881,25 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
         if steps_per_epoch:
             order = order[: steps_per_epoch * cfg.batch_size]
         epoch_losses = []
-        batches = iterate_batches(loader, order, batch_size=cfg.batch_size,
-                                  threads=cfg.threads, batching="group")
-        if progress:
-            import tqdm
 
-            batches = tqdm.tqdm(batches, desc=f"epoch {epoch}")
-        for batch in batches:
-            if len(batch.indices) < 2:
+        def epoch_batches():
+            batches = iterate_batches(loader, order, batch_size=cfg.batch_size,
+                                      threads=cfg.threads, batching="group")
+            if progress and writer:
+                import tqdm
+
+                batches = tqdm.tqdm(batches, desc=f"epoch {epoch}")
+            return batches
+
+        if mesh is None:
+            batches = ((b.images, b.fields["label"]) for b in epoch_batches())
+        else:
+            batches = _mesh_batches(epoch_batches, device)
+        for images, labels in batches:
+            if len(images) < 2:
                 continue
-            images, labels = batch.images, batch.fields["label"]
-            # leftover group batches: truncate to a microbatch multiple (the
-            # balanced sampler re-draws them next epoch)
-            if cfg.microbatch > 1:
-                keep = len(images) // cfg.microbatch * cfg.microbatch
+            if multiple > 1:
+                keep = len(images) // multiple * multiple
                 if keep < 2:
                     continue
                 images, labels = images[:keep], labels[:keep]
@@ -558,28 +907,43 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
         mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
         record = {"epoch": epoch, "loss": mean_loss}
         monitor = mean_loss
-        if val_dataset is not None:
-            record["val_loss"] = evaluate_val_loss(model, cfg, val_dataset, dtype=dtype)
-            monitor = record["val_loss"]
-        if eval_dataset is not None:
-            res = evaluate_retrieval(model, eval_dataset, cfg, dtype=dtype,
-                                     trfs=eval_trfs)
-            model.train()   # the extractor set eval mode on the shared module
-            record.update({k: v for k, v in res.items() if isinstance(v, float)})
-            m = _retrieval_monitor(res)
-            if m is not None:
-                monitor = m  # select by mAP when a benchmark is given
-        history.append(record)
-        is_best = monitor < best
-        best = min(best, monitor)
-        if out_dir:
+        with _whole_fc(model, optimizer, mesh):
+            if val_dataset is not None:
+                record["val_loss"] = evaluate_val_loss(model, cfg, val_dataset, dtype=dtype)
+                monitor = record["val_loss"]
+            if eval_dataset is not None:
+                res = evaluate_retrieval(model, eval_dataset, cfg, dtype=dtype,
+                                         trfs=eval_trfs, mesh=mesh)
+                model.train()   # the extractor set eval mode on the shared module
+                record.update({k: v for k, v in res.items() if isinstance(v, float)})
+                m = _retrieval_monitor(res)
+                if m is not None:
+                    monitor = m  # select by mAP when a benchmark is given
+            history.append(record)
+            is_best = monitor < best
+            best = min(best, monitor)
             extra = {"epoch": epoch}
             if np.isfinite(best):
                 extra["best"] = float(best)
-            path = os.path.join(out_dir, "checkpoint.npz")
-            save_checkpoint(Checkpoint(model=model, preprocess=model.cfg.preprocess,
-                                       extra=extra), is_best, path)
-            _save_opt_state(path + ".opt", model, optimizer)
+            if out_dir and ckpt_format == "npz":
+                path = os.path.join(out_dir, "checkpoint.npz")
+                if writer:
+                    save_checkpoint(Checkpoint(model=model, preprocess=model.cfg.preprocess,
+                                               extra=extra), is_best, path)
+                    _save_opt_state(path + ".opt", model, optimizer)
+                if mesh is not None:   # every rank returns once the files exist
+                    dist.barrier()
+        if out_dir and ckpt_format == "orbax":
+            if ckptr is None:
+                ckptr = TrainCheckpointer(os.path.join(out_dir, "orbax"))
+            ckptr.save(epoch, *_ckpt_state(model, optimizer, mesh),
+                       extra={**extra, "arch": cfg.arch, "monitor": float(monitor),
+                              "optimizer": type(optimizer).__name__,
+                              "params": _param_names(model, optimizer)})
+    if ckptr is not None:
+        ckptr.close()
+    if mesh is not None:
+        unshard_fc(model, optimizer, mesh)
     return model, history
 
 

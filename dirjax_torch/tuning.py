@@ -1,11 +1,9 @@
 """Recall auto-tuning for approximate serving indexes (the port's copy of
 ``dirjax/tuning.py``, tuning the port's index classes).
 
-Two changes from the original: the imports name :mod:`dirjax_torch.serving`,
-and a :class:`~dirjax_torch.serving.BinaryIndex`'s mesh is read with
-``getattr(index, "mesh", None)``, since the port's indexes have none (mesh
-serving is not ported), so a binary index is measured once, as dirjax's
-single-chip one is.
+One change from the original: the imports name :mod:`dirjax_torch.serving`.
+An asymmetric :class:`~dirjax_torch.serving.BinaryIndex` on a mesh sweeps
+``rerank_factor``, as dirjax's does; on one device it is measured once.
 
 The reference toolbox ranks exactly (a dense fp32 matmul,
 ``dirtorch/utils/common.py:30-38``) so it has no recall knobs; dirjax's
@@ -170,7 +168,7 @@ def tune(index, queries, ground_truth=None, *, k: int = 10,
         # no shortlist knob left to tune); the mesh path still rescores
         # per-shard Hamming shortlists of rerank_factor*k
         grid = [{"rerank_factor": rf} for rf in rerank_factors] \
-            if (index.asym and getattr(index, "mesh", None) is not None) else [{}]
+            if (index.asym and index.mesh is not None) else [{}]
     elif isinstance(index, RetrievalIndex):
         grid = [{}]
     else:

@@ -103,6 +103,9 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "        assert m(torch.rand(1, 3, 64, 48)).shape == (1, 16)\n"
         "assert fit_pca_device(db, device='cpu').components.shape == (32, 32)\n"
         "import dirjax_torch.loss, dirjax_torch.cli.train\n"
+        "import dirjax_torch.parallel, dirjax_torch.utils.dist_ckpt\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_dist_worker\n"
         "from dirjax_torch.train import TrainConfig, make_optimizer, make_train_step\n"
         "cfg = TrainConfig(arch='resnet18_rmac', out_dim=8, nq=5, batch_size=4)\n"
         "m = create_model(cfg.arch, out_dim=8)\n"
@@ -123,13 +126,15 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
 
 
 def test_port_imports_nothing_of_dirjax():
-    """No module of dirjax_torch, and not chip_smoke.py, imports the JAX
-    package or any module of it (it keeps its own copies)."""
+    """No module of dirjax_torch, nor chip_smoke.py, nor the multi-rank test
+    worker imports the JAX package or any module of it (the port keeps its
+    own copies)."""
     import ast
     import glob
 
     files = glob.glob(os.path.join(REPO, "dirjax_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files.append(os.path.join(REPO, "tests", "test_torch_dist_worker.py"))
     found = []
     for path in files:
         with open(path) as f:

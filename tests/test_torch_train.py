@@ -451,7 +451,8 @@ def test_checkpoint_resume_and_refusals(synth, start, tmp_path):
     """A port run's checkpoint.npz (and .best) loads in dirjax's load_native
     with equal descriptors (1e-5); resume continues at the next epoch with
     the optimizer's state and step count; a dirjax optimizer file, another
-    arch, mesh=, orbax and dropout_p raise."""
+    arch, an unknown ckpt_format and dropout_p raise (mesh= and the sharded
+    checkpoints are tests/test_torch_mesh_training.py's)."""
     jmodel, params, _ = start
     ds = SyntheticLabels(synth)
     out = str(tmp_path / "run")
@@ -488,10 +489,8 @@ def test_checkpoint_resume_and_refusals(synth, start, tmp_path):
     _, hist3 = TT.fit(ds, TT.TrainConfig(**{**FIT_KW, "epochs": 4}), resume=path,
                       steps_per_epoch=1, device="cpu")
     assert [h["epoch"] for h in hist3] == [3]
-    with pytest.raises(NotImplementedError, match="M13"):
-        TT.fit(ds, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M13"):
-        TT.fit(ds, cfg, ckpt_format="orbax", device="cpu")
+    with pytest.raises(ValueError, match="ckpt_format"):
+        TT.fit(ds, cfg, ckpt_format="tensorstore", device="cpu")
     with pytest.raises(ValueError, match="dropout_p"):
         TT.fit(ds, cfg, model=tcreate("resnet18_rmac", out_dim=16, dropout_p=0.1),
                device="cpu")
