@@ -164,10 +164,31 @@ Phases, each of which raises on failure:
    unchanged, K1 launched in the evaluations and never in a train step,
    the resumed run at epoch 2 with the saved optimizer count, and test_dir
    on the last checkpoint.
+16. recall study — ``dirjax_torch.recall_study`` in-process on the card:
+   ``train`` (resnet101_rmac, 400 steps of batch 16 = 4 classes x 4 views,
+   256 classes, 224x224, plain Adam on every tensor, bf16), ``extract`` from
+   its checkpoint (16,384 generated scenes and 256 query views, batch 32,
+   bf16 forward: K1) and ``evaluate`` of every tier group (whitening with
+   dead_floor 1e-7; int8 on K3 + K4, PQ/OPQ and IVF on K6 and the ADC
+   rescore, ITQ on K5 and the binary rescore). The stage's own
+   src_is_top1 gate must pass, every tier name and key of dirjax's evaluate
+   must be there, int8 recall@10 >= 0.95, and the launch counters of K1,
+   K3, K4, K5, K6 and the two rescores, zeroed first, must rise. Then on the
+   first 4,096 rows of the same file: ``evaluate --tiers "int8|pq_m|ivf"`` on
+   the card and with ``--cpu`` (their largest recall difference printed:
+   the same seed trains other quantizers on each device, fp32 k-means sums
+   in another order), and the card's search against the CPU's on the same
+   indexes (int8, PQ ksub 16 with rerank 2/4/8 and ksub 256, OPQ, IVF at
+   ksub 16 and 256 over the study's nprobes, ITQ-512 asym and Hamming;
+   built on the card, saved, loaded on the CPU): every recall@k within
+   0.005. Printed as information: each stage's wall,
+   extraction img/s (host clock), the fine-tune's first and last 25-step AP
+   loss, the spectrum, every tier's recall, and one ksub-256 IVF search
+   (nq 256, k 10, nprobe 4 and 16; CUDA events, ms and QPS).
 
-    python3 chip_smoke.py --profile DIR   # also phase 16
+    python3 chip_smoke.py --profile DIR   # also phase 17
 
-16. profile — where a warm database extraction's time goes, fp32 and bf16:
+17. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -186,7 +207,8 @@ and its operations over the peak rate of their type on an H100 SXM) and the
 time of one PyTorch call that computes the same function, where there is
 one (launches summed over the paths that ran each kernel, with
 ``launches_by_path``: K1's extraction paths, the others' serving and
-sharded phases); and last a JSON line with "ok": true. Exits
+sharded phases, and every kernel's "recall study"); and last a JSON line
+with "ok": true. Exits
 non-zero, printing no result, when CUDA is not available.
 """
 
@@ -2445,6 +2467,306 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
             "losses": losses}
 
 
+# 400 steps, the study's default: after 50 and 100 the descriptor space is
+# between the random and the trained one and retrieves a query's source
+# image less often than the stage's own gate allows (src_is_top1 0.4219 and
+# 0.4766 against 0.5; 0.5977 after 400; NVIDIA H100 80GB HBM3, 700 W)
+RECALL_TRAIN = ["--steps", "400", "--batch", "16", "--views", "4", "--n-classes", "256",
+                "--size", "224"]
+RECALL_EXTRACT = ["--n-db", "16384", "--n-q", "256", "--batch", "32", "--size", "224"]
+# the tiers each device trains for itself, on the first 4,096 rows
+RECALL_CHECK_ROWS, RECALL_CHECK_TIERS = 4096, "pq_m|ivf|itq512"
+# card-trained against CPU-trained quantizers, each device fitting its own
+# whitening and quantizers: no farther apart than quantizer seeds 0-4 on the
+# card are on the same cut, the largest spread of any tier at each k,
+# rounded up (0.1367, 0.0445, 0.0356; recall_spread_study.py, NVIDIA H100
+# 80GB HBM3, 700 W)
+RECALL_TRAINED_TOL = {"recall@1": 0.14, "recall@10": 0.045, "recall@100": 0.036}
+# the card's search against the CPU's on the same index: one near-tie swap
+# among 256 queries moves recall@1 by 1/256 = 0.0039, so at most 0.005 of
+# the (query, rank) places may hold another row or a score more than
+# RECALL_SCORE_TOL from the CPU's
+RECALL_CARD_CPU_TOL, RECALL_SCORE_TOL = 0.005, 1e-4
+# one Lloyd iteration from the same rows on both devices: codebooks equal to
+# fp32 rounding, but for the centroids a near-tie assignment moved (at most
+# 1 in 100); the same share bounds the codes that a near-tie encodes apart
+LLOYD_TOL, LLOYD_MOVED = 1e-5, 0.01
+RECALL_INT8_R10 = 0.95
+RECALL_KERNELS = ("gem_head", "finemax", "gather_scores", "bits_finemax",
+                  "bits_gather_scores", "adc_finemax", "adc_gather_scores")
+
+
+def recall_tier_names(n: int) -> set:
+    """Every tier dirjax's ``recall_study.py evaluate`` grades on n rows."""
+    nlist = max(16, int(np.sqrt(n)))
+    return {"int8", "int8_w8q", "pq_m32k16", "pq_m16k256", "opq_m32k16",
+            "pq_m32k16_rerank2", "pq_m32k16_rerank4", "pq_m32k16_rerank8",
+            "pca256_exact", "pca256_pq_m32k256", "pca256_pq_m32k256_rerank4",
+            "pca256_itq256_asym_rf4", "pq_m32k256_full", "pq_m32k256_full_rerank4",
+            "itq512_hamming", "itq512_asym_rf4", "itq2048_hamming", "itq2048_asym_rf4",
+            *(f"ivf_nlist{nlist}_nprobe{p}" for p in (1, 4, 16, nlist)),
+            *(f"ivf256_nlist{nlist}_nprobe{p}" for p in (4, 16))}
+
+
+def check_recall_layout(res: dict) -> None:
+    """dirjax's evaluate JSON: every key, tier and tuner field."""
+    if set(res) != {"n_db", "dim", "n_q", "src_is_top1", "spectrum", "tiers", "tuner",
+                    "tuner_pca256"}:
+        raise AssertionError(f"recall study: keys {sorted(res)}")
+    spectrum = {f"top{k}_variance_share" for k in (16, 64, 256, 1024)} | {"rank_for_99pct"}
+    if set(res["spectrum"]) != spectrum:
+        raise AssertionError(f"recall study: spectrum keys {sorted(res['spectrum'])}")
+    names = recall_tier_names(res["n_db"])
+    if set(res["tiers"]) != names:
+        raise AssertionError(f"recall study: tiers missing {sorted(names - set(res['tiers']))}"
+                             f", unexpected {sorted(set(res['tiers']) - names)}")
+    for name, row in res["tiers"].items():
+        if not {"recall@1", "recall@10", "recall@100"} <= set(row) <= \
+                {"recall@1", "recall@10", "recall@100", "note"}:
+            raise AssertionError(f"recall study: {name} has keys {sorted(row)}")
+    for t in ("tuner", "tuner_pca256"):
+        if set(res[t]) != {"index", "target", "params", "tune_recall", "met",
+                           "heldout_recall"}:
+            raise AssertionError(f"recall study: {t} has keys {sorted(res[t])}")
+
+
+def study_k1_check(ckpt: str, device) -> float:
+    """K1 at the shape the study's extract gives it: the trained model's bf16
+    (32, 7, 7, 2048) map of the first database batch, no mask, against
+    gem_head_reference (RTOL, ATOL). Returns the largest |difference|."""
+    from dirjax_torch import recall_study as RS
+    from dirjax_torch.ops import gem_head
+    from dirjax_torch.utils.checkpoints import load_native
+
+    model = load_native(ckpt).model.to(device).eval()
+    with torch.inference_mode():
+        imgs = RS.db_scenes(0, 32, 224, 224, device).permute(0, 3, 1, 2)
+        x = model.features(imgs, torch.bfloat16).permute(0, 2, 3, 1)
+        head = (model.adpool.p, model.fc.weight.T, model.fc.bias)
+        got = gem_head.fused_gem_head(x, *head)
+        want = gem_head.gem_head_reference(x.float(), None, *head)
+    if tuple(x.shape) != (32, 7, 7, 2048) or x.dtype != torch.bfloat16:
+        raise AssertionError(f"recall study: K1 got {tuple(x.shape)} {x.dtype}")
+    err = (got - want).abs().max().item()
+    print(f"recall study: K1 on the trained (32, 7, 7, 2048) bf16 map: max_abs_err {err:.3e}")
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    return err
+
+
+def same_index_check(graded: dict, root: str) -> dict:
+    """Every index the full study graded, saved and loaded again on the CPU,
+    searched with the same knobs at k = 1, 10, 100: the card's kernels
+    against their plain versions at the study's size. Per (tier, k) the
+    share of (query, rank) places whose row differs, and the share whose
+    sorted score lies more than RECALL_SCORE_TOL from the CPU's; each at most
+    RECALL_CARD_CPU_TOL. Returns the worst of each and the largest score
+    difference."""
+    worst = {"rows_differ": (0.0, None), "scores_differ": (0.0, None),
+             "max_score_diff": (0.0, None)}
+    cases = 0
+    for name, (index, queries, knobs) in graded.items():
+        if not hasattr(index, "save"):
+            continue   # pca256_exact: a host argsort
+        path = os.path.join(root, f"{name}.npz")
+        index.save(path)
+        cpu = type(index).load(path, device="cpu")
+        for k in (1, 10, 100):
+            sc, ic = index.search(queries, k=k, **knobs)
+            sp, ip = cpu.search(queries.cpu(), k=k, **knobs)
+            sc, sp = np.asarray(sc), np.asarray(sp)
+            with np.errstate(invalid="ignore"):   # -inf padding on both sides is equal
+                diff = np.where(sc == sp, 0.0, np.abs(sc - sp))
+            reading = {"rows_differ": float(np.mean(np.asarray(ic) != np.asarray(ip))),
+                       "scores_differ": float(np.mean(diff > RECALL_SCORE_TOL)),
+                       "max_score_diff": float(diff.max())}
+            for key, v in reading.items():
+                if v >= worst[key][0]:
+                    worst[key] = (v, f"{name} k={k}")
+            cases += 1
+        os.remove(path)
+    print(f"recall study: the card's search vs the CPU's on the same {cases} (index, k) "
+          f"cases at full size: {json.dumps(worst)}")
+    for key in ("rows_differ", "scores_differ"):
+        if worst[key][0] > RECALL_CARD_CPU_TOL:
+            raise AssertionError(f"recall study: card vs CPU on the same index: {key} "
+                                 f"{worst[key]}")
+    return {key: v for key, (v, _) in worst.items()}
+
+
+def quantizer_check(db: torch.Tensor) -> dict:
+    """The study's quantizers trained from one seed on the card and on the
+    CPU, and their codes: PQ (m 32, ksub 16 and 256) and IVF's coarse
+    k-means (nlist 64) after one Lloyd iteration from the same rows agree to
+    LLOYD_TOL but for at most LLOYD_MOVED of the centroids (after the
+    study's 10, the distance is printed); the card's codebooks, cells and
+    512-bit ITQ codec encode the rows alike on both devices but for at most
+    LLOYD_MOVED of the codes. Returns {quantizer: [largest |difference|
+    after 1, after 10, share of centroids past LLOYD_TOL after 1, share of
+    codes apart]}."""
+    from dirjax_torch.ops.binary import binarize, fit_itq, unpack_pm1
+    from dirjax_torch.ops.ivf import ivf_assign, train_ivf
+    from dirjax_torch.ops.pq import encode_pq, train_pq
+
+    def to_cpu(t):
+        return t if isinstance(t, np.ndarray) else t.cpu().numpy()
+
+    trainers = {"pq_m32k16": (lambda x, it: train_pq(x, 32, 16, iters=it, seed=0), encode_pq),
+                "pq_m32k256": (lambda x, it: train_pq(x, 32, 256, iters=it, seed=0),
+                               encode_pq),
+                "ivf_nlist64": (lambda x, it: train_ivf(x, 64, iters=it, seed=0), ivf_assign)}
+    out = {}
+    for name, (train, encode) in trainers.items():
+        books = [(train(db, it), train(db.cpu(), it)) for it in (1, 10)]
+        gaps = [(card.cpu() - cpu).abs() for card, cpu in books]
+        codes = [to_cpu(encode(x, books[1][0].to(x.device))) for x in (db, db.cpu())]
+        out[name] = [gaps[0].max().item(), gaps[1].max().item(),
+                     float((gaps[0].amax(-1) > LLOYD_TOL).float().mean()),
+                     float(np.mean(codes[0] != codes[1]))]
+    codec = fit_itq(db, 512, seed=0)
+    bits = [unpack_pm1(binarize(x, codec._replace(mean=codec.mean.to(x.device),
+                                                  proj=codec.proj.to(x.device)))).cpu()
+            for x in (db, db.cpu())]
+    out["itq512"] = [None, None, None, float((bits[0] != bits[1]).float().mean())]
+    print(f"recall study: card vs CPU quantizers from one seed, [largest |difference| after "
+          f"1 iteration, after 10, share of centroids past {LLOYD_TOL} after 1, share of "
+          f"codes apart]: {json.dumps(out)}")
+    bad = {n: r for n, r in out.items()
+           if (r[2] is not None and r[2] > LLOYD_MOVED) or r[3] > LLOYD_MOVED}
+    if bad:
+        raise AssertionError(f"recall study: the card's quantizers differ from the CPU's: {bad}")
+    return out
+
+
+def ivf256_search_ms(graded: dict) -> dict:
+    """The study's own ksub-256 IVF (nlist sqrt(n), m = 32): a search of its
+    256 queries at k = 10, nprobe 4 and 16, in CUDA events (mean of 10 after
+    2 warm-ups)."""
+    out = {}
+    for name, (ivf, q, knobs) in graded.items():
+        if not name.startswith("ivf256_"):
+            continue
+        for _ in range(2):
+            ivf.search(q, k=10, **knobs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            ivf.search(q, k=10, **knobs)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 10
+        out[f"nprobe{knobs['nprobe']}"] = {"ms": ms, "qps": len(q) / (ms / 1e3)}
+    return out
+
+
+def recall_phase(work: str, device) -> dict:
+    """``dirjax_torch.recall_study`` in-process on the card: ``train`` (400
+    steps, batch 16 of 4 views, 256 classes, 224x224), ``extract`` from that
+    checkpoint (16,384 scenes and 256 query views, batch 32) and
+    ``evaluate`` of every tier group. Checks: the stage's own src_is_top1
+    gate; dirjax's keys and tier names; int8 recall@10 >= 0.95; the launches
+    of K1, K3, K4, K5, K6 and the two rescores rose; the TF32 flags as they
+    were. Then, uncounted: K1 at the study's shape (:func:`study_k1_check`);
+    every index of the study searched on the card and on the CPU
+    (:func:`same_index_check`); the quantizers trained and applied on both
+    devices (:func:`quantizer_check`); on the first 4,096 rows, the card's ``evaluate
+    --tiers "pq_m|ivf|itq512"`` against the port's ``--cpu`` one, each
+    device fitting its own whitening and quantizers, within
+    RECALL_TRAINED_TOL at each k; the ksub-256 IVF search timed. Returns
+    the readings and the launches of each kernel in the three stages."""
+    from dirjax_torch import recall_study as RS
+    from dirjax_torch.ops import binary, gem_head, pq, topk
+
+    root = os.path.join(work, "recall")
+    os.makedirs(root)
+    ckpt, descs, out = (os.path.join(root, f)
+                        for f in ("ckpt.npz", "descs.npz", "recall.json"))
+    for counts in (topk.launches, binary.launches, pq.launches):
+        for key in counts:
+            counts[key] = 0
+    gem_head.launches = 0
+    walls, graded = {}, {}
+    # each stage runs with TF32 off and leaves the caller's flags as they
+    # were: here on, read after the stages
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        trained = RS.main(["train", *RECALL_TRAIN, "--out", ckpt])
+        walls["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        extracted = RS.main(["extract", "--checkpoint", ckpt, *RECALL_EXTRACT, "--out", descs])
+        walls["extract"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = RS.main(["evaluate", "--descs", descs, "--out", out], graded=graded)
+        walls["evaluate"] = time.perf_counter() - t0
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {"gem_head": gem_head.launches, **topk.launches, **binary.launches,
+                **pq.launches}
+    check_recall_layout(res)
+    if res["tiers"]["int8"]["recall@10"] < RECALL_INT8_R10:
+        raise AssertionError(f"recall study: int8 recall@10 {res['tiers']['int8']}")
+    idle = [k for k in RECALL_KERNELS if not launches[k]]
+    if idle:
+        raise AssertionError(f"recall study: {idle} launched no time ({launches})")
+    if flags != (True, True):
+        raise AssertionError(f"recall study: the stages left TF32 at {flags}")
+
+    data = np.load(descs)
+    small = os.path.join(root, "first.npz")
+    np.savez(small, db=data["db"][:RECALL_CHECK_ROWS], q=data["q"], src=data["src"])
+    with uncounted():
+        t0 = time.perf_counter()
+        k1_err = study_k1_check(ckpt, device)
+        same = same_index_check(graded, root)
+        walls["check_same_index"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cut = torch.from_numpy(data["db"][:RECALL_CHECK_ROWS]).to(device)
+        quantizers = quantizer_check(RS.study_whitening(cut)[1](cut))
+        walls["check_quantizers"] = time.perf_counter() - t0
+        graded_by = {}
+        for tag, extra in (("card", []), ("cpu", ["--cpu"])):
+            t0 = time.perf_counter()
+            graded_by[tag] = RS.main(["evaluate", *extra, "--descs", small, "--out",
+                                      os.path.join(root, f"{tag}.json"), "--tiers",
+                                      RECALL_CHECK_TIERS])
+            walls[f"check_{tag}"] = time.perf_counter() - t0
+        ivf_ms = ivf256_search_ms(graded)
+    card, cpu = graded_by["card"]["tiers"], graded_by["cpu"]["tiers"]
+    if set(card) != set(cpu) or not card:
+        raise AssertionError(f"card/CPU tiers differ: {sorted(card)} vs {sorted(cpu)}")
+    trained_apart = {(name, k): abs(card[name][k] - cpu[name][k])
+                     for name in card for k in card[name] if k.startswith("recall@")}
+    apart = max(trained_apart, key=trained_apart.get)
+    print(f"recall study: evaluate on the card vs --cpu on the first {RECALL_CHECK_ROWS} "
+          f"rows (each fits its own whitening and quantizers), {len(card)} tiers: largest "
+          f"|difference| "
+          f"{trained_apart[apart]:.4f} at {apart}; tuner {graded_by['card']['tuner']['params']} "
+          f"vs {graded_by['cpu']['tuner']['params']}")
+    over = {key: v for key, v in trained_apart.items() if v > RECALL_TRAINED_TOL[key[1]]}
+    if over:
+        raise AssertionError(f"recall study: card-trained and CPU-trained tiers differ past "
+                             f"the seed spread: {over}")
+    row = {"walls_s": walls, "extract_img_per_s": extracted["n_images"] / extracted["seconds"],
+           "loss_first25": trained["loss_first25"], "loss_last25": trained["loss_last25"],
+           "spectrum": res["spectrum"], "src_is_top1": res["src_is_top1"],
+           "tiers": {n: {k: v for k, v in r.items() if k != "note"}
+                     for n, r in res["tiers"].items()},
+           "tuner": res["tuner"], "tuner_pca256": res["tuner_pca256"],
+           "k1_study_shape_max_abs_err": k1_err,
+           "card_vs_cpu_same_index": same,
+           "card_vs_cpu_quantizers": quantizers,
+           "card_vs_cpu_trained_max_diff": trained_apart[apart],
+           "ivf256_search_nq256_k10": ivf_ms,
+           "launches": launches}
+    print(f"recall study: train {walls['train']:.1f} s (AP loss {trained['loss_first25']} -> "
+          f"{trained['loss_last25']}), extract {walls['extract']:.1f} s "
+          f"({row['extract_img_per_s']:.1f} img/s, host clock), evaluate "
+          f"{walls['evaluate']:.1f} s; spectrum {json.dumps(res['spectrum'])}; ivf256 "
+          f"{json.dumps(ivf_ms)}; launches {json.dumps(launches)}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="", metavar="DIR",
@@ -2546,6 +2868,9 @@ def main(argv=None) -> int:
             train_row = {**train_step_checks(device), **train_timing(device),
                          **train_cli_check(work)}
             k1_by_path["train eval"] = train_row["eval_k1_launches"]
+            enter("recall study")
+            recall_row = recall_phase(work, device)
+            k1_by_path["recall study"] = recall_row["launches"]["gem_head"]
             if args.profile:
                 enter("profile")
                 profile_phase(bench, ckpt, device, args.profile, card)
@@ -2554,6 +2879,7 @@ def main(argv=None) -> int:
                                                 "fit_pca_device": pca_row}))
         print("training: " + json.dumps(train_row))
         print("sharded: " + json.dumps(sharded_row))
+        print("recall study: " + json.dumps(recall_row))
         print("phase seconds: " + json.dumps(seconds) +
               f"; total {time.perf_counter() - started:.1f} s")
 
@@ -2561,7 +2887,8 @@ def main(argv=None) -> int:
         entries[0]["launches_by_path"] = k1_by_path
         for entry in topk_entries + binary_entries + pq_entries:
             by_path = {"serving": serving_launches[entry["name"]],
-                       "sharded": sharded_launches[entry["name"]]}
+                       "sharded": sharded_launches[entry["name"]],
+                       "recall study": recall_row["launches"][entry["name"]]}
             entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
         print(json.dumps({"kernels": entries + topk_entries + binary_entries + pq_entries}))
         print(card)

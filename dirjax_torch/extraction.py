@@ -80,21 +80,32 @@ class FeatureExtractor:
             np.ascontiguousarray(mask)).to(self.device)
         return self.model(x, mask=m, dtype=self.dtype)
 
+    def call_adaptive(self, images: np.ndarray,
+                      mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """OOM-surviving ``__call__``; see :func:`adaptive_call`."""
+        return adaptive_call(self, images, mask)
+
 
 def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor,
                            *, flip: Optional[Sequence[int]] = None,
                            batching: str = "group", batch_size: int = 8,
                            threads: int = 8, processes: int = 0,
                            bucket_multiple: int = 64,
+                           ret_imgs: bool = False,
                            desc: str = "extract",
-                           progress: bool = False) -> np.ndarray:
+                           progress: bool = False):
     """(N, D) descriptors of every image of ``dataset``. ``flip``: optional
-    per-image 0/1 list; 1 mirrors the image before the forward."""
+    per-image 0/1 list; 1 mirrors the image before the forward.
+    ``ret_imgs``: also return the transformed input images (host arrays, cut
+    back to each image's extent), ordered by dataset index (the reference's
+    debug path, test_dir.py:63,76-77); the return becomes ``(images,
+    descriptors)``."""
     loader = get_loader(dataset, trf_chain=transforms,
                         preprocess=extractor.preprocess, output=("img",),
                         totensor=True, device_normalize=True)
     n = len(dataset)
     out: Optional[np.ndarray] = None
+    imgs_out: list = [None] * n if ret_imgs else []
     done = 0
     batches = iterate_batches(loader, range(n), batch_size=batch_size,
                               threads=threads, processes=processes,
@@ -132,6 +143,14 @@ def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor
         if pending is not None:
             flush(pending)
         pending = (batch.indices, dev)
+        if ret_imgs:
+            for r, idx in enumerate(batch.indices):
+                if batch.mask is None:
+                    imgs_out[idx] = np.asarray(images[r])
+                else:  # un-pad back to the image's real extent
+                    h = int(batch.mask[r, :, 0].sum())
+                    w = int(batch.mask[r, 0, :].sum())
+                    imgs_out[idx] = np.asarray(images[r, :h, :w])
         done += len(batch.indices)
     if pending is not None:
         flush(pending)
@@ -139,6 +158,8 @@ def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor
         raise RuntimeError(f"extracted {done}/{n} images")
     if out is None:
         out = np.zeros((0, extractor.model.cfg.out_dim), np.float32)
+    if ret_imgs:
+        return imgs_out, out
     return out
 
 

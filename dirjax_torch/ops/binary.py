@@ -80,6 +80,10 @@ class BinaryCodec(NamedTuple):
     def n_bits(self) -> int:
         return int(self.proj.shape[1])
 
+    @property
+    def n_words(self) -> int:
+        return self.n_bits // 32
+
 
 def _as_tensor(x) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
@@ -97,7 +101,8 @@ def fit_itq(descriptors, n_bits: Optional[int] = None, *, iters: int = 30,
     ``n_bits`` defaults to the descriptor dim rounded down to a multiple of
     32. ``iters=0`` skips the rotation: plain PCA sign hashing. The sample
     rows are dirjax's (the same numpy generator). The initial rotation is the
-    Q of a Gaussian matrix from a ``torch.Generator`` seeded with ``seed``:
+    Q of a Gaussian matrix from a CPU ``torch.Generator`` seeded with ``seed``
+    (the same matrix on every device):
     it cannot reproduce ``jax.random``'s bits, so the two packages learn
     different rotations of equal quality from the same seed."""
     x = _as_tensor(descriptors)
@@ -119,9 +124,8 @@ def fit_itq(descriptors, n_bits: Optional[int] = None, *, iters: int = 30,
     if iters == 0:
         return BinaryCodec(mean=mean, proj=w_pca)
     v = xc @ w_pca
-    g = torch.Generator(device=x.device).manual_seed(seed)
-    r, _ = torch.linalg.qr(torch.randn((n_bits, n_bits), generator=g,
-                                       device=x.device))
+    g = torch.Generator().manual_seed(seed)    # the same draw on every device
+    r, _ = torch.linalg.qr(torch.randn((n_bits, n_bits), generator=g).to(x.device))
     for _ in range(iters):
         b = torch.where(v @ r >= 0, 1.0, -1.0)
         # Procrustes: max tr(R^T V^T B) -> R = U Vh from svd(V^T B)

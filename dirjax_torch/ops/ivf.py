@@ -26,13 +26,14 @@ Binning (:func:`bin_ivf`, :func:`unbin_ivf`) is host numpy, copied from
 dirjax: a slab's tail padding repeats its first row's codes and carries
 ``slab_rows = -1``, so the blind per-slab maxima of the union path never
 exceed the slab's true best. Arrays are torch tensors (int32 tables, as
-dirjax's files hold them). Training samples come from a ``torch.Generator``
-(it cannot reproduce ``jax.random``'s draws). The union path gathers only
-the distinct probed cells (dirjax gathers every probe and masks repeats, a
-static-shape rule); the surviving slabs keep dirjax's order, so ties break
-alike. An inverted file is sharded over a mesh by
-:func:`dirjax_torch.parallel.ranking.shard_ivf`. Not carried over: the 12-bit
-row-id split of the one-hot select, and the union's Pallas geometry fallback.
+dirjax's files hold them). Training samples come from a CPU
+``torch.Generator`` (the same rows on every device; it cannot reproduce
+``jax.random``'s draws). The union path gathers only the distinct probed
+cells (dirjax gathers every probe and masks repeats, a static-shape rule);
+the surviving slabs keep dirjax's order, so ties break alike. An inverted
+file is sharded over a mesh by :func:`dirjax_torch.parallel.ranking.shard_ivf`.
+Not carried over: the 12-bit row-id split of the one-hot select, and the
+union's Pallas geometry fallback.
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def train_ivf(x, nlist: int, *, iters: int = 20, seed: int = 0,
     n = x.shape[0]
     if n < nlist:
         raise ValueError(f"need at least nlist={nlist} training rows, got {n}")
-    g = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
     if sample is not None and n > sample:
         x = x[_sample_rows(x, sample, g)]
         n = sample
@@ -190,7 +191,7 @@ def build_ivf(x, nlist: int, m: int = 32, ksub: int = 16, *, slab: int = _SLAB,
     assign = ivf_assign(x, centroids, chunk=chunk)
     if codebooks is None:
         ns = n if sample is None else min(n, sample)
-        g = torch.Generator(device=x.device).manual_seed(seed + 2)
+        g = torch.Generator().manual_seed(seed + 2)
         idx = _sample_rows(x, ns, g) if ns < n else torch.arange(n, device=x.device)
         a = torch.from_numpy(assign).to(x.device)
         codebooks = train_pq(x[idx] - centroids[a[idx]], m, ksub, iters=pq_iters,

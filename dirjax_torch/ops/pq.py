@@ -29,10 +29,11 @@ they agree with them exactly. Ties rank the lower index first, as
 Training runs k-means batched over the subspaces with fp32 ``bmm`` (keep
 TF32 off, PyTorch's default for matmuls, for dirjax's ``precision=HIGHEST``)
 and dirjax's argmin rule ``||c||^2 - 2 x.c``; empty clusters keep their
-centroid. Samples and initial centroids come from a ``torch.Generator``
-seeded with ``seed``: it cannot reproduce ``jax.random``'s draws, so the two
-packages train different codebooks of equal quality from the same seed; with
-an explicit ``init`` the Lloyd iterations are deterministic and match.
+centroid. Samples and initial centroids come from a CPU ``torch.Generator``
+seeded with ``seed`` (the same rows on every device): it cannot reproduce
+``jax.random``'s draws, so the two packages train different codebooks of
+equal quality from the same seed; with an explicit ``init`` the Lloyd
+iterations are deterministic and match.
 :func:`pq_lookup` accumulates in fp64 and rounds once, so a query's tables do
 not depend on the batch it rides in.
 
@@ -109,8 +110,9 @@ def _kmeans(x_sub: torch.Tensor, init: torch.Tensor, iters: int, chunk: int) -> 
 
 
 def _sample_rows(x: torch.Tensor, count: int, g: torch.Generator) -> torch.Tensor:
-    """``count`` distinct row ids of ``x`` drawn from ``g``."""
-    return torch.randperm(x.shape[0], generator=g, device=g.device)[:count].to(x.device)
+    """``count`` distinct row ids of ``x`` drawn from ``g``, a CPU generator,
+    so that a seed picks the same rows on every device; on ``x``'s device."""
+    return torch.randperm(x.shape[0], generator=g)[:count].to(x.device)
 
 
 def train_pq(x, m: int = 16, ksub: int = 256, *, iters: int = 25, seed: int = 0,
@@ -128,7 +130,7 @@ def train_pq(x, m: int = 16, ksub: int = 256, *, iters: int = 25, seed: int = 0,
         raise ValueError(f"codes are uint8: ksub must be in [1, 256], got {ksub}")
     if n < ksub:
         raise ValueError(f"need at least ksub={ksub} training rows, got {n}")
-    g = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
     if sample is not None and n > sample:
         x = x[_sample_rows(x, sample, g)]
         n = sample
@@ -190,7 +192,7 @@ def train_opq(x, m: int = 16, ksub: int = 256, *, iters: int = 25, opq_iters: in
     x = _as_tensor(x).float()
     n, d = x.shape
     if sample is not None and n > sample:
-        g = torch.Generator(device=x.device).manual_seed(seed)
+        g = torch.Generator().manual_seed(seed)
         x = x[_sample_rows(x, sample, g)]
     r = torch.eye(d, device=x.device)
     codebooks = None

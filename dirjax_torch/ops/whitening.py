@@ -116,12 +116,15 @@ def fit_pca_device(X: Union[torch.Tensor, np.ndarray, Iterable],
 
 def apply_whitening(X: torch.Tensor, pca: PCAParams, whitenp: float = 0.5,
                     whitenv: Optional[int] = None, whitenm: float = 1.0,
-                    l2norm: bool = True) -> torch.Tensor:
+                    l2norm: bool = True, dead_floor: float = 0.0) -> torch.Tensor:
     """Whiten descriptor rows in fp32 on ``X``'s device.
 
     An eigenvalue of exactly 0 (a rank-deficient fit) gives a column of 0,
     where dividing by 0^p would give NaN; positive eigenvalues divide
-    unfloored, as in the reference."""
+    unfloored, as in the reference. ``dead_floor > 0`` also zeroes every
+    direction whose variance is at most ``max(variance) * dead_floor`` (the
+    fp32 noise directions of a rank-deficient fit, which ``var^-p`` would
+    blow up), as dirjax's ``dead_floor`` does."""
     dev = X.device
     mean = torch.as_tensor(np.asarray(pca.mean, np.float32), device=dev)
     comps = torch.as_tensor(np.asarray(pca.components[:whitenv], np.float32),
@@ -130,20 +133,23 @@ def apply_whitening(X: torch.Tensor, pca: PCAParams, whitenp: float = 0.5,
                           device=dev)
     Xt = (X.float() - mean) @ comps.T
     if bool(pca.whiten):
-        scaled = Xt / (whitenm * var.clamp_min(1e-38).pow(whitenp))
-        Xt = torch.where(var > 0, scaled, torch.zeros((), device=dev))
+        floor = var.max() * dead_floor
+        scaled = Xt / (whitenm * torch.maximum(var, floor.clamp_min(1e-38)).pow(whitenp))
+        Xt = torch.where(var > floor, scaled, torch.zeros((), device=dev))
     return l2_normalize(Xt) if l2norm else Xt
 
 
 def whitening_matrix(pca: PCAParams, whitenp: float = 0.5,
-                     whitenv: Optional[int] = None, whitenm: float = 1.0):
+                     whitenv: Optional[int] = None, whitenm: float = 1.0,
+                     dead_floor: float = 0.0):
     """Fold the whitening into (W, b) with X_hat = X @ W + b, under the same
-    dead-direction rule as :func:`apply_whitening`."""
+    dead-direction rule as :func:`apply_whitening`, ``dead_floor`` included."""
     comps = np.asarray(pca.components[:whitenv], dtype=np.float64)
     var = np.asarray(pca.variance[:whitenv], dtype=np.float64)
     if bool(pca.whiten):
-        scale = np.where(var > 0, 1.0 / (whitenm * np.power(
-            np.maximum(var, 1e-300), whitenp)), 0.0)
+        floor = float(var.max()) * dead_floor
+        scale = np.where(var > floor, 1.0 / (whitenm * np.power(
+            np.maximum(var, max(floor, 1e-300)), whitenp)), 0.0)
     else:
         scale = np.ones_like(var)
     W = comps.T * scale[None, :]

@@ -63,7 +63,8 @@ def test_test_dir_prints_the_same_map(synth_root, ckpt_path, extra):
 
 def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
     """With jax, dirjax and ml_dtypes made unimportable, the port's CLIs,
-    indexes, a CPU train step and a bf16-upload batcher all run."""
+    indexes, a CPU train step, a bf16-upload batcher and the recall study's
+    evaluate stage all run, and its tools import."""
     script = (
         "import sys\n"
         # any `import jax` or `import dirjax...` now raises
@@ -117,6 +118,16 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
         "                    max_wait_ms=0.0, upload_bf16=True)\n"
         "assert bt.search(db[:3], k=4)[1][:, 0].tolist() == [0, 1, 2]\n"
         "bt.close()\n"
+        "import dirjax_torch.graft_entry, dirjax_torch.validate_oracle\n"
+        "import dirjax_torch.utils.misc, dirjax_torch.utils.timer\n"
+        "import dirjax_torch.models.__main__, dirjax_torch.datasets.__main__\n"
+        "import dirjax_torch.data.__main__\n"
+        "from dirjax_torch import recall_study\n"
+        f"rs = {str(tmp_path / 'rs')!r}\n"
+        "np.savez(rs + '.npz', db=db, q=db[:8] + 0.01, src=np.arange(8))\n"
+        "res = recall_study.main(['evaluate', '--cpu', '--descs', rs + '.npz',\n"
+        "                         '--out', rs + '.json', '--tiers', 'int8'])\n"
+        "assert res['tiers']['int8']['recall@1'] == 1.0\n"
         "print('NO_JAX_OK')\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, cwd=REPO, timeout=300,
@@ -126,14 +137,15 @@ def test_port_never_imports_jax(synth_root, ckpt_path, tmp_path):
 
 
 def test_port_imports_nothing_of_dirjax():
-    """No module of dirjax_torch, nor chip_smoke.py, nor the multi-rank test
-    worker imports the JAX package or any module of it (the port keeps its
-    own copies)."""
+    """No module of dirjax_torch, nor chip_smoke.py, nor
+    recall_spread_study.py, nor the multi-rank test worker imports the JAX
+    package or any module of it (the port keeps its own copies)."""
     import ast
     import glob
 
     files = glob.glob(os.path.join(REPO, "dirjax_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files.append(os.path.join(REPO, "recall_spread_study.py"))
     files.append(os.path.join(REPO, "tests", "test_torch_dist_worker.py"))
     found = []
     for path in files:
