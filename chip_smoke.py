@@ -14,7 +14,28 @@ Phases, each of which raises on failure:
    input, within rtol 2e-4 / atol 2e-5, TF32 off; two calls give equal bits;
    timed with CUDA events against the plain version, masked fp32 and bf16,
    and its device time and CUDA launches a call from a torch.profiler trace.
-3. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
+3. fused conv — the bf16 inference convolution with its fused fp32
+   epilogue (csrc/conv.cu) at every distinct convolution of
+   resnet101_rmac, resnet101_fpn_rmac and resnext101_32x4d_rmac at batch
+   8, 1024x768 (seeded random weights; each call recorded from one bf16
+   FeatureExtractor forward), of the folded resnet101_rmac (bias-only
+   epilogue) at the same size, and of the recall study's extract forward
+   (batch 32 of its 224x224 scenes, a ragged last pixel tile): each R101
+   forward launches it 104 times; each
+   shape against its plain version (an fp32 convolution of the same bf16
+   operands, TF32 off, and the same fp32 epilogue): no element further than
+   2^-16 of the sum of its products' magnitudes (the order of the fp32 sums
+   over K) plus, for a bf16 output, one bf16 ulp, and at most 2e-3 of a
+   bf16 output's elements not equal (9.0e-4 measured at K = 4608); the
+   largest fp32-output difference over its magnitude is printed. Each
+   affine R101 batch-8 shape timed (CUDA events):
+   the kernel on packed operands, its wrapper, the plain version, cuDNN's
+   bf16 conv2d of the same shape (the convolution alone: no PyTorch call
+   computes it with the fp32 epilogue), beside its bound; then the R101
+   bf16 backbone, BN-affine and folded, against today's route (cuDNN bf16
+   convolutions and the eager fp32 chain, grad_safe) on the same weights,
+   in turns, and the whole bf16 extractor forward.
+4. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
    int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
    width of the tensor-core kernels: 8, 16, 32, 64, 128 and 256), and a
@@ -36,7 +57,7 @@ Phases, each of which raises on failure:
    chunk's exact top-k (nq x 131,072 scores, k = 10, ties to the lower
    index) by the full stable sort the port runs against torch.topk with a
    tie fill, at nq = 16, 64 and 256.
-4. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu, on the
+5. binary kernels — K5 and its asymmetric rescore (csrc/binary.cu, on the
    tensor-core routine of csrc/tc_score.cuh) at the serving shape: the
    same 1,048,576 rows, an ITQ codec fitted on the card (131,072-row
    sample, 30 iterations; the fit time is printed) and 2048-bit codes. K5
@@ -49,7 +70,7 @@ Phases, each of which raises on failure:
    rescore at k = 100 and nq = 256 and 16, each against its plain version
    with CUDA events, plain/kernel/kernel/plain, each reading first held
    against the plain version.
-5. PQ/IVF kernels — K6 and its rescore (csrc/pq.cu) on the same rows:
+6. PQ/IVF kernels — K6 and its rescore (csrc/pq.cu) on the same rows:
    m = 32 codebooks at ksub 16 and 256 trained on the card from a
    262,144-row sample, and OPQ once (the fit times are printed); K6 and the
    rescore against their plain versions at nq = 256, 37 and 1, on
@@ -71,13 +92,13 @@ Phases, each of which raises on failure:
    at each ksub and nq. K6's and the rescore's entries also carry their
    lookup floor: their table lookups at 32 a clock on each SM, at the card's
    maximum SM clock.
-6. concurrent launches — K6 (resident tables: m 8 and 64 at ksub 16;
+7. concurrent launches — K6 (resident tables: m 8 and 64 at ksub 16;
    streamed: ksub 256 and 100 at m 32), the ADC rescore (m 64, ksub 256,
    kf 100, nq 1 and 256) and K1 (C 1024 and 2048 at the main-path shape),
    each from 8 host threads at once, 50 launches a thread alternating the
    two shapes, whose dynamic shared memory differs, on 1,048,576 rows;
    every launch must succeed and every answer equal the plain version.
-7. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
+8. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
    port's IndexServer (dirjax_torch.server) on a Unix socket; several
@@ -94,7 +115,7 @@ Phases, each of which raises on failure:
    against the fp32-upload batcher on the same burst (8 client threads):
    bf16 indices equal and values within rtol 1e-6, PQ values within 0.02;
    the kernels' counters must rise; each burst's QPS and latency printed.
-8. sharded — the mesh paths of dirjax_torch.parallel at world 1 (NCCL in
+9. sharded — the mesh paths of dirjax_torch.parallel at world 1 (NCCL in
    this process over a FileStore, make_mesh(1, 1)) on the same rows, codes
    and IVF: sharded_topk on bf16 and int8 rows (nq 256 and 16, k 10 and
    100, int8 with and without quantized queries) and fp32 at nq 16, each
@@ -115,42 +136,43 @@ Phases, each of which raises on failure:
    CLI with --mesh 1,1 --ckpt-format orbax under torch.distributed.run for
    2 epochs, and --resume from its directory for a third in this process.
    One "sharded:" JSON line of readings.
-9. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
+10. fit_pca_device — 1,048,576 x 2048 seeded unit rows (8 GiB fp32) in
    131,072-row chunks on the card; its time (host clock), and against an
    fp64 accumulation of the same chunks on the card: the covariance's
    relative error (at most 1e-5), the first 64 components' |cos| (at least
    1 - 1e-6) and their variances' relative error.
-10. main path — a synthetic Revisited benchmark at 1024x768 and a
+11. main path — a synthetic Revisited benchmark at 1024x768 and a
    resnet101_rmac (2048-D) checkpoint with seeded random weights and a fitted
    PCA go through ``dirjax_torch.cli.test_dir.main`` with whitening and
    AQE/ADBA, once in fp32 and once with --bf16. K1's launch counter must rise
    in each run. The database descriptors each run saves (--save-feats) must
    be finite unit vectors, and those of the first 4 images must match the
    port's fp32 CPU path: cosine > 0.9999 for the fp32 run, > 0.999 for the
-   bf16 one. The mAPs are only checked to be finite in [0, 1]: the synthetic
+   bf16 one; the fused conv launches in the bf16 run only, 104 a forward.
+   The mAPs are only checked to be finite in [0, 1]: the synthetic
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path. Prints which host decoder ran (the
    native one, or PIL where it cannot build).
-11. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
+12. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
    resnext101_32x4d_rmac the same way on a smaller benchmark (16 images),
    each with its own seeded checkpoint: K1 launches above 0 for ResNeXt and
    none for the FPN head (as dirjax gates it), the same cosine bounds, and
    each forward's ms per batch of 8 (CUDA events), fp32 and bf16.
-12. folded BN — resnet101_rmac with every BN folded into its conv
+13. folded BN — resnet101_rmac with every BN folded into its conv
    (fold_batchnorm) against the BN-affine model on 8 database images:
    cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
    K1 launches above 0, forward ms per batch of 8 in fp32 and bf16, timed
    in turns affine/folded/folded/affine.
-13. CLI chain — ``extract_features`` -> ``fit_whitening --device-fit``
+14. CLI chain — ``extract_features`` -> ``fit_whitening --device-fit``
    (into a .pt) -> ``test_dir --whiten`` on the card; the saved
    descriptors must equal an in-process extraction bit for bit.
-14. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
+15. index CLI — ``python -m dirjax_torch.index build --int8``, ``build
    --binary 2048``, ``build --pq 32`` and ``build --ivf 1024``, each then
    ``query -k 100 --gpu 0``, as subprocesses on 65,536 rows (the four
    chains at once); each JSON answer must equal the in-process search
    exactly.
 
-15. training — resnet101_rmac (2048-D) at 224x224 from seeded random
+16. training — resnet101_rmac (2048-D) at 224x224 from seeded random
    weights: the card's AP loss and full gradient (batch 4, two classes)
    against the port's CPU path, fp32 (loss within 1e-5, gradient cosine >
    0.9999) and bf16 (loss within 1e-2, cosine > 0.9: train_bf16_study.py
@@ -164,7 +186,7 @@ Phases, each of which raises on failure:
    unchanged, K1 launched in the evaluations and never in a train step,
    the resumed run at epoch 2 with the saved optimizer count, and test_dir
    on the last checkpoint.
-16. recall study — ``dirjax_torch.recall_study`` in-process on the card:
+17. recall study — ``dirjax_torch.recall_study`` in-process on the card:
    ``train`` (resnet101_rmac, 400 steps of batch 16 = 4 classes x 4 views,
    256 classes, 224x224, plain Adam on every tensor, bf16), ``extract`` from
    its checkpoint (16,384 generated scenes and 256 query views, batch 32,
@@ -186,9 +208,9 @@ Phases, each of which raises on failure:
    loss, the spectrum, every tier's recall, and one ksub-256 IVF search
    (nq 256, k 10, nprobe 4 and 16; CUDA events, ms and QPS).
 
-    python3 chip_smoke.py --profile DIR   # also phase 17
+    python3 chip_smoke.py --profile DIR   # also phase 18
 
-17. profile — where a warm database extraction's time goes, fp32 and bf16:
+18. profile — where a warm database extraction's time goes, fp32 and bf16:
    unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
    peak memory, and a torch.profiler trace whose device intervals are merged
    into busy time and split into convolution, elementwise, copies, K1 and
@@ -381,6 +403,263 @@ def kernel_phase(device) -> dict:
             "bf16_bound_ms": bf16["bound_ms"], "bf16_bound_by": bf16["bound_by"],
             "device_ms": dev_ms["fp32"], "bf16_device_ms": dev_ms["bf16"],
             "cuda_launches_per_call": None if kernels is None else len(kernels)}
+
+
+# --- the fused-epilogue convolution of the bf16 inference backbones ----------
+
+CONV_ARCHS = ("resnet101_rmac", "resnet101_fpn_rmac", "resnext101_32x4d_rmac")
+CONV_IMAGES = (8, 768, 1024)    # batch 8 of 1024x768 landscape images
+R101_CONVS = 104                # stem + 33 bottlenecks x 3 + 4 downsamples
+# a bf16 output may differ from the plain version's in this share of its
+# elements, each by at most one bf16 ulp (plus the sums' order): an fp32 sum
+# taken in another order crosses a bf16 rounding boundary only where it lies
+# within its rounding error (~sqrt(K) fp32 ulps) of one; measured 9.0e-4 at
+# R101's K = 4608 3x3s, 4.2e-4 at K = 2048, less below (NVIDIA H100, two
+# runs); the bound leaves room for cuDNN summing the plain version in
+# another order
+CONV_BF16_APART = 2e-3
+CONV_ARGS = ("x", "weight", "stride", "padding", "groups", "scale", "shift", "residual", "relu",
+             "out_dtype")
+
+
+@contextlib.contextmanager
+def recorded_convs(calls: list):
+    """Every fused_conv call the backbones and the FPN merge make inside the
+    block, appended to ``calls`` as its bound arguments."""
+    import inspect
+
+    from dirjax_torch.models import resnet, rmac
+    from dirjax_torch.ops import conv
+
+    real, sig = conv.fused_conv, inspect.signature(conv.fused_conv)
+
+    def record(*args, **kw):
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return real(*args, **kw)
+
+    resnet.fused_conv = rmac.fused_conv = record
+    try:
+        yield
+    finally:
+        resnet.fused_conv = rmac.fused_conv = real
+
+
+def check_conv_launches(label: str, launches: int, bf16: bool, per_forward=None) -> None:
+    """A bf16 inference run goes through the fused conv (whole forwards of
+    ``per_forward`` launches each, where given); an fp32 one never does."""
+    if not bf16:
+        if launches:
+            raise AssertionError(f"{label}: the fp32 run launched the fused conv {launches} "
+                                 "times")
+        return
+    if not launches or (per_forward and launches % per_forward):
+        raise AssertionError(f"{label}: the bf16 run launched the fused conv {launches} times"
+                             + (f", not a multiple of {per_forward}" if per_forward else ""))
+
+
+def conv_key(a: dict) -> tuple:
+    """A conv call's shape and epilogue."""
+    def kind(t):
+        return None if t is None else str(t.dtype).replace("torch.", "")
+
+    return (tuple(a["x"].shape), kind(a["x"]), tuple(a["weight"].shape), a["stride"],
+            a["padding"], a["groups"], a["scale"] is not None, a["shift"] is not None,
+            kind(a["residual"]), a["relu"], str(a["out_dtype"]).replace("torch.", ""))
+
+
+def conv_bound(a: dict) -> dict:
+    """bytes: the packed input and weights, the per-channel vectors and the
+    residual read once, the output written once; operations: 2 * M * cout *
+    kh * kw * cin / groups, bf16 on the tensor cores."""
+    B, cin, H, W = a["x"].shape
+    cout, cin_g, kh, kw = a["weight"].shape
+    ho = (H + 2 * a["padding"] - kh) // a["stride"] + 1
+    wo = (W + 2 * a["padding"] - kw) // a["stride"] + 1
+    out_bytes = 2 if a["out_dtype"] == torch.bfloat16 else 4
+    nbytes = (B * H * W * cin * 2 + cout * kh * kw * cin_g * 2 + B * ho * wo * cout * out_bytes
+              + 4 * cout * ((a["scale"] is not None) + (a["shift"] is not None)))
+    if a["residual"] is not None:
+        nbytes += a["residual"].numel() * a["residual"].element_size()
+    ops = 2.0 * B * ho * wo * cout * kh * kw * cin_g
+    return {"bytes": nbytes, "ops": ops, **bound(nbytes, ops, "bf16")}
+
+
+def check_conv(a: dict) -> dict:
+    """The kernel on a recorded call's operands against conv_reference (TF32
+    off): no element beyond the sums' order (SUM_ORDER_RTOL of its
+    magnitude; a bf16 output also one ulp), at most CONV_BF16_APART of a
+    bf16 output's elements not equal."""
+    from dirjax_torch.ops import conv
+
+    args = {k: a[k] for k in CONV_ARGS}
+    got = conv.fused_conv(**args)
+    want = conv.conv_reference(**args)
+    mag = conv.reference_magnitude(a["x"], a["weight"], a["stride"], a["padding"],
+                                   a["groups"], a["scale"])
+    agree = conv.agreement(got, want, mag)
+    if got.shape != want.shape or got.dtype != want.dtype or agree["over"] > 0 or (
+            got.dtype == torch.bfloat16 and agree["apart"] > CONV_BF16_APART):
+        raise AssertionError(f"fused conv {conv_key(a)} disagrees with its plain version: "
+                             f"{agree}")
+    return agree
+
+
+def conv_shape_row(key: tuple, entry: dict, totals: dict) -> dict:
+    """One recorded shape: checked against the plain version; an R101 shape
+    also timed (kernel on packed operands, its wrapper, the plain version,
+    cuDNN's bf16 conv2d), its times times its count added to ``totals``."""
+    import torch.nn.functional as F
+
+    from dirjax_torch.ops import conv
+
+    a = entry["args"]
+    args = {k: a[k] for k in CONV_ARGS}
+    agree = check_conv(a)
+    shape = {"arch": entry["arch"], "x": list(key[0]), "x_dtype": key[1],
+             "weight": list(key[2]), "stride": key[3], "padding": key[4],
+             "groups": key[5], "epilogue": {"scale": key[6], "shift": key[7],
+                                            "residual": key[8], "relu": key[9],
+                                            "out": key[10]},
+             "count": entry["count"], **agree, **conv_bound(a)}
+    if entry["arch"] == "resnet101_rmac":
+        packed = conv.pack(**args)
+        xb = a["x"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = a["weight"].detach().to(torch.bfloat16)
+        ms, plain_ms = time_in_turns(f"fused conv {key}", lambda: conv.conv_reference(**args),
+                                     lambda: conv.run_packed(packed), iters=10)
+        shape.update(ms=ms, plain_ms=plain_ms,
+                     wrapper_ms=_time_ms(lambda: conv.fused_conv(**args), iters=10),
+                     library_ms=_time_ms(lambda: F.conv2d(xb, wb, None, a["stride"],
+                                                          a["padding"], 1, a["groups"]),
+                                         iters=10))
+        for k in ("ms", "plain_ms", "wrapper_ms", "library_ms", "bytes", "ops"):
+            totals[k] += entry["count"] * shape[k]
+        totals["bound_sum_ms"] += entry["count"] * shape["bound_ms"]
+    return shape
+
+
+def fused_conv_phase(device) -> dict:
+    """The bf16 inference convolutions (csrc/conv.cu) at every distinct
+    shape of resnet101_rmac, resnet101_fpn_rmac and resnext101_32x4d_rmac at
+    batch 8, 1024x768 (recorded from one FeatureExtractor forward each,
+    seeded random weights), of the folded resnet101_rmac (fold_batchnorm:
+    the bias-only epilogue) at the same size, and of the recall study's
+    extract forward (resnet101_rmac, a batch of 32 of its 224x224 scenes:
+    the 7x7 stage's 1,568 pixels leave a ragged 128-pixel tile): each
+    against its plain version, each R101 forward's launches (104), each
+    affine R101 batch-8 shape's kernel time (CUDA events, on the
+    packed operands; the wrapper, which packs per call, beside it), its
+    plain version's, cuDNN's bf16 conv2d of the same shape (the library
+    yardstick for the convolution alone: no PyTorch call computes it with
+    the fp32 epilogue) and its bound; then the bf16 backbone of R101,
+    BN-affine and folded, against today's route (grad_safe: cuDNN bf16
+    convolutions and the eager fp32 chain) on the same weights, in turns.
+    Returns the kernels-line entry without ``launches``."""
+    from dirjax_torch import recall_study as RS
+    from dirjax_torch.extraction import FeatureExtractor
+    from dirjax_torch.models import create_model, fold_batchnorm
+    from dirjax_torch.ops import conv
+    from dirjax_torch.utils.checkpoints import load_state
+
+    t0 = time.perf_counter()
+    images = np.random.default_rng(50).integers(0, 256, size=(*CONV_IMAGES, 3), dtype=np.uint8)
+    shapes, row = {}, {"per_arch_launches": {}}
+    models = {}
+
+    def record(label: str, forward, convs=None) -> None:
+        """The fused_conv calls of one bf16 forward, each distinct shape kept."""
+        calls = []
+        conv.launches = 0
+        with recorded_convs(calls), torch.inference_mode():
+            forward()
+        torch.cuda.synchronize()
+        row["per_arch_launches"][label] = conv.launches
+        if conv.launches != len(calls) or (convs and conv.launches != convs):
+            raise AssertionError(f"fused conv: {label}'s bf16 forward launched the kernel "
+                                 f"{conv.launches} times for {len(calls)} convolutions")
+        for a in calls:
+            entry = shapes.setdefault(conv_key(a), {"arch": label, "args": a, "count": 0})
+            entry["count"] += label == entry["arch"]
+
+    for arch in CONV_ARCHS:
+        model = create_model(arch)
+        load_state(model, random_state_dict(model, 51))
+        ex = FeatureExtractor(model, device, dtype=torch.bfloat16)
+        record(arch, lambda: ex(images), R101_CONVS if arch == "resnet101_rmac" else None)
+        models[arch] = (model, ex)
+    r101 = models["resnet101_rmac"][0]
+    folded = fold_batchnorm(r101)
+    folded_ex = FeatureExtractor(folded, device, dtype=torch.bfloat16)
+    record("resnet101_rmac folded", lambda: folded_ex(images), R101_CONVS)
+    # the recall study's extract: model(scenes NCHW, dtype=bf16), batch 32 at 224x224
+    scenes = RS.db_scenes(0, 32, 224, 224, device).permute(0, 3, 1, 2)
+    record("resnet101_rmac recall study", lambda: r101(scenes, dtype=torch.bfloat16),
+           R101_CONVS)
+    print(f"fused conv: launches a bf16 forward {json.dumps(row['per_arch_launches'])}; "
+          f"{len(shapes)} distinct shapes; recorded in {time.perf_counter() - t0:.1f} s")
+
+    saved, per_shape = conv.launches, []
+    totals = defaultdict(float)
+    worst, worst_rel = 0.0, 0.0
+    for key, entry in shapes.items():
+        with torch.inference_mode():   # the recorded weights are parameters
+            shape = conv_shape_row(key, entry, totals)
+        worst = max(worst, shape["max_abs_err"])
+        worst_rel = max(worst_rel, shape["max_rel"] or 0.0)
+        per_shape.append(shape)
+        if "ms" in shape:
+            print(f"fused conv {shape['x']} x {shape['weight']} stride {shape['stride']}, "
+                  f"{shape['count']} a forward: kernel {shape['ms']:.4f} ms (wrapper "
+                  f"{shape['wrapper_ms']:.4f}), plain {shape['plain_ms']:.4f}, cuDNN "
+                  f"{shape['library_ms']:.4f}, bound {shape['bound_ms']:.4f} "
+                  f"({shape['bound_by']}); apart {shape['apart']:.2e}")
+    conv.launches = saved
+    print("fused conv shapes: " + json.dumps(per_shape))
+    r101 = bound(totals["bytes"], totals["ops"], "bf16")
+    print(f"fused conv, the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward "
+          f"(batch 8, 1024x768): kernel {totals['ms']:.3f} ms (wrapper {totals['wrapper_ms']:.3f}),"
+          f" plain {totals['plain_ms']:.3f} ms, cuDNN bf16 conv2d alone "
+          f"{totals['library_ms']:.3f} ms; bound {r101['bound_ms']:.3f} ms by "
+          f"{r101['bound_by']} ({totals['bytes'] / 1e9:.2f} GB, {totals['ops'] / 1e12:.3f} "
+          f"TFLOP; per-conv bounds summed {totals['bound_sum_ms']:.3f} ms); every shape within "
+          f"its bounds against the plain version, max_abs_err {worst:.3e}; largest fp32-output "
+          f"|difference| / magnitude {worst_rel:.3e} (SUM_ORDER_RTOL {conv.SUM_ORDER_RTOL:.3e})")
+
+    # the bf16 backbone, contract route against today's, on the same weights
+    model, ex = models["resnet101_rmac"]
+    x = torch.from_numpy(images).to(device).float() * ex._scale - ex._offset
+    x = x.permute(0, 3, 1, 2)
+    forward = {}
+    with torch.inference_mode():
+        for kind, m in (("affine", model), ("folded", folded)):
+            ms, old_ms = time_in_turns(
+                f"resnet101_rmac bf16 backbone {kind}",
+                lambda: m.features(x, torch.bfloat16, grad_safe=True),
+                lambda: m.features(x, torch.bfloat16), iters=10)
+            forward[f"{kind}_ms"], forward[f"{kind}_cudnn_chain_ms"] = ms, old_ms
+        forward["extractor_ms"] = _time_ms(lambda: ex(images), iters=10)
+    conv.launches = saved
+    print(f"fused conv: resnet101_rmac bf16 backbone, batch 8 at 1024x768 (CUDA events, in "
+          f"turns): BN-affine {forward['affine_ms']:.2f} ms against today's cuDNN + fp32 "
+          f"chain {forward['affine_cudnn_chain_ms']:.2f} ms; folded {forward['folded_ms']:.2f}"
+          f" against {forward['folded_cudnn_chain_ms']:.2f} ms; the whole bf16 extractor "
+          f"forward (K1 included) {forward['extractor_ms']:.2f} ms")
+    row.update(forward=forward, shapes=len(shapes), seconds=time.perf_counter() - t0)
+    return {"name": "conv_fused", "route": "cuda", "source": "dirjax_torch/csrc/conv.cu",
+            "replaces": "dirjax/models/resnet.py:159 (_conv, preferred_element_type=float32, "
+                        "and its XLA-fused epilogue; no Pallas kernel)",
+            "max_abs_err": worst, "max_rel_fp32": worst_rel, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"],
+            **r101, "library_ms": totals["library_ms"],
+            "library": "cuDNN bf16 conv2d of the same 104 shapes, the convolution alone (no "
+                       "PyTorch call computes it with the fp32 epilogue)",
+            "work": f"the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward, "
+                    "batch 8, 1024x768",
+            "wrapper_ms": totals["wrapper_ms"], "per_conv_bound_sum_ms": totals["bound_sum_ms"],
+            **{f"forward_{k}": v for k, v in forward.items()},
+            "per_arch_launches": row["per_arch_launches"]}
 
 
 TRACE_TRIES = 3
@@ -1420,15 +1699,16 @@ SHARDED_TRAIN_BOUND = {"loss": 1e-5, "rtol": 2e-4, "atol": 2e-5}   # dirjax's me
 def uncounted():
     """Launches inside the block (the single-device references) leave every
     kernel counter as it was."""
-    from dirjax_torch.ops import binary, gem_head, pq, topk
+    from dirjax_torch.ops import binary, conv, gem_head, pq, topk
 
-    saved = [dict(topk.launches), dict(binary.launches), dict(pq.launches), gem_head.launches]
+    saved = [dict(topk.launches), dict(binary.launches), dict(pq.launches), gem_head.launches,
+             conv.launches]
     try:
         yield
     finally:
         for counts, old in zip((topk.launches, binary.launches, pq.launches), saved):
             counts.update(old)
-        gem_head.launches = saved[3]
+        gem_head.launches, conv.launches = saved[3], saved[4]
 
 
 def same_bits(tag: str, got, want) -> None:
@@ -1584,6 +1864,7 @@ def sharded_phase(device, db16, db32, codec, pq_books, ivf_index, card: str):
         readings.update(sharded_extraction(device, mesh))
         readings.update(sharded_training(device, mesh))
         launches["gem_head"] = readings.pop("k1_launches")
+        launches["conv_fused"] = readings.pop("conv_launches")
     finally:
         dist.destroy_process_group()
     readings["cli"] = sharded_cli()
@@ -1601,14 +1882,14 @@ def sharded_extraction(device, mesh) -> dict:
     from dirjax_torch import parallel as par
     from dirjax_torch.extraction import FeatureExtractor
     from dirjax_torch.models import create_model
-    from dirjax_torch.ops import gem_head
+    from dirjax_torch.ops import conv, gem_head
     from dirjax_torch.utils.checkpoints import load_state
 
     model = create_model("resnet101_rmac")
     load_state(model, random_state_dict(model, 40))
     images = np.random.default_rng(41).integers(
         0, 256, size=(8, MAIN_SHAPE[1] * 32, MAIN_SHAPE[2] * 32, 3), dtype=np.uint8)
-    row, before = {}, gem_head.launches
+    row, before, conv_before = {}, gem_head.launches, conv.launches
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         sharded = par.ShardedExtractor(model, mesh, dtype=dt)
         got = sharded(images)
@@ -1631,6 +1912,8 @@ def sharded_extraction(device, mesh) -> dict:
     row["k1_launches"] = gem_head.launches - before
     if not row["k1_launches"]:
         raise AssertionError("ShardedExtractor launched K1 no time")
+    row["conv_launches"] = conv.launches - conv_before
+    check_conv_launches("ShardedExtractor", row["conv_launches"], True, R101_CONVS)
     return row
 
 
@@ -1883,8 +2166,9 @@ def device_breakdown(trace_path: str) -> dict:
     """Device time of a torch.profiler chrome trace, in ms: ``busy`` is the
     union of every kernel, copy and memset interval; the parts sum the
     intervals by kind. A kernel is K1 by name, a convolution when an aten
-    convolution op launched it (cuDNN's GEMM, FFT and layout kernels), and
-    elementwise when ATen's elementwise templates run it."""
+    convolution op launched it (cuDNN's GEMM, FFT and layout kernels), the
+    fused conv (csrc/conv.cu) by name otherwise, and elementwise when
+    ATen's elementwise templates run it."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     ops = {e["args"]["External id"]: e["name"] for e in events
@@ -1905,6 +2189,8 @@ def device_breakdown(trace_path: str) -> dict:
             k1_launches += "gem_pool_kernel" in name
         elif ops.get(e.get("args", {}).get("External id")) in _CONV_OPS:
             kind = "convolution"
+        elif "namespace)::conv_kernel<" in name:   # csrc/conv.cu (an anonymous namespace)
+            kind = "fused_conv"
         elif "elementwise" in name:
             kind = "elementwise"
         else:
@@ -2019,7 +2305,7 @@ def arch_phase(work: str, device, arch: str) -> dict:
     the first N_REF database descriptors against the fp32 CPU path, and the
     forward's ms per batch of 8 (CUDA events)."""
     from dirjax_torch.extraction import FeatureExtractor
-    from dirjax_torch.ops import gem_head
+    from dirjax_torch.ops import conv, gem_head
     from dirjax_torch.utils.checkpoints import load_checkpoint
 
     t0 = time.perf_counter()
@@ -2031,16 +2317,18 @@ def arch_phase(work: str, device, arch: str) -> dict:
     row = {"arch": arch}
     for bf16 in (False, True):
         tag = "bf16" if bf16 else "fp32"
-        gem_head.launches = 0
+        gem_head.launches = conv.launches = 0
         res, bdescs, n_images, sec = run_test_dir(
             bench, ckpt, 0, bf16, os.path.join(workdir, f"feats_{tag}"))
         launches = gem_head.launches
         if (launches > 0) != NEW_ARCHS[arch]:
             raise AssertionError(f"{arch} {tag}: K1 launched {launches} times; dirjax "
                                  f"{'runs' if NEW_ARCHS[arch] else 'never runs'} it there")
+        check_conv_launches(f"{arch} {tag}", conv.launches, bf16)
+        row[f"{tag}_conv_launches"] = conv.launches
         print(f"{arch} {tag}: {json.dumps(res)}; {n_images} images in {sec:.2f} s = "
               f"{n_images / sec:.1f} img/s (host clock, decode and first-call set-up "
-              f"included); K1 launches {launches}")
+              f"included); K1 launches {launches}, fused conv launches {conv.launches}")
         row[f"{tag}_cosine"] = check_against_cpu(tag, bdescs[:N_REF], ref, label=arch)
         row[f"{tag}_k1_launches"] = launches
         row[f"{tag}_img_per_s"] = n_images / sec
@@ -2063,7 +2351,7 @@ def folded_phase(bench: str, ckpt: str, device) -> dict:
     fp32 and bf16, timed in turns affine/folded/folded/affine."""
     from dirjax_torch.extraction import FeatureExtractor
     from dirjax_torch.models import fold_batchnorm
-    from dirjax_torch.ops import gem_head
+    from dirjax_torch.ops import conv, gem_head
     from dirjax_torch.utils.checkpoints import load_checkpoint
 
     batch = first_images(bench, 8)
@@ -2076,7 +2364,10 @@ def folded_phase(bench: str, ckpt: str, device) -> dict:
     gem_head.launches = 0
     row = {}
     for tag in ("fp32", "bf16"):
+        conv.launches = 0
         got = ex["folded", tag](batch).cpu().numpy()
+        check_conv_launches(f"folded BN {tag}", conv.launches, tag == "bf16", R101_CONVS)
+        row["conv_launches"] = conv.launches
         row[f"{tag}_cosine"] = check_against_cpu(tag, got, want, label="folded BN",
                                                  against="BN-affine fp32 on the card")
     row["k1_launches"] = gem_head.launches
@@ -2231,13 +2522,14 @@ def train_step_checks(device) -> dict:
     of 4, two classes, AP loss, fp32 and bf16 against fp32 on the CPU), and
     the two-pass step against the whole-batch step on the card (batch 16,
     microbatch 4, SGD without momentum: dirjax's bounds, loss 1e-5, weights
-    atol 1e-5 / rtol 1e-4). Neither may launch K1."""
+    atol 1e-5 / rtol 1e-4). Neither may launch K1 or the fused conv (the
+    training route is grad_safe)."""
     from dataclasses import replace
 
     from dirjax_torch import train as TT
-    from dirjax_torch.ops import gem_head
+    from dirjax_torch.ops import conv, gem_head
 
-    row, before = {}, gem_head.launches
+    row, before, conv_before = {}, gem_head.launches, conv.launches
     rng = np.random.default_rng(21)
     images = rng.standard_normal((4, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32)
     labels = np.array([0, 0, 1, 1])
@@ -2285,8 +2577,9 @@ def train_step_checks(device) -> dict:
           f"step: loss {l2:.7f} vs {l1:.7f}; weights max |diff| {worst:.2e} (bounds: loss "
           "1e-5, weights atol 1e-5 / rtol 1e-4)")
     row["two_pass_loss_diff"], row["two_pass_weight_max_diff"] = abs(l1 - l2), worst
-    if gem_head.launches != before:
-        raise AssertionError("a train step launched K1 (it has no backward)")
+    if gem_head.launches != before or conv.launches != conv_before:
+        raise AssertionError("a train step launched K1 or the fused conv (they have no "
+                             "backward)")
     return row
 
 
@@ -2387,7 +2680,7 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
     from dirjax_torch.cli import train as cli_train
     from dirjax_torch.datasets import make_synthetic_benchmark
     from dirjax_torch.models import create_model
-    from dirjax_torch.ops import gem_head
+    from dirjax_torch.ops import conv, gem_head
     from dirjax_torch.utils.checkpoints import (Checkpoint, load_native, load_state,
                                                 save_native)
 
@@ -2400,7 +2693,7 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
     load_state(model, random_state_dict(model, 33))
     save_native(start, Checkpoint(model=model, preprocess=model.cfg.preprocess))
 
-    counts = {"step_k1": 0, "steps": 0, "eval_k1": 0, "start_count": []}
+    counts = {"step_k1": 0, "steps": 0, "eval_k1": 0, "eval_conv": 0, "start_count": []}
     make_step, evaluate = TT.make_train_step, TT.evaluate_retrieval
 
     def counted_make(model, cfg, optimizer, dtype=torch.float32):
@@ -2408,17 +2701,18 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
         counts["start_count"].append(TT._step_count(optimizer))
 
         def counted(images, labels):
-            before = gem_head.launches
+            before = gem_head.launches + conv.launches
             out = step(images, labels)
-            counts["step_k1"] += gem_head.launches - before
+            counts["step_k1"] += gem_head.launches + conv.launches - before
             counts["steps"] += 1
             return out
         return counted
 
     def counted_eval(*args, **kw):
-        before = gem_head.launches
+        before, conv_before = gem_head.launches, conv.launches
         res = evaluate(*args, **kw)
         counts["eval_k1"] += gem_head.launches - before
+        counts["eval_conv"] += conv.launches - conv_before
         return res
 
     def opt_steps():
@@ -2446,8 +2740,8 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
         raise AssertionError(f"resume: epochs {[h['epoch'] for h in resumed]}, optimizer "
                              f"counts at start {counts['start_count']}, saved {saved}")
     if counts["step_k1"] or not counts["eval_k1"]:
-        raise AssertionError(f"K1 launches: {counts['step_k1']} in train steps, "
-                             f"{counts['eval_k1']} in the evaluations")
+        raise AssertionError(f"K1 and fused conv launches: {counts['step_k1']} in train "
+                             f"steps; K1 {counts['eval_k1']} in the evaluations")
     before = load_native(start).model.state_dict()
     after = load_native(os.path.join(out, "checkpoint.npz")).model.state_dict()
     bn = [k for k in before if "bn" in k or "downsample.1" in k]
@@ -2463,7 +2757,8 @@ def train_cli_check(work: str, gpu: int = 0) -> dict:
           f"steps (K1 launches 0), evaluations launched K1 {counts['eval_k1']} times; resumed "
           f"at epoch 2 from optimizer step {saved}; {len(bn)} BN tensors unchanged; test_dir "
           f"on the last checkpoint: {json.dumps(res)}; in {seconds:.1f} s")
-    return {"eval_k1_launches": counts["eval_k1"], "cli_seconds": seconds,
+    return {"eval_k1_launches": counts["eval_k1"], "eval_conv_launches": counts["eval_conv"],
+            "cli_seconds": seconds,
             "losses": losses}
 
 
@@ -2492,7 +2787,7 @@ RECALL_CARD_CPU_TOL, RECALL_SCORE_TOL = 0.005, 1e-4
 # 1 in 100); the same share bounds the codes that a near-tie encodes apart
 LLOYD_TOL, LLOYD_MOVED = 1e-5, 0.01
 RECALL_INT8_R10 = 0.95
-RECALL_KERNELS = ("gem_head", "finemax", "gather_scores", "bits_finemax",
+RECALL_KERNELS = ("gem_head", "conv_fused", "finemax", "gather_scores", "bits_finemax",
                   "bits_gather_scores", "adc_finemax", "adc_gather_scores")
 
 
@@ -2674,7 +2969,7 @@ def recall_phase(work: str, device) -> dict:
     RECALL_TRAINED_TOL at each k; the ksub-256 IVF search timed. Returns
     the readings and the launches of each kernel in the three stages."""
     from dirjax_torch import recall_study as RS
-    from dirjax_torch.ops import binary, gem_head, pq, topk
+    from dirjax_torch.ops import binary, conv, gem_head, pq, topk
 
     root = os.path.join(work, "recall")
     os.makedirs(root)
@@ -2683,7 +2978,7 @@ def recall_phase(work: str, device) -> dict:
     for counts in (topk.launches, binary.launches, pq.launches):
         for key in counts:
             counts[key] = 0
-    gem_head.launches = 0
+    gem_head.launches = conv.launches = 0
     walls, graded = {}, {}
     # each stage runs with TF32 off and leaves the caller's flags as they
     # were: here on, read after the stages
@@ -2701,8 +2996,8 @@ def recall_phase(work: str, device) -> dict:
         flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     finally:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    launches = {"gem_head": gem_head.launches, **topk.launches, **binary.launches,
-                **pq.launches}
+    launches = {"gem_head": gem_head.launches, "conv_fused": conv.launches, **topk.launches,
+                **binary.launches, **pq.launches}
     check_recall_layout(res)
     if res["tiers"]["int8"]["recall@10"] < RECALL_INT8_R10:
         raise AssertionError(f"recall study: int8 recall@10 {res['tiers']['int8']}")
@@ -2788,7 +3083,7 @@ def main(argv=None) -> int:
 
     try:
         import dirjax_torch  # noqa: F401  (fails outside the repository)
-        from dirjax_torch.ops import gem_head
+        from dirjax_torch.ops import conv, gem_head
 
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2799,6 +3094,8 @@ def main(argv=None) -> int:
         build_phase()
         enter("K1 kernel")
         entries = [kernel_phase(device)]
+        enter("fused conv")
+        conv_entry = fused_conv_phase(device)
         enter("top-k kernels")
         topk_entries, db16 = topk_kernel_phase(device)
         enter("binary kernels")
@@ -2820,6 +3117,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         k1_by_path = {"sharded": sharded_launches["gem_head"]}
+        conv_by_path = {"sharded": sharded_launches["conv_fused"]}
         with tempfile.TemporaryDirectory(prefix="dirjax_torch_smoke_") as work:
             enter("main path resnet101_rmac")
             t0 = time.perf_counter()
@@ -2834,20 +3132,24 @@ def main(argv=None) -> int:
                                      "PIL (the native decoder did not build)"))
 
             runs = {}
-            gem_head.launches = 0
+            gem_head.launches = conv.launches = 0
             for bf16 in (False, True):
                 tag = "bf16" if bf16 else "fp32"
-                before = gem_head.launches
+                before, conv_before = gem_head.launches, conv.launches
                 res, bdescs, n_images, sec = run_test_dir(
                     bench, ckpt, 0, bf16, os.path.join(work, f"feats_{tag}"))
                 if gem_head.launches <= before:
                     raise AssertionError(f"{tag} test_dir run launched K1 no time")
+                check_conv_launches(f"main path {tag}", conv.launches - conv_before, bf16,
+                                    R101_CONVS)
                 runs[tag] = (res, bdescs)
                 print(f"main path {tag}: {json.dumps(res)}; {n_images} images in "
                       f"{sec:.2f} s = {n_images / sec:.1f} img/s (host clock, "
                       f"decode and first-call set-up included); K1 launches "
-                      f"{gem_head.launches - before}")
+                      f"{gem_head.launches - before}, fused conv launches "
+                      f"{conv.launches - conv_before}")
             k1_by_path["resnet101_rmac"] = gem_head.launches
+            conv_by_path["resnet101_rmac"] = conv.launches
             for tag, (_, bdescs) in runs.items():
                 check_against_cpu(tag, bdescs[:N_REF], ref)
 
@@ -2857,9 +3159,11 @@ def main(argv=None) -> int:
                 arch_rows[arch] = arch_phase(work, device, arch)
                 k1_by_path[arch] = arch_rows[arch]["fp32_k1_launches"] + \
                     arch_rows[arch]["bf16_k1_launches"]
+                conv_by_path[arch] = arch_rows[arch]["bf16_conv_launches"]
             enter("folded BN")
             folded_row = folded_phase(bench, ckpt, device)
             k1_by_path["resnet101_rmac folded"] = folded_row["k1_launches"]
+            conv_by_path["resnet101_rmac folded"] = folded_row["conv_launches"]
             enter("CLI chain")
             cli_chain_phase(bench, ckpt, device, work)
             enter("index CLI")
@@ -2868,9 +3172,11 @@ def main(argv=None) -> int:
             train_row = {**train_step_checks(device), **train_timing(device),
                          **train_cli_check(work)}
             k1_by_path["train eval"] = train_row["eval_k1_launches"]
+            conv_by_path["train eval"] = train_row["eval_conv_launches"]
             enter("recall study")
             recall_row = recall_phase(work, device)
             k1_by_path["recall study"] = recall_row["launches"]["gem_head"]
+            conv_by_path["recall study"] = recall_row["launches"]["conv_fused"]
             if args.profile:
                 enter("profile")
                 profile_phase(bench, ckpt, device, args.profile, card)
@@ -2885,6 +3191,9 @@ def main(argv=None) -> int:
 
         entries[0]["launches"] = sum(k1_by_path.values())
         entries[0]["launches_by_path"] = k1_by_path
+        conv_entry["launches"] = sum(conv_by_path.values())
+        conv_entry["launches_by_path"] = conv_by_path
+        entries.append(conv_entry)
         for entry in topk_entries + binary_entries + pq_entries:
             by_path = {"serving": serving_launches[entry["name"]],
                        "sharded": sharded_launches[entry["name"]],

@@ -137,6 +137,10 @@ def load_library() -> ctypes.CDLL:
         "dirjax_adc_finemax": [vp, i, vp, ll, ll, i, i, ll, vp, vp],
         # luts, lut_bf16, codes, bids, nq, n, m, ksub, block, kf, out, stream
         "dirjax_adc_gather_scores": [vp, i, vp, vp, ll, ll, i, i, ll, ll, vp, vp],
+        # x, w, scale, shift, residual, res_kind, relu, out, out_bf16, batch,
+        # h, w, cin, cout, kh, kw, stride, pad, groups, ho, wo, stream
+        "dirjax_conv_fused": [vp, vp, vp, vp, vp, i, i, vp, i, i, i, i, i, i, i, i, i, i, i,
+                              i, i, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

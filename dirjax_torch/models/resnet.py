@@ -8,6 +8,20 @@ memory format. ``dtype`` is the conv compute dtype: the BN affine, ReLU and
 residual add run in fp32, and each block writes its output in ``dtype``
 (``dirjax/models/resnet.py:278``), as the JAX package does.
 
+Two routes, by dirjax's ``grad_safe`` (``dirjax/models/resnet.py:159-185``):
+- bf16 with ``grad_safe=False`` (inference): every convolution, the stem's,
+  each block's (grouped ones included) and each downsample's, is
+  :func:`~dirjax_torch.ops.conv.fused_conv`: bf16 operands, the output kept
+  in fp32 into the fused fp32 epilogue (BN affine or folded bias, residual
+  add, ReLU), as dirjax's ``preferred_element_type=float32`` keeps it. The
+  stem and the blocks write bf16, the downsample fp32 (dirjax's
+  ``_bn(_conv(...))``). On the card that is the kernel of ``csrc/conv.cu``;
+  on the CPU its plain version.
+- fp32, and bf16 with ``grad_safe=True`` (training): ``_conv``, a cuDNN
+  convolution in ``dtype`` widened to fp32, then the epilogue as separate
+  fp32 ops. In bf16 that is dirjax's ``grad_safe`` branch, which emits the
+  conv in bf16 and widens it.
+
 :func:`fold_batchnorm` (``dirjax/models/resnet.py:285-348``) returns a copy
 whose convolutions carry each BN as a per-output-channel scale and a bias;
 that copy adds each bias, and runs ReLU and the residual add, in fp32 as
@@ -25,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv import fused_conv
 
 __all__ = ["ResNetConfig", "RESNET_CONFIGS", "ResNet", "BatchNormAffine",
            "BN_EPS", "RGB_MEANS", "RGB_STDS", "fold_batchnorm", "is_folded"]
@@ -89,9 +105,13 @@ class BatchNormAffine(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift), each (C,) fp32."""
         scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
-        shift = self.bias - self.running_mean * scale
+        return scale, self.bias - self.running_mean * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.affine()
         return x.float() * scale[:, None, None] + shift[:, None, None]
 
 
@@ -110,6 +130,30 @@ def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, dtype: torch.dtype) -> torch.
     return y if bn is None else bn(y)
 
 
+def _fused_route(dtype: torch.dtype, grad_safe: bool) -> bool:
+    """dirjax's inference contract: bf16 convolutions with an fp32 output,
+    unless ``grad_safe`` (training)."""
+    return dtype == torch.bfloat16 and not grad_safe
+
+
+def _fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, relu: str = "post",
+                   residual=None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """conv in bf16 with its BN affine (folded: its bias) and the rest of the
+    epilogue fused, in fp32, written as ``out_dtype``."""
+    scale, shift = (None, conv.bias) if bn is None else bn.affine()
+    return fused_conv(x, conv.weight, conv.stride[0], conv.padding[0], conv.groups,
+                      scale, shift, residual, relu, out_dtype)
+
+
+def _fused_shortcut(x: torch.Tensor, downsample) -> torch.Tensor:
+    """The block input (bf16), or the downsample's BN output in fp32, as
+    dirjax's ``_bn(_conv(...))`` keeps it."""
+    if downsample is None:
+        return x
+    return _fused_conv_bn(x, downsample[0], downsample[1] if len(downsample) > 1 else None,
+                          relu="none", out_dtype=torch.float32)
+
+
 def _conv_layer(cin, cout, k, stride=1, groups=1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups, bias=False)
 
@@ -123,7 +167,11 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNormAffine(planes)
         self.downsample = _downsample(cin, planes, stride)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, grad_safe=False):
+        if _fused_route(dtype, grad_safe):
+            out = _fused_conv_bn(x, self.conv1, self.bn1)
+            return _fused_conv_bn(out, self.conv2, self.bn2,
+                                  residual=_fused_shortcut(x, self.downsample))
         out = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
         out = _conv_bn(out, self.conv2, self.bn2, dtype)
         return _finish(out, x, self.downsample, dtype)
@@ -141,7 +189,12 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNormAffine(cout)
         self.downsample = _downsample(cin, cout, stride)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, grad_safe=False):
+        if _fused_route(dtype, grad_safe):
+            out = _fused_conv_bn(x, self.conv1, self.bn1)
+            out = _fused_conv_bn(out, self.conv2, self.bn2)
+            return _fused_conv_bn(out, self.conv3, self.bn3,
+                                  residual=_fused_shortcut(x, self.downsample))
         out = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
         out = F.relu(_conv_bn(out, self.conv2, self.bn2, dtype))
         out = _conv_bn(out, self.conv3, self.bn3, dtype)
@@ -182,14 +235,19 @@ class ResNet(nn.Module):
             self.add_module(f"layer{s + 1}", nn.Sequential(*blocks))
 
     def features(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
-                 out_layer: int = 0):
+                 out_layer: int = 0, grad_safe: bool = False):
+        """``grad_safe``: dirjax's flag, True in training (the module
+        docstring's two routes)."""
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
+        if _fused_route(dtype, grad_safe):
+            x = _fused_conv_bn(x, self.conv1, self.bn1)
+        else:
+            x = F.relu(_conv_bn(x, self.conv1, self.bn1, dtype))
         # MaxPool2d(3, 2, 1) pads with -inf, as dirjax's reduce_window does
         x = F.max_pool2d(x.to(dtype), 3, 2, 1)
         for s in range(4):
             for block in getattr(self, f"layer{s + 1}"):
-                x = block(x, dtype)
+                x = block(x, dtype, grad_safe)
             if s == 2:
                 c4 = x
         return (c4, x) if out_layer == -1 else x

@@ -19,10 +19,12 @@ stride 32. Like dirjax (and the reference), the FPN head accepts
 ``center_bias`` and never applies it.
 
 ``forward(..., train=True)`` is the training forward
-(``dirjax/models/rmac.py:130-201``): the plain head takes the plain
-composition, never the kernel (which has no backward; dirjax gates it the
-same way), and ``dropout_p`` drops backbone features (C4 and C5 in the FPN
-heads) with a caller's ``torch.Generator``. :func:`init_weights` draws
+(``dirjax/models/rmac.py:130-201``): the backbone and the FPN merge run
+with ``grad_safe`` (cuDNN convolutions, not the fused-epilogue kernel of
+``ops/conv.py``, which has no backward), the plain head takes the plain
+composition, never the K1 kernel (dirjax gates it the same way), and
+``dropout_p`` drops backbone features (C4 and C5 in the FPN heads) with a
+caller's ``torch.Generator``. :func:`init_weights` draws
 dirjax's initial distributions (``init_descriptor``).
 """
 
@@ -35,10 +37,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import fused_conv
 from ..ops.gem_head import fused_gem_head
 from ..ops.normalize import l2_normalize
 from ..ops.pooling import center_bias_mask, global_pool
-from .resnet import RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig
+from .resnet import RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig, _fused_route
 
 __all__ = ["DescriptorConfig", "RMACDescriptor", "downsample_mask", "init_weights"]
 
@@ -168,19 +171,22 @@ class RMACDescriptor(ResNet):
             # the kernel widens bf16 itself and reads fc.weight in place
             return fused_gem_head(x.permute(0, 2, 3, 1), self.adpool.p, self.fc.weight.T,
                                   self.fc.bias, mask=feat_mask)
-        return self._tail(self.pooled(images, mask, dtype, generator if drop else None))
+        return self._tail(self.pooled(images, mask, dtype, generator if drop else None,
+                                      train=train))
 
     def pooled(self, images: torch.Tensor, mask: Optional[torch.Tensor] = None,
                dtype: torch.dtype = torch.float32,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               train: bool = False) -> torch.Tensor:
         """The plain forward up to the tail: (B, C) pooled features, before
         the feature L2, the FC and the L2 (what the tensor-parallel train
         step projects itself). With a ``generator``, ``dropout_p`` drops the
-        backbone features first."""
+        backbone features first. ``train`` is the backbone's ``grad_safe``
+        (``models/resnet.py``), as dirjax passes it."""
         cfg = self.cfg
         if cfg.fpn_mode is not None:
-            return self._fpn_pool(images, mask, dtype, generator)
-        x = self.features(images, dtype)
+            return self._fpn_pool(images, mask, dtype, generator, train)
+        x = self.features(images, dtype, grad_safe=train)
         if generator is not None:
             x = _dropout(x, cfg.dropout_p, generator)
         nhwc = x.permute(0, 2, 3, 1)  # a view: x is channels_last
@@ -194,16 +200,16 @@ class RMACDescriptor(ResNet):
             nhwc = nhwc * bias[None, :, :, None]
         return global_pool(nhwc, cfg.pooling, p=p, mask=feat_mask)
 
-    def _fpn_pool(self, images, mask, dtype, generator=None) -> torch.Tensor:
+    def _fpn_pool(self, images, mask, dtype, generator=None, train=False) -> torch.Tensor:
         """[d4, d5]: C4 (merged with C5 in fpn_mode 1) and C5, each pooled
-        over its own mask; with a ``generator``, both dropped out first."""
+        over its own mask; with a ``generator``, both dropped out first. The
+        merge's two convolutions take the backbone's route (``train`` is
+        ``grad_safe``): in bf16 inference each is ``fused_conv`` with an fp32
+        output, ``conv1x5``'s ReLU and the C4 add in its epilogue."""
         cfg = self.cfg
-        c4, c5 = self.features(images, dtype, out_layer=-1)
+        c4, c5 = self.features(images, dtype, out_layer=-1, grad_safe=train)
         if cfg.fpn_mode == 1:
-            up = F.interpolate(c5, scale_factor=2, mode="nearest")[:, :, :c4.shape[2], :c4.shape[3]]
-            merged = F.conv2d(up.to(dtype), self.conv1x5.weight.to(dtype))
-            c4 = c4.float() + F.relu(merged.float())
-            c4 = F.relu(F.conv2d(c4.to(dtype), self.conv3c4.weight.to(dtype), padding=1).float())
+            c4 = self._fpn_merge(c4, c5, dtype, train)
         if generator is not None:
             c4 = _dropout(c4, cfg.dropout_p, generator)
             c5 = _dropout(c5, cfg.dropout_p, generator)
@@ -217,6 +223,19 @@ class RMACDescriptor(ResNet):
         d4 = global_pool(c4.permute(0, 2, 3, 1), cfg.pooling,
                          p=self.adpoolc4.p if gem else cfg.gemp, mask=c4_mask)
         return torch.cat([d4.float(), d5.float()], dim=1)
+
+    def _fpn_merge(self, c4, c5, dtype, train=False) -> torch.Tensor:
+        """fpn_mode 1 (``dirjax/models/rmac.py:169-179``): relu(conv3c4(C4 +
+        relu(conv1x5(C5 upsampled x2, cropped to C4)))), fp32."""
+        up = F.interpolate(c5, scale_factor=2, mode="nearest")[:, :, :c4.shape[2], :c4.shape[3]]
+        if _fused_route(dtype, train):
+            c4 = fused_conv(up, self.conv1x5.weight, relu="pre", residual=c4,
+                            out_dtype=torch.float32)
+            return fused_conv(c4, self.conv3c4.weight, padding=1, relu="post",
+                              out_dtype=torch.float32)
+        merged = F.conv2d(up.to(dtype), self.conv1x5.weight.to(dtype))
+        c4 = c4.float() + F.relu(merged.float())
+        return F.relu(F.conv2d(c4.to(dtype), self.conv3c4.weight.to(dtype), padding=1).float())
 
     def _tail(self, desc: torch.Tensor) -> torch.Tensor:
         """(feature L2) -> FC -> L2 of pooled (B, C) descriptors."""

@@ -1,0 +1,229 @@
+"""bf16 convolution with an fp32 output and a fused fp32 epilogue: the
+inference convolution of dirjax's backbones (``dirjax/models/resnet.py:159-191``,
+``_conv`` with ``preferred_element_type=float32`` followed by ``_bn``, the
+residual add and ReLU; the FPN merge, ``dirjax/models/rmac.py:169-179``).
+
+:func:`fused_conv` computes ``epi(conv(bf16(x), bf16(w)))`` with the
+convolution accumulated and kept in fp32, and ``epi`` in fp32::
+
+    v = acc * scale[c] + shift[c]      (each optional: a folded conv passes its bias as shift)
+    v = relu(v)                         (relu="pre")
+    v = v + residual                    (optional, bf16 or fp32)
+    v = relu(v)                         (relu="post")
+
+written as ``out_dtype``. Tensors are NCHW in ``channels_last`` memory, as
+the port's backbone keeps them; the output is too.
+
+On a CUDA tensor it launches the hand-written implicit-GEMM kernel of
+``csrc/conv.cu`` or raises; on a CPU tensor it runs :func:`conv_reference`,
+the plain PyTorch version (an fp32 convolution over the bf16-rounded
+operands), which is also the kernel's oracle. No other path exists. The
+kernel has no backward: on the card it raises when grad mode is on and an
+operand requires grad; training takes the model's ``grad_safe`` route
+(``models/resnet.py``), as dirjax's does.
+
+Bound on the card: one read of the input, weights and residual and one write
+of the output against ``2 * M * cout * K`` tensor-core operations; see the
+source's note.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["fused_conv", "conv_reference", "conv_output_hw", "pack", "run_packed",
+           "reference_magnitude", "agreement", "SUM_ORDER_RTOL", "launches"]
+
+#: launches of the CUDA kernel in this process (reset it to count a run)
+launches = 0
+
+#: how far two fp32 sums of the same K products, taken in other orders, may
+#: lie apart, relative to the sum of the products' magnitudes. The kernel
+#: adds K / 16 MMA slices one after another, each sum rounded once: at worst
+#: K / 16 errors of 2^-24 each (288 at the backbones' largest K, 4608: 1.7e-5,
+#: above this bound), but rounding errors of either sign add up as a random
+#: walk, about sqrt(K / 16) of them (17: 1.0e-6). The bound is empirical:
+#: ``agreement``'s ``max_rel`` reads the ratio, and its largest over every
+#: fp32-output shape of chip_smoke.py's fused conv phase was 8.5e-7 on an
+#: NVIDIA H100 80GB HBM3 (700 W)
+SUM_ORDER_RTOL = 2.0 ** -16
+
+_RELU = {"none": 0, "pre": 1, "post": 2}
+
+
+def conv_output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
+    return (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+
+
+def _epilogue(y, scale, shift, residual, relu):
+    if scale is not None:
+        y = y * scale.float()[:, None, None]
+    if shift is not None:
+        y = y + shift.float()[:, None, None]
+    if relu == "pre":
+        y = F.relu(y)
+    if residual is not None:
+        y = y + residual.float()
+    if relu == "post":
+        y = F.relu(y)
+    return y
+
+
+def conv_reference(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
+                   groups: int = 1, scale: Optional[torch.Tensor] = None,
+                   shift: Optional[torch.Tensor] = None,
+                   residual: Optional[torch.Tensor] = None, relu: str = "none",
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version: the fp32 convolution of the bf16-rounded operands,
+    then the epilogue in fp32, cast once to ``out_dtype``."""
+    if relu not in _RELU:
+        raise ValueError(f"relu must be one of {sorted(_RELU)}, got {relu!r}")
+    y = F.conv2d(x.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float(), None,
+                 stride, padding, 1, groups)
+    return _epilogue(y, scale, shift, residual, relu).to(out_dtype)
+
+
+def reference_magnitude(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+                        padding: int = 0, groups: int = 1,
+                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """|scale| * conv(|bf16(x)|, |bf16(w)|), fp32: the magnitude a reordered
+    sum's error is measured against (:data:`SUM_ORDER_RTOL`), scaled as the
+    epilogue scales the sum."""
+    m = F.conv2d(x.to(torch.bfloat16).float().abs(), weight.to(torch.bfloat16).float().abs(),
+                 None, stride, padding, 1, groups)
+    return m if scale is None else m * scale.float().abs()[:, None, None]
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor, magnitude: torch.Tensor) -> dict:
+    """The kernel's output against the plain version's on the same inputs:
+    ``apart`` is the share of elements not equal, ``over`` the share that
+    differ by more than SUM_ORDER_RTOL * ``magnitude`` (the sums' order),
+    plus, for a bf16 output, one bf16 ulp of the larger value (a sum that
+    moved across a rounding boundary); ``max_abs_err`` the largest
+    difference; for an fp32 output, ``max_rel`` the largest difference over
+    its magnitude (what SUM_ORDER_RTOL bounds; None for bf16, where a
+    rounding flip dominates it)."""
+    diff = (got.float() - want.float()).abs()
+    allow = SUM_ORDER_RTOL * magnitude.float()
+    max_rel = None
+    if got.dtype == torch.bfloat16:
+        _, exp = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+        allow = allow + torch.ldexp(torch.ones_like(allow), exp - 8)
+    elif diff.numel():
+        max_rel = float((diff / magnitude.float().clamp_min(torch.finfo(torch.float32).tiny))
+                        .max())
+    n = max(diff.numel(), 1)
+    return {"apart": float((diff > 0).sum()) / n, "over": float((diff > allow).sum()) / n,
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0, "max_rel": max_rel}
+
+
+def fused_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
+               groups: int = 1, scale: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
+               relu: str = "none", out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``x`` (B, Cin, H, W), ``weight`` (Cout, Cin / groups, kh, kw), ``scale``
+    and ``shift`` (Cout,), ``residual`` (B, Cout, Ho, Wo); zero padding on
+    both sides. Returns (B, Cout, Ho, Wo) ``out_dtype`` in channels_last
+    memory."""
+    if relu not in _RELU:
+        raise ValueError(f"relu must be one of {sorted(_RELU)}, got {relu!r}")
+    if x.device.type == "cpu":
+        return conv_reference(x, weight, stride, padding, groups, scale, shift, residual,
+                              relu, out_dtype)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, scale, shift, residual)):
+        raise RuntimeError("fused_conv has no backward: call it under torch.no_grad() or "
+                           "inference_mode(), or run the backbone with grad_safe=True")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv runs on cuda or cpu, not {x.device}")
+    return run_packed(pack(x, weight, stride, padding, groups, scale, shift, residual, relu,
+                           out_dtype))
+
+
+def pack(x, weight, stride=1, padding=0, groups=1, scale=None, shift=None, residual=None,
+         relu="none", out_dtype=torch.bfloat16) -> dict:
+    """The kernel's operands on x's CUDA device, laid out as it reads them
+    (NHWC bf16 input, (cout, kh, kw, cin / groups) bf16 weights, fp32
+    per-channel vectors, an NHWC residual) and its NHWC output allocated:
+    what :func:`run_packed` launches on. Raises on what the kernel does not
+    take."""
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"x and weight must be 4-D, got {tuple(x.shape)}, {tuple(weight.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+    B, cin, H, W = x.shape
+    cout, cin_g, kh, kw = weight.shape
+    if cin_g * groups != cin or cout % groups:
+        raise ValueError(f"weight {tuple(weight.shape)} does not fit {cin} channels in "
+                         f"{groups} groups")
+    if (cout // groups) % 4:
+        raise ValueError(f"the kernel's epilogue takes 4 channels at a time: cout / groups = "
+                         f"{cout // groups} must be a multiple of 4")
+    ho, wo = conv_output_hw(H, W, kh, kw, stride, padding)
+    # NHWC bf16 input and (cout, kh, kw, cin_g) bf16 weights, packed per call
+    xh = x.to(torch.bfloat16).permute(0, 2, 3, 1)
+    wp = weight.detach().to(device=x.device, dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    if cin_g % 4:
+        if groups != 1:
+            raise ValueError(f"grouped convolution with {cin_g} channels a group: the "
+                             "kernel takes a multiple of 4")
+        # zero channels add exact zeros to every sum (the stem's 3 channels)
+        extra = -cin_g % 4
+        xh, wp = F.pad(xh, (0, extra)), F.pad(wp, (0, extra))
+        cin = cin_g = cin_g + extra
+
+    def per_channel(t, name):
+        if t is None:
+            return None
+        if t.shape != (cout,):
+            raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
+        return t.detach().to(device=x.device, dtype=torch.float32).contiguous()
+
+    res_kind = 0
+    if residual is not None:
+        if residual.shape != (B, cout, ho, wo) or residual.device != x.device:
+            raise ValueError(f"residual must be ({B}, {cout}, {ho}, {wo}) on {x.device}, "
+                             f"got {tuple(residual.shape)} on {residual.device}")
+        if residual.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"residual must be bf16 or fp32, got {residual.dtype}")
+        res_kind = 1 if residual.dtype == torch.bfloat16 else 2
+        residual = residual.detach().permute(0, 2, 3, 1).contiguous()
+    p = {"x": xh.contiguous(), "w": wp.contiguous(), "scale": per_channel(scale, "scale"),
+         "shift": per_channel(shift, "shift"), "residual": residual, "res_kind": res_kind,
+         "relu": _RELU[relu],
+         "out": torch.empty((B, ho, wo, cout), dtype=out_dtype, device=x.device),
+         "dims": (B, H, W, cin, cout, kh, kw, stride, padding, groups, ho, wo)}
+    # the kernel's 16-byte loads and stores: a view that starts mid-vector is refused
+    for name in ("x", "w", "scale", "shift", "residual"):
+        if p[name] is not None and p[name].data_ptr() % 16:
+            raise ValueError(f"{name} starts at an address that is not 16-byte aligned "
+                             f"(a view with a storage offset): pass a fresh tensor")
+    return p
+
+
+def run_packed(p: dict) -> torch.Tensor:
+    """Launch the kernel on :func:`pack`'s operands; returns the output as
+    (B, Cout, Ho, Wo) in channels_last memory."""
+    global launches
+    from ..kernels.build import load_library
+
+    out = p["out"]
+    if out.numel() == 0:
+        return out.permute(0, 3, 1, 2)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        err = lib.dirjax_conv_fused(
+            ptr(p["x"]), ptr(p["w"]), ptr(p["scale"]), ptr(p["shift"]), ptr(p["residual"]),
+            p["res_kind"], p["relu"], out.data_ptr(), int(out.dtype == torch.bfloat16),
+            *p["dims"], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv kernel launch failed: cudaError {err}")
+    launches += 1
+    return out.permute(0, 3, 1, 2)

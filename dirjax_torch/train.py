@@ -391,7 +391,7 @@ def _sharded_descriptors(model: RMACDescriptor, x, dtype, mesh):
     pooled features enter through :class:`_Copy`, the partial projections
     leave through :class:`_Gather`, and the L2 is taken on the full vector."""
     cfg = model.cfg
-    d = model.pooled(x, dtype=dtype)
+    d = model.pooled(x, dtype=dtype, train=True)
     if cfg.norm_features:
         d = l2_normalize(d, dim=1)
     if not cfg.without_fc:

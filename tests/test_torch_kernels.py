@@ -47,6 +47,14 @@ Tolerances:
   K6's bit for bit; the rescore also at blocks 1, 8, 64 and 100 with kf = 1
   and 300, m 8, 32, 64, NaN for ids outside the blocks; pq_topk and
   ivf_topk at full probe return the dense plain ADC top-k's values.
+- The fused-epilogue convolution (csrc/conv.cu) against conv_reference, an
+  fp32 convolution (TF32 off) of the same bf16 operands with the same fp32
+  epilogue: no element further than SUM_ORDER_RTOL (2^-16) of the sum of its
+  products' magnitudes (the fp32 sums over K run in another order), plus one
+  bf16 ulp for a bf16 output, and at most 1e-3 of a bf16 output's elements
+  not equal. Cases: every epilogue of the backbones and the FPN merge, the
+  stem's 3 channels, 1x1/3x3/7x7 at strides 1 and 2, groups of 4, 8 and 32
+  channels, ragged pixel tiles and channel counts of every tile width.
 """
 
 import numpy as np
@@ -54,7 +62,7 @@ import pytest
 import torch
 
 from dirjax_torch.kernels import concurrency
-from dirjax_torch.ops import binary, gem_head, ivf, pq, topk
+from dirjax_torch.ops import binary, conv, gem_head, ivf, pq, topk
 
 torch.set_num_threads(1)
 
@@ -552,3 +560,90 @@ class TestConcurrentLaunches:
     @pytest.mark.parametrize("case", concurrency.CASES)
     def test_threads_with_other_shared_memory(self, cuda, case):
         concurrency.race(concurrency.alternation(case, cuda, seed=5), threads=8, per_thread=50)
+
+
+# (B, cin, H, W, cout, k, stride, groups, scale, shift, residual, relu, out)
+CONV_CASES = [
+    (2, 3, 37, 29, 64, 7, 2, 1, True, True, None, "post", "bf16"),          # stem
+    (2, 64, 17, 13, 64, 1, 1, 1, True, True, None, "post", "bf16"),         # conv1
+    (2, 64, 17, 13, 64, 3, 1, 1, True, True, None, "post", "bf16"),         # conv2
+    (2, 128, 17, 13, 128, 3, 2, 1, True, True, None, "post", "bf16"),       # conv2, stride 2
+    (2, 64, 17, 13, 256, 1, 1, 1, True, True, "bf16", "post", "bf16"),      # conv3 + block input
+    (2, 64, 17, 13, 256, 1, 1, 1, True, True, "fp32", "post", "bf16"),      # conv3 + downsample
+    (2, 256, 17, 13, 512, 1, 2, 1, True, True, None, "none", "fp32"),       # downsample
+    (2, 64, 17, 13, 64, 3, 1, 1, False, True, None, "post", "bf16"),        # folded
+    (2, 512, 9, 7, 256, 1, 1, 1, False, False, "bf16", "pre", "fp32"),      # FPN conv1x5
+    (2, 256, 9, 7, 256, 3, 1, 1, False, False, None, "post", "fp32"),       # FPN conv3c4
+    (2, 128, 17, 13, 128, 3, 1, 32, True, True, None, "post", "bf16"),      # ResNeXt, 4 a group
+    (2, 256, 17, 13, 256, 3, 2, 32, True, True, None, "post", "bf16"),      # 8 a group
+    (2, 1024, 9, 7, 1024, 3, 1, 32, True, True, None, "post", "bf16"),      # 32 a group
+    (1, 40, 5, 3, 8, 3, 1, 1, True, True, None, "post", "fp32"),            # narrow, ragged
+    (3, 96, 11, 9, 200, 3, 1, 1, True, True, "bf16", "post", "bf16"),       # two channel tiles
+]
+
+
+def _conv_inputs(rng, device, B, cin, H, W, cout, k, stride, groups, has_scale, has_shift, res):
+    x = torch.from_numpy(rng.normal(size=(B, cin, H, W)).astype(np.float32)).to(device)
+    x = x.bfloat16().contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.normal(0, (k * k * cin / groups) ** -0.5,
+                                    (cout, cin // groups, k, k)).astype(np.float32)).to(device)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(device) \
+        if has_scale else None
+    shift = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)).to(device) \
+        if has_shift else None
+    ho, wo = conv.conv_output_hw(H, W, k, k, stride, k // 2)
+    r = None
+    if res is not None:
+        r = torch.from_numpy(rng.normal(size=(B, cout, ho, wo)).astype(np.float32)).to(device)
+        r = (r.bfloat16() if res == "bf16" else r).contiguous(memory_format=torch.channels_last)
+    return x, w, scale, shift, r
+
+
+@pytest.mark.cuda
+class TestConvKernel:
+    """The fused-epilogue convolution (csrc/conv.cu) against conv_reference."""
+
+    @pytest.mark.parametrize("case", CONV_CASES)
+    def test_matches_reference(self, rng, cuda, case):
+        torch.backends.cudnn.allow_tf32 = False
+        B, cin, H, W, cout, k, stride, groups, sc, sh, res, relu, out = case
+        x, w, scale, shift, r = _conv_inputs(rng, cuda, B, cin, H, W, cout, k, stride, groups,
+                                             sc, sh, res)
+        out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+        args = (x, w, stride, k // 2, groups, scale, shift, r, relu, out_dtype)
+        before = conv.launches
+        with torch.no_grad():
+            got = conv.fused_conv(*args)
+            again = conv.fused_conv(*args)
+        assert conv.launches == before + 2 and torch.equal(got, again)
+        want = conv.conv_reference(*args)
+        assert got.shape == want.shape and got.dtype == out_dtype
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        agree = conv.agreement(got, want, conv.reference_magnitude(x, w, stride, k // 2,
+                                                                   groups, scale))
+        assert agree["over"] == 0.0, agree
+        if out == "bf16":
+            assert agree["apart"] <= 1e-3, agree
+
+    def test_refuses_a_gradient(self, rng, cuda):
+        x, w, scale, shift, _ = _conv_inputs(rng, cuda, 1, 64, 5, 5, 64, 3, 1, 1, True, True,
+                                             None)
+        for args in ((x.float().requires_grad_(True), w), (x, w.requires_grad_(True)),
+                     (x, w.detach(), 1, 1, 1, scale.requires_grad_(True), shift)):
+            with pytest.raises(RuntimeError, match="no backward"):
+                conv.fused_conv(*args)
+            with torch.no_grad():
+                conv.fused_conv(*args)
+
+    def test_rejects_what_it_does_not_take(self, rng, cuda):
+        x, w, *_ = _conv_inputs(rng, cuda, 1, 24, 5, 5, 24, 3, 1, 1, False, False, None)
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="multiple of 4"):
+                conv.fused_conv(x, w[:, :6].contiguous(), groups=4)    # 6 channels a group
+            with pytest.raises(ValueError, match="multiple of 4"):
+                conv.fused_conv(x, torch.cat([w, w[:2]]), padding=1)   # 26 outputs
+            with pytest.raises(ValueError, match="16-byte"):            # a view 4 bytes in
+                conv.fused_conv(x, w, padding=1, scale=torch.ones(25, device=cuda)[1:])
+            with pytest.raises(ValueError, match="residual"):
+                conv.fused_conv(x, w, padding=1, residual=x[:, :, :4])
+
