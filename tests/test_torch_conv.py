@@ -129,7 +129,7 @@ def _run_port_block(block, x, grad_safe=False):
 
 
 SEEDS = range(31, 36)
-SEED_SLACK = 5        # a single seed's allowance over SHARE_APART / MEAN_APART
+SEED_SLACK = 10       # a single seed's allowance over SHARE_APART / MEAN_APART
 
 
 def _block_apart(block, folded, grad_safe=False, port_grad_safe=None):
@@ -158,11 +158,15 @@ def _assert_blocks_close(apart):
     them on every seed. A flipped bf16 rounding of a block's intermediate
     (from the order of the fp32 sums) moves outputs of the next convolution
     across a rounding boundary, so a seed now and then reads more than
-    SHARE_APART of its elements apart: of the 65 seed runs of these tests,
-    3 do, the most basic_s1 affine's seed 35 (2.9e-3, 45 of 15,360 outputs;
-    mean 9.1e-6) and, on the grad_safe route, bottleneck_s1's seed 31
-    (3.5e-3, mean 2.7e-5). The median does not follow such a seed, and
-    rounding every conv output to bf16 moves 20-31% of them in every seed."""
+    SHARE_APART of its elements apart, and how far a flip spreads depends on
+    the oneDNN kernel the CPU picks: on one machine the most was 2.9e-3
+    (basic_s1 affine, seed 35; grad_safe bottleneck_s1 seed 31, 3.5e-3),
+    on another 5.14e-3 (bottleneck_s2 affine, seed 34: 158 of 30,720
+    outputs; mean 2.1e-5). The median does not follow such a seed, and
+    rounding every conv output to bf16 moves 20-31% of them in every seed:
+    the per-seed bound, 1e-2, stays 20x below that. The per-convolution
+    check (``test_bf16_inference_convs_match_dirjax``) holds each
+    convolution to SHARE_APART itself, with no slack."""
     median = np.median(apart, axis=0)
     assert median[0] <= SHARE_APART and median[1] <= MEAN_APART, apart
     assert (apart[:, 0] <= SEED_SLACK * SHARE_APART).all() and \
@@ -177,6 +181,97 @@ def test_bf16_inference_block_matches_dirjax(block, folded):
     dirjax's ``_apply_block`` / ``_apply_block_folded`` with
     ``grad_safe=False``."""
     _assert_blocks_close(_block_apart(block, folded))
+
+
+def _nchw(a: np.ndarray, dtype=torch.bfloat16) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _conv_apart(block, folded):
+    """Each convolution of the block, teacher-forced: the port's convolution
+    (``models/resnet.py``'s ``_fused_conv_bn`` / ``_fused_shortcut``, the
+    calls its block makes) and dirjax's ``_conv`` + ``_bn`` (folded: + the
+    bias; ``dirjax/models/resnet.py:159-191, 327-347``) on the same bf16
+    input, dirjax's own intermediate, so that no flipped rounding upstream
+    reaches the convolution under test. Returns {conv: [(share, mean) or,
+    for the downsample's fp32 output, (share beyond FP32_TOL, mean)] for
+    each seed}."""
+    name, cin, planes, stride = BLOCKS[block]
+    cfg = jr.RESNET_CONFIGS[name]
+    out = {}
+    for seed in SEEDS:
+        p, x = _block_params(name, cin, planes, stride, seed)
+        if folded:
+            p = jr.fold_batchnorm(p)
+        port = _port_block(name, cin, planes, stride, p, folded)
+
+        def jax_conv(inp, w, bn_or_bias, s, pad, groups=1):
+            y = jr._conv(jnp.asarray(inp, jnp.bfloat16), w, s, pad, groups, dtype=jnp.bfloat16,
+                         precision=None)
+            return y + bn_or_bias if folded else jr._bn(y, bn_or_bias)
+
+        def affine(c, ds=False):
+            if ds:
+                return p["downsample"]["bias" if folded else "bn"]
+            return p[("bias" if folded else "bn") + c]
+
+        def port_conv(inp, c, relu="post", residual=None, out_dtype=torch.bfloat16):
+            conv = getattr(port, "conv" + c)
+            with torch.inference_mode():
+                y = tr._fused_conv_bn(_nchw(inp), conv, getattr(port, "bn" + c), relu=relu,
+                                      residual=residual, out_dtype=out_dtype)
+            assert y.dtype == out_dtype
+            return y.float().permute(0, 2, 3, 1).numpy()
+
+        def bf16(a):
+            return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+        xf = x.float().numpy()
+        convs = ["1", "2"] if cfg.block == "basic" else ["1", "2", "3"]
+        pads = {"1": 1, "2": 1} if cfg.block == "basic" else {"1": 0, "2": 1, "3": 0}
+        strides = {"1": stride} if cfg.block == "basic" else {"2": stride}
+        groups = {"2": cfg.groups} if cfg.block != "basic" else {}
+        # the shortcut: the block input, or the downsample's fp32 BN output
+        residual, res_t = xf, x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        if "downsample" in p:
+            residual = np.asarray(jax_conv(xf, p["downsample"]["conv"], affine(None, True),
+                                           stride, 0))
+            with torch.inference_mode():
+                got = tr._fused_shortcut(_nchw(xf), port.downsample)
+            assert got.dtype == torch.float32
+            got = got.permute(0, 2, 3, 1).numpy()
+            diff = np.abs(got - residual)
+            out.setdefault("downsample", []).append(
+                (float(np.mean(diff > FP32_TOL["atol"] + FP32_TOL["rtol"] * np.abs(residual))),
+                 float(diff.mean())))
+            res_t = _nchw(residual, torch.float32)
+        inp = xf
+        for c in convs:
+            y = jax_conv(inp, p["conv" + c], affine(c), strides.get(c, 1), pads[c],
+                         groups.get(c, 1))
+            last = c == convs[-1]
+            want = bf16(jax.nn.relu(y + residual) if last else jax.nn.relu(y))
+            got = port_conv(inp, c, residual=res_t if last else None)
+            out.setdefault("conv" + c, []).append(_apart(got, want))
+            inp = want   # dirjax's intermediate feeds the next convolution
+    return {k: np.array(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["affine", "folded"])
+@pytest.mark.parametrize("block", sorted(BLOCKS))
+def test_bf16_inference_convs_match_dirjax(block, folded):
+    """Every convolution of the port's bf16 inference block (conv1/bn1,
+    conv2/bn2, conv3/bn3 with the residual, the downsample), each on
+    dirjax's own bf16 intermediate, against dirjax's ``_conv`` + ``_bn``:
+    SHARE_APART and MEAN_APART on every seed, no slack (a bf16 output;
+    the downsample's fp32 output: the share beyond FP32_TOL). Only this
+    check sees a fault on each convolution rather than through a chain of
+    them; rounding the conv output to bf16 before the epilogue fails it on
+    every convolution."""
+    for conv_name, apart in _conv_apart(block, folded).items():
+        assert (apart[:, 0] <= SHARE_APART).all() and (apart[:, 1] <= MEAN_APART).all(), \
+            (conv_name, apart)
 
 
 @pytest.mark.parametrize("block", ["basic_s2", "bottleneck_s1", "bottleneck_s2"])

@@ -13,7 +13,10 @@ the repository's ``recall_study.py`` on the CPU, on the same inputs.
   >= 0.999 to dirjax's bf16 ``apply_descriptor``; dirjax's npz keys, shapes
   and ``src``; the non-finite gate.
 * ``evaluate --cpu`` against dirjax's ``evaluate`` on one seeded file,
-  one case per tier group. Both packages draw their k-means rows from
+  one case per tier group, both grading on dirjax's whitened rows (the
+  port's own whitening is held to dirjax's apart, within ``WHITEN_TOL``:
+  its fp32 Gram sums in another order, which flips int8 roundings by
+  machine). Both packages draw their k-means rows from
   generators that cannot agree, so the cases pin both to one initial draw
   (the first rows), as ``test_torch_pq.py`` shares an ``init``. Spectrum
   within 1e-4, ``rank_for_99pct`` and ``src_is_top1`` equal; recall equal
@@ -344,11 +347,38 @@ def first_rows(monkeypatch):
                         lambda key, n, shape, replace=True: jnp.arange(shape[0]))
 
 
+@pytest.fixture
+def dirjax_whitening(monkeypatch):
+    """The port's ``evaluate`` whitens its rows with dirjax's PCA fit and
+    ``apply_whitening`` on the same rows, so both packages grade their tiers
+    on identical whitened descriptors; its PCA (the spectrum it reports) is
+    still its own fit. The port's study whitening is held to dirjax's apart
+    (``test_study_whitening_matches_dirjax``): the two fp32 Gram matrices sum
+    in different orders, and one int8 rounding flipped by that moves a
+    recall graded at tolerance 0.0."""
+    from dirjax.ops.whitening import apply_whitening, fit_pca_device
+
+    own = RS.study_whitening
+
+    def study_whitening(raw_db):
+        pca, _ = own(raw_db)
+        jpca = fit_pca_device(raw_db.cpu().numpy())
+
+        def whiten(x, whitenv=None):
+            return torch.from_numpy(np.array(apply_whitening(
+                x.cpu().numpy(), jpca, whitenp=0.5, whitenv=whitenv,
+                dead_floor=1e-7))).to(x.device)
+
+        return pca, whiten
+
+    monkeypatch.setattr(RS, "study_whitening", study_whitening)
+
+
 GROUPS = ["int8", "pq_m|opq", "pca256", "ivf|tuner", "itq512|itq2048"]
 
 
 @pytest.mark.parametrize("group", GROUPS)
-def test_evaluate_matches_dirjax(descs, first_rows, group, tmp_path):
+def test_evaluate_matches_dirjax(descs, first_rows, dirjax_whitening, group, tmp_path):
     JR.main(["evaluate", "--descs", descs, "--out", str(tmp_path / "j.json"),
              "--tiers", group])
     want = json.load(open(tmp_path / "j.json"))
@@ -376,6 +406,38 @@ def test_evaluate_matches_dirjax(descs, first_rows, group, tmp_path):
         assert got[t]["params"] == want[t]["params"] and got[t]["index"] == want[t]["index"]
         assert got[t]["met"] == want[t]["met"]
         assert got[t]["tune_recall"] == want[t]["tune_recall"]
+
+
+#: the port's study whitening against dirjax's on the evaluate file's rows
+#: (whitened rows are unit length, elements up to 0.42): the fp32 Gram
+#: matrices of the two fits sum in different orders, and var^-0.5 magnifies
+#: that on the smallest axes (variance 9e-4 against 0.9 at the top) about
+#: 33x; measured 1.6e-4 at most on this CPU. With dirjax's PCA in both,
+#: the rows are 2.6e-6 apart; a wrong whitening power or a missing
+#: dead_floor moves them by 1e-2 and more.
+WHITEN_TOL = 5e-4
+
+
+def test_study_whitening_matches_dirjax(descs):
+    """``study_whitening`` (the port's fit on the rows' device, whitenp 0.5,
+    dead_floor 1e-7) against dirjax's ``fit_pca_device`` and
+    ``apply_whitening``, full-dim and whitenv = 256, database and queries,
+    within WHITEN_TOL; the variances within 1e-6 of each other."""
+    from dirjax.ops.whitening import apply_whitening, fit_pca_device
+
+    data = np.load(descs)
+    pca, whiten = RS.study_whitening(torch.from_numpy(data["db"]))
+    jpca = fit_pca_device(data["db"])
+    np.testing.assert_allclose(np.asarray(pca.variance), np.asarray(jpca.variance),
+                               rtol=0, atol=1e-6)
+    for whitenv in (None, 256):
+        for k in ("db", "q"):
+            got = whiten(torch.from_numpy(data[k]), whitenv).numpy()
+            want = np.asarray(apply_whitening(data[k], jpca, whitenp=0.5, whitenv=whitenv,
+                                              dead_floor=1e-7))
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=0, atol=WHITEN_TOL,
+                                       err_msg=f"{k}, whitenv {whitenv}")
 
 
 def test_svd_tiers_seed_spread(descs):
