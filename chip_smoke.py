@@ -27,14 +27,19 @@ Phases, each of which raises on failure:
    2^-16 of the sum of its products' magnitudes (the order of the fp32 sums
    over K) plus, for a bf16 output, one bf16 ulp, and at most 2e-3 of a
    bf16 output's elements not equal (9.0e-4 measured at K = 4608); the
-   largest fp32-output difference over its magnitude is printed. Each
-   affine R101 batch-8 shape timed (CUDA events):
-   the kernel on packed operands, its wrapper, the plain version, cuDNN's
-   bf16 conv2d of the same shape (the convolution alone: no PyTorch call
-   computes it with the fp32 epilogue), beside its bound; then the R101
-   bf16 backbone, BN-affine and folded, against today's route (cuDNN bf16
+   largest fp32-output difference over its magnitude is printed, and the
+   path each shape took (the wgmma kernel or the mma.sync one, by the
+   shape). Each affine R101 batch-8 shape (and ResNeXt's grouped ones)
+   timed (CUDA events): the kernel on packed operands, its wrapper as the
+   backbone calls it on its cached operands (in turns with the kernel),
+   the plain version, cuDNN's bf16 conv2d of the same shape (the
+   convolution alone: no PyTorch call computes it with the fp32 epilogue),
+   beside its bound, summed by layer class (3x3 256-channel, 1x1 with the
+   residual, 1x1 reduce, downsample, stem, grouped); then the R101 bf16
+   backbone, BN-affine and folded, against today's route (cuDNN bf16
    convolutions and the eager fp32 chain, grad_safe) on the same weights,
-   in turns, and the whole bf16 extractor forward.
+   in turns, its device launches (a torch.profiler trace), and the whole
+   bf16 extractor forward.
 4. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
    int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
@@ -424,26 +429,33 @@ CONV_ARGS = ("x", "weight", "stride", "padding", "groups", "scale", "shift", "re
 
 @contextlib.contextmanager
 def recorded_convs(calls: list):
-    """Every fused_conv call the backbones and the FPN merge make inside the
-    block, appended to ``calls`` as its bound arguments."""
+    """Every fused conv the backbones and the FPN merge run inside the block
+    (``fused_conv_packed`` on each convolution's packed operands), appended
+    to ``calls`` as ``fused_conv``'s arguments (CONV_ARGS) with the packed
+    operands under "packed"."""
     import inspect
 
-    from dirjax_torch.models import resnet, rmac
+    from dirjax_torch.models import resnet
     from dirjax_torch.ops import conv
 
-    real, sig = conv.fused_conv, inspect.signature(conv.fused_conv)
+    real, sig = conv.fused_conv_packed, inspect.signature(conv.fused_conv_packed)
 
     def record(*args, **kw):
         bound = sig.bind(*args, **kw)
         bound.apply_defaults()
-        calls.append(dict(bound.arguments))
+        a, packed = dict(bound.arguments), bound.arguments["weights"]
+        calls.append({"x": a["x"], "weight": packed["weight"], "stride": a["stride"],
+                      "padding": a["padding"], "groups": packed["groups"],
+                      "scale": packed["scale"], "shift": packed["shift"],
+                      "residual": a["residual"], "relu": a["relu"],
+                      "out_dtype": a["out_dtype"], "packed": packed})
         return real(*args, **kw)
 
-    resnet.fused_conv = rmac.fused_conv = record
+    resnet.fused_conv_packed = record
     try:
         yield
     finally:
-        resnet.fused_conv = rmac.fused_conv = real
+        resnet.fused_conv_packed = real
 
 
 def check_conv_launches(label: str, launches: int, bf16: bool, per_forward=None) -> None:
@@ -506,10 +518,30 @@ def check_conv(a: dict) -> dict:
     return agree
 
 
-def conv_shape_row(key: tuple, entry: dict, totals: dict) -> dict:
-    """One recorded shape: checked against the plain version; an R101 shape
-    also timed (kernel on packed operands, its wrapper, the plain version,
-    cuDNN's bf16 conv2d), its times times its count added to ``totals``."""
+def conv_class(a: dict) -> str:
+    """The layer class of a recorded conv, as PERF.md groups them."""
+    cout, cin_g, kh, _ = a["weight"].shape
+    if a["groups"] > 1:
+        return "grouped 3x3"
+    if kh == 7:
+        return "stem"
+    if a["out_dtype"] == torch.float32 and a["residual"] is None and a["relu"] == "none":
+        return "downsample"
+    if kh == 3:
+        return "3x3 256-ch" if (cin_g, cout, a["stride"]) == (256, 256, 1) else "3x3 other"
+    if a["residual"] is not None:
+        return "1x1 + residual"
+    return "1x1 reduce"
+
+
+def conv_shape_row(key: tuple, entry: dict, totals: dict, classes: dict) -> dict:
+    """One recorded shape: checked against the plain version, with the path
+    it took; an R101 shape (and ResNeXt's grouped ones, for their class) also
+    timed: the kernel on packed operands, its wrapper as the backbone calls
+    it (``fused_conv_packed`` on the cached weights, so the input's layout
+    and the output's allocation only), the plain version, cuDNN's bf16
+    conv2d; an R101 shape's times times its count added to ``totals`` and
+    to its class in ``classes``."""
     import torch.nn.functional as F
 
     from dirjax_torch.ops import conv
@@ -517,26 +549,42 @@ def conv_shape_row(key: tuple, entry: dict, totals: dict) -> dict:
     a = entry["args"]
     args = {k: a[k] for k in CONV_ARGS}
     agree = check_conv(a)
+    cout, cin_g, kh, kw = a["weight"].shape
     shape = {"arch": entry["arch"], "x": list(key[0]), "x_dtype": key[1],
              "weight": list(key[2]), "stride": key[3], "padding": key[4],
              "groups": key[5], "epilogue": {"scale": key[6], "shift": key[7],
                                             "residual": key[8], "relu": key[9],
                                             "out": key[10]},
+             "class": conv_class(a),
+             "path": conv.kernel_path(cin_g * a["groups"], cout, kh, kw, a["groups"]),
              "count": entry["count"], **agree, **conv_bound(a)}
-    if entry["arch"] == "resnet101_rmac":
+    r101 = entry["arch"] == "resnet101_rmac"
+    if r101 or (shape["class"] == "grouped 3x3" and entry["arch"].startswith("resnext")):
         packed = conv.pack(**args)
         xb = a["x"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = a["weight"].detach().to(torch.bfloat16)
         ms, plain_ms = time_in_turns(f"fused conv {key}", lambda: conv.conv_reference(**args),
                                      lambda: conv.run_packed(packed), iters=10)
-        shape.update(ms=ms, plain_ms=plain_ms,
-                     wrapper_ms=_time_ms(lambda: conv.fused_conv(**args), iters=10),
+        # the wrapper in turns with the kernel alone: what it adds per call
+        wrapper_ms, _ = time_in_turns(f"fused conv wrapper {key}",
+                                      lambda: conv.run_packed(packed),
+                                      lambda: conv.fused_conv_packed(
+                                          a["x"], a["packed"], a["stride"], a["padding"],
+                                          a["residual"], a["relu"], a["out_dtype"]), iters=10)
+        shape.update(ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms,
                      library_ms=_time_ms(lambda: F.conv2d(xb, wb, None, a["stride"],
                                                           a["padding"], 1, a["groups"]),
                                          iters=10))
-        for k in ("ms", "plain_ms", "wrapper_ms", "library_ms", "bytes", "ops"):
-            totals[k] += entry["count"] * shape[k]
-        totals["bound_sum_ms"] += entry["count"] * shape["bound_ms"]
+        n = entry["count"] if r101 else 1
+        row = classes.setdefault(shape["class"], defaultdict(float))
+        row["count"] += n
+        row["path"] = shape["path"]
+        for k in ("ms", "library_ms", "bound_ms"):
+            row[k] += n * shape[k]
+        if r101:
+            for k in ("ms", "plain_ms", "wrapper_ms", "library_ms", "bytes", "ops"):
+                totals[k] += entry["count"] * shape[k]
+            totals["bound_sum_ms"] += entry["count"] * shape["bound_ms"]
     return shape
 
 
@@ -548,15 +596,17 @@ def fused_conv_phase(device) -> dict:
     the bias-only epilogue) at the same size, and of the recall study's
     extract forward (resnet101_rmac, a batch of 32 of its 224x224 scenes:
     the 7x7 stage's 1,568 pixels leave a ragged 128-pixel tile): each
-    against its plain version, each R101 forward's launches (104), each
-    affine R101 batch-8 shape's kernel time (CUDA events, on the
-    packed operands; the wrapper, which packs per call, beside it), its
-    plain version's, cuDNN's bf16 conv2d of the same shape (the library
-    yardstick for the convolution alone: no PyTorch call computes it with
-    the fp32 epilogue) and its bound; then the bf16 backbone of R101,
-    BN-affine and folded, against today's route (grad_safe: cuDNN bf16
-    convolutions and the eager fp32 chain) on the same weights, in turns.
-    Returns the kernels-line entry without ``launches``."""
+    against its plain version, with its path, each R101 forward's launches
+    (104), each affine R101 batch-8 shape's kernel time (CUDA events, on
+    the packed operands; the wrapper on the backbone's cached operands in
+    turns with it), its plain version's, cuDNN's bf16 conv2d of the same
+    shape (the library yardstick for the convolution alone: no PyTorch call
+    computes it with the fp32 epilogue) and its bound, summed by class
+    (ResNeXt's grouped shapes timed for theirs); then the bf16 backbone of
+    R101, BN-affine and folded, against today's route (grad_safe: cuDNN
+    bf16 convolutions and the eager fp32 chain) on the same weights, in
+    turns, with its device launches. Returns the kernels-line entry without
+    ``launches``."""
     from dirjax_torch import recall_study as RS
     from dirjax_torch.extraction import FeatureExtractor
     from dirjax_torch.models import create_model, fold_batchnorm
@@ -601,22 +651,32 @@ def fused_conv_phase(device) -> dict:
           f"{len(shapes)} distinct shapes; recorded in {time.perf_counter() - t0:.1f} s")
 
     saved, per_shape = conv.launches, []
-    totals = defaultdict(float)
-    worst, worst_rel = 0.0, 0.0
+    totals, classes = defaultdict(float), {}
+    worst, worst_rel, worst_apart = 0.0, 0.0, 0.0
     for key, entry in shapes.items():
         with torch.inference_mode():   # the recorded weights are parameters
-            shape = conv_shape_row(key, entry, totals)
+            shape = conv_shape_row(key, entry, totals, classes)
         worst = max(worst, shape["max_abs_err"])
         worst_rel = max(worst_rel, shape["max_rel"] or 0.0)
+        worst_apart = max(worst_apart, shape["apart"] if key[10] == "bfloat16" else 0.0)
         per_shape.append(shape)
         if "ms" in shape:
-            print(f"fused conv {shape['x']} x {shape['weight']} stride {shape['stride']}, "
-                  f"{shape['count']} a forward: kernel {shape['ms']:.4f} ms (wrapper "
-                  f"{shape['wrapper_ms']:.4f}), plain {shape['plain_ms']:.4f}, cuDNN "
-                  f"{shape['library_ms']:.4f}, bound {shape['bound_ms']:.4f} "
-                  f"({shape['bound_by']}); apart {shape['apart']:.2e}")
+            print(f"fused conv {shape['x']} x {shape['weight']} stride {shape['stride']} "
+                  f"[{shape['path']}, {shape['class']}], {shape['count']} a forward: kernel "
+                  f"{shape['ms']:.4f} ms (wrapper {shape['wrapper_ms']:.4f}), plain "
+                  f"{shape['plain_ms']:.4f}, cuDNN {shape['library_ms']:.4f}, bound "
+                  f"{shape['bound_ms']:.4f} ({shape['bound_by']}); apart {shape['apart']:.2e}")
     conv.launches = saved
+    paths = defaultdict(int)
+    for shape in per_shape:
+        paths[shape["path"]] += 1
     print("fused conv shapes: " + json.dumps(per_shape))
+    print(f"fused conv paths: {json.dumps(dict(paths))} of {len(per_shape)} distinct shapes")
+    for name, c in sorted(classes.items()):
+        print(f"fused conv class {name} ({c['path']}), {int(c['count'])} convs "
+              f"{'of one R101 forward' if name != 'grouped 3x3' else 'of ResNeXt (one each)'}: "
+              f"kernel {c['ms']:.3f} ms, cuDNN {c['library_ms']:.3f}, bounds summed "
+              f"{c['bound_ms']:.3f}")
     r101 = bound(totals["bytes"], totals["ops"], "bf16")
     print(f"fused conv, the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward "
           f"(batch 8, 1024x768): kernel {totals['ms']:.3f} ms (wrapper {totals['wrapper_ms']:.3f}),"
@@ -625,7 +685,8 @@ def fused_conv_phase(device) -> dict:
           f"{r101['bound_by']} ({totals['bytes'] / 1e9:.2f} GB, {totals['ops'] / 1e12:.3f} "
           f"TFLOP; per-conv bounds summed {totals['bound_sum_ms']:.3f} ms); every shape within "
           f"its bounds against the plain version, max_abs_err {worst:.3e}; largest fp32-output "
-          f"|difference| / magnitude {worst_rel:.3e} (SUM_ORDER_RTOL {conv.SUM_ORDER_RTOL:.3e})")
+          f"|difference| / magnitude {worst_rel:.3e} (SUM_ORDER_RTOL {conv.SUM_ORDER_RTOL:.3e});"
+          f" largest bf16 share apart {worst_apart:.2e} (CONV_BF16_APART {CONV_BF16_APART})")
 
     # the bf16 backbone, contract route against today's, on the same weights
     model, ex = models["resnet101_rmac"]
@@ -639,13 +700,17 @@ def fused_conv_phase(device) -> dict:
                 lambda: m.features(x, torch.bfloat16, grad_safe=True),
                 lambda: m.features(x, torch.bfloat16), iters=10)
             forward[f"{kind}_ms"], forward[f"{kind}_cudnn_chain_ms"] = ms, old_ms
+            names = cuda_kernels_of(lambda: m.features(x, torch.bfloat16))
+            forward[f"{kind}_device_launches"] = None if names is None else len(names)
         forward["extractor_ms"] = _time_ms(lambda: ex(images), iters=10)
     conv.launches = saved
     print(f"fused conv: resnet101_rmac bf16 backbone, batch 8 at 1024x768 (CUDA events, in "
           f"turns): BN-affine {forward['affine_ms']:.2f} ms against today's cuDNN + fp32 "
           f"chain {forward['affine_cudnn_chain_ms']:.2f} ms; folded {forward['folded_ms']:.2f}"
           f" against {forward['folded_cudnn_chain_ms']:.2f} ms; the whole bf16 extractor "
-          f"forward (K1 included) {forward['extractor_ms']:.2f} ms")
+          f"forward (K1 included) {forward['extractor_ms']:.2f} ms; device launches a "
+          f"backbone forward (torch.profiler) {forward['affine_device_launches']} affine, "
+          f"{forward['folded_device_launches']} folded")
     row.update(forward=forward, shapes=len(shapes), seconds=time.perf_counter() - t0)
     return {"name": "conv_fused", "route": "cuda", "source": "dirjax_torch/csrc/conv.cu",
             "replaces": "dirjax/models/resnet.py:159 (_conv, preferred_element_type=float32, "
@@ -658,6 +723,8 @@ def fused_conv_phase(device) -> dict:
             "work": f"the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward, "
                     "batch 8, 1024x768",
             "wrapper_ms": totals["wrapper_ms"], "per_conv_bound_sum_ms": totals["bound_sum_ms"],
+            "shapes_by_path": dict(paths), "largest_bf16_apart": worst_apart,
+            "per_class": {k: dict(v) for k, v in classes.items()},
             **{f"forward_{k}": v for k, v in forward.items()},
             "per_arch_launches": row["per_arch_launches"]}
 
@@ -2189,7 +2256,7 @@ def device_breakdown(trace_path: str) -> dict:
             k1_launches += "gem_pool_kernel" in name
         elif ops.get(e.get("args", {}).get("External id")) in _CONV_OPS:
             kind = "convolution"
-        elif "namespace)::conv_kernel<" in name:   # csrc/conv.cu (an anonymous namespace)
+        elif re.search(r"namespace\)::(wg::conv_wgmma_kernel|conv_kernel)<", name):   # csrc/conv.cu
             kind = "fused_conv"
         elif "elementwise" in name:
             kind = "elementwise"

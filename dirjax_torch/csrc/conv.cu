@@ -16,8 +16,7 @@
 //     v = relu(v)                                        (relu == 2)
 //     out[m, n] = v                                      (bf16 or fp32)
 // with m = (b, ho, wo) an output pixel, n an output channel and
-// k = (r, s, c) ordered as the packed weights are, so that a 16-byte load of
-// the input is 8 consecutive channels of one pixel. The accumulator never
+// k = (r, s, c) ordered as the packed weights are. The accumulator never
 // leaves fp32 before the epilogue, which multiplies and adds with separate
 // roundings (__fmul_rn, __fadd_rn), as the plain version in
 // dirjax_torch/ops/conv.py does: the output is dirjax's fp32 convolution
@@ -27,8 +26,49 @@
 // forward's 104 convolutions do 1.96 TFLOP (1.98 ms at 989 TFLOP/s) and, each
 // operand read once and each output written once, move about 11 GB (3.3 ms
 // at 3.35 TB/s): most layers are bound by their bytes, the 3x3 layers of the
-// deeper stages by their operations. The design is the simple one that is
-// right, and leaves the speed to a later change:
+// deeper stages by their operations.
+//
+// Two paths, chosen from the shape alone (tile_width below):
+//
+// wgmma (groups == 1, cin and cout multiples of 64: every convolution of
+// the ResNets but the stem, and the FPN merge). A persistent CTA on each SM
+// walks (128-pixel, BN-channel) output tiles, BN = 128, or 64 where cout is
+// not a multiple of 128, channel tiles fastest so that CTAs running
+// together share one pixel tile's input in L2. Three warpgroups:
+//   - a producer (one thread, registers lowered by setmaxnreg) keeps a
+//     160 KB ring of K stages in flight on mbarriers: each stage is 64 of K
+//     (one (r, s) tap, 64 channels), the input's 128 x 64 and the weights'
+//     BN x 64 bf16, each a TMA box in the 128-byte swizzle that wgmma reads.
+//     The weights are a (cout, kh*kw*cin) matrix; the input is the
+//     (B*H*W, cin) matrix of a 1x1 stride-1 convolution, else a 4-D NHWC
+//     tensor read in TMA's im2col mode: the box is 128 output pixels'
+//     windows at the stage's tap, and its out-of-bounds zero fill is the
+//     convolution's zero padding and the ragged last tile. The tensor maps
+//     are encoded on the host (the encoders reached through
+//     cudaGetDriverEntryPoint; the weights' once per packed weight, the
+//     input's per call, kept for the buffers a forward meets again) and
+//     passed as __grid_constant__ parameters.
+//   - two consumers, each 64 pixels x BN of the tile: four wgmma m64nBNk16
+//     a stage from the swizzled stage (descriptors of csrc/tc_score.cuh),
+//     fp32 accumulators in registers, one stage's wgmmas in flight while
+//     the one before is released to the producer. The producer runs on into
+//     the next tile while the consumers' epilogue runs: the K = 256 1x1
+//     layers, 4 stages a tile, no longer wait for a ring fill per tile.
+//   - the epilogue: at the tile's start each consumer thread issues the
+//     loads of its scale, shift and residual for the whole tile (the
+//     residual kind is a template parameter, so the loads carry no branch
+//     and none is used before the wgmmas end: a bf16 residual widened as it
+//     was loaded made each load wait, 2x the time at these shapes); after
+//     the wgmmas it stages its accumulators 64 channels at a time in shared
+//     memory (apart from the ring) and each thread takes 4 consecutive
+//     channels of 8 pixels: 16-byte reads of the staged sums, 8- or 16-byte
+//     stores. A thread holds 64 accumulators and up to 64 registers of
+//     residual, which is why BN stays at 128 (at 256 it read slower as
+//     well: 192 tiles at R101's stage 3 are 1.45 waves of 132 SMs).
+
+// mma.sync (everything else: ResNeXt's grouped 3x3 with 4-32 channels a
+// group; the 7x7 stem, whose 3 channels arrive padded to 4 with zeros by
+// the wrapper, which adds exact zeros to each sum):
 //   - A CTA of 8 warps owns a 128-pixel x BN-channel output tile (BN = 16,
 //     32, 64 or 128, the least that covers cout / groups) of one group; the
 //     grid is (pixel tiles, groups x channel tiles).
@@ -37,25 +77,25 @@
 //     Each thread's input chunks share one (r, s, c) a slice; a chunk outside
 //     the image, past K or past M is zero-filled by the copy itself
 //     (src-size 0): that is the convolution's zero padding. Chunks are 16
-//     bytes where cin / groups is a multiple of 8, else 8 bytes (a multiple
-//     of 4: ResNeXt's 4-channel groups; the stem's 3 channels arrive padded
-//     to 4 with zeros by the wrapper, which adds exact zeros to each sum).
+//     bytes where cin / groups is a multiple of 8, else 8 bytes.
 //   - mma.sync m16n8k16 (bf16 in, fp32 accumulate) on ldmatrix fragments;
 //     each warp owns a (128 / WARPS_M) x (BN / WARPS_N) piece of the tile.
 //   - The epilogue stages the fp32 accumulators in shared memory (the ring's
-//     space), then each thread takes 4 consecutive channels of a pixel:
-//     16-byte reads of the tile, the residual and scale/shift, 8- or 16-byte
-//     stores of the output. (Written straight from the mma fragments, 4
-//     bytes a lane, it left the epilogue-heavy 1x1 layers at 3-5x cuDNN.)
-// Not done: TMA, wgmma, warp specialisation, persistent tiles.
+//     space), then the same 4-channel epilogue as the wgmma path.
 
+#include <cuda.h>   // CUtensorMap and its encoders' types; nothing is linked from the driver
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
+#include <mutex>
 
 #include "smem_opt_in.cuh"
+#include "tc_score.cuh"   // sw128, the wgmma fence / commit / wait, cp_async_commit / wait
 
 namespace {
 
@@ -65,21 +105,6 @@ constexpr int kStages = 4;
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kRow = kBK + 8;     // a staged row: 32 bf16 and 8 of padding (80 bytes)
 
-struct ConvArgs {
-  const __nv_bfloat16* x;     // (batch, h, w, cin) bf16
-  const __nv_bfloat16* w;     // (cout, kh, kw, cin_g) bf16
-  const float* scale;         // (cout,) or null
-  const float* shift;         // (cout,) or null
-  const void* residual;       // (batch, ho, wo, cout), bf16 or fp32, or null
-  void* out;                  // (batch, ho, wo, cout), bf16 or fp32
-  int res_kind;               // 0 none, 1 bf16, 2 fp32
-  int relu;                   // 0 none, 1 before the residual add, 2 after it
-  int out_bf16;
-  int h, w_in, cin, ho, wo, cout, kw, stride, pad;
-  int cin_g, cout_g, k_g;     // per group; k_g = kh * kw * cin_g
-  int m;                      // batch * ho * wo
-  int n_tiles;                // channel tiles a group
-};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,15 +122,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid)
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -121,10 +137,63 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The epilogue's operands, shared by both paths.
+struct Epilogue {
+  const float* scale;         // (cout,) or null
+  const float* shift;         // (cout,) or null
+  const void* residual;       // (batch, ho, wo, cout), bf16 or fp32, or null
+  void* out;                  // (batch, ho, wo, cout), bf16 or fp32
+  int res_kind;               // 0 none, 1 bf16, 2 fp32
+  int relu;                   // 0 none, 1 before the residual add, 2 after it
+  int out_bf16;
+  int cout;
+};
+
+// The residual of output channels n .. n + 3 of pixel m as it is stored
+// (RES 1: four bf16, 2: four fp32, 0: none), loaded with no use of its
+// value, so that a thread's loads for many pixels are all in flight at
+// once, and widened to fp32 where it is used.
+template <int RES> struct Residual;
+template <> struct Residual<0> {
+  struct Raw {};
+  __device__ __forceinline__ static Raw load(const Epilogue&, long long, int) { return {}; }
+  __device__ __forceinline__ static float4 get(Raw) { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <> struct Residual<1> {
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw load(const Epilogue& a, long long m, int n) {
+    return __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(a.residual) + m * a.cout + n));
+  }
+  __device__ __forceinline__ static float4 get(Raw raw) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+template <> struct Residual<2> {
+  using Raw = float4;
+  __device__ __forceinline__ static Raw load(const Epilogue& a, long long m, int n) {
+    return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(a.residual) +
+                                                 m * a.cout + n));
+  }
+  __device__ __forceinline__ static float4 get(Raw raw) { return raw; }
+};
+
+struct ConvArgs {
+  const __nv_bfloat16* x;     // (batch, h, w, cin) bf16
+  const __nv_bfloat16* w;     // (cout, kh, kw, cin_g) bf16
+  Epilogue epi;
+  int h, w_in, cin, ho, wo, cout, kw, stride, pad;
+  int cin_g, cout_g, k_g;     // per group; k_g = kh * kw * cin_g
+  int m;                      // batch * ho * wo
+  int n_tiles;                // channel tiles a group
+};
+
 // One output element from its fp32 sum: the multiply and the adds rounded
 // apart, as the plain version's separate fp32 ops round them; r is the
 // residual (0 without one, whose add then leaves v as it is).
-__device__ __forceinline__ float epilogue(const ConvArgs& a, float v, float sc, float sh,
+__device__ __forceinline__ float epilogue(const Epilogue& a, float v, float sc, float sh,
                                           float r) {
   if (a.scale) v = __fmul_rn(v, sc);
   if (a.shift) v = __fadd_rn(v, sh);
@@ -132,6 +201,48 @@ __device__ __forceinline__ float epilogue(const ConvArgs& a, float v, float sc, 
   if (a.res_kind) v = __fadd_rn(v, r);
   if (a.relu == 2) v = fmaxf(v, 0.f);
   return v;
+}
+
+// The epilogue's per-channel and residual operands of output channels
+// n .. n + 3 (of pixel m), read through the read-only path.
+__device__ __forceinline__ float4 scale4(const Epilogue& a, int n) {
+  return a.scale ? __ldg(reinterpret_cast<const float4*>(a.scale + n))
+                 : make_float4(1.f, 1.f, 1.f, 1.f);
+}
+__device__ __forceinline__ float4 shift4(const Epilogue& a, int n) {
+  return a.shift ? __ldg(reinterpret_cast<const float4*>(a.shift + n))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float4 residual4(const Epilogue& a, long long m, int n) {
+  if (a.res_kind == 1) return Residual<1>::get(Residual<1>::load(a, m, n));
+  if (a.res_kind == 2) return Residual<2>::load(a, m, n);
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Output channels n .. n + 3 of pixel m from their four fp32 sums and the
+// operands above: an 8- or 16-byte store.
+__device__ __forceinline__ void store4(const Epilogue& a, float4 acc, float4 sc, float4 sh,
+                                       float4 r, long long m, int n) {
+  const long long off = m * a.cout + n;
+  const float v0 = epilogue(a, acc.x, sc.x, sh.x, r.x), v1 = epilogue(a, acc.y, sc.y, sh.y, r.y);
+  const float v2 = epilogue(a, acc.z, sc.z, sh.z, r.z), v3 = epilogue(a, acc.w, sc.w, sh.w, r.w);
+  if (a.out_bf16) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v2, v3);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) + off) = raw;
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(a.out) + off) = make_float4(v0, v1, v2, v3);
+  }
+}
+
+// The same from the four sums in shared memory, its operands read here.
+__device__ __forceinline__ void finish4(const Epilogue& a, const float* sums, long long m,
+                                        int n) {
+  store4(a, *reinterpret_cast<const float4*>(sums), scale4(a, n), shift4(a, n),
+         residual4(a, m, n), m, n);
 }
 
 template <int BN, int WARPS_M, int VEC>
@@ -279,43 +390,7 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(ConvArgs a) {
     const int row = idx / CHUNKS, c = (idx - row * CHUNKS) * 4;
     const int m = m0 + row, nl = n0 + c;
     if (m >= a.m || nl >= a.cout_g) continue;
-    const int n = grp * a.cout_g + nl;
-    const long long off = (long long)m * a.cout + n;
-    const float4 acc4 = *reinterpret_cast<const float4*>(tile + row * TS + c);
-    float v[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
-    float sc[4] = {1.f, 1.f, 1.f, 1.f}, sh[4] = {0.f, 0.f, 0.f, 0.f}, r[4] = {0.f, 0.f, 0.f, 0.f};
-    if (a.scale) {
-      const float4 q = *reinterpret_cast<const float4*>(a.scale + n);
-      sc[0] = q.x; sc[1] = q.y; sc[2] = q.z; sc[3] = q.w;
-    }
-    if (a.shift) {
-      const float4 q = *reinterpret_cast<const float4*>(a.shift + n);
-      sh[0] = q.x; sh[1] = q.y; sh[2] = q.z; sh[3] = q.w;
-    }
-    if (a.res_kind == 1) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          static_cast<const __nv_bfloat16*>(a.residual) + off);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
-    } else if (a.res_kind == 2) {
-      const float4 q = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(a.residual) + off);
-      r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = epilogue(a, v[e], sc[e], sh[e], r[e]);
-    if (a.out_bf16) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-      uint2 raw;
-      raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-      raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) + off) = raw;
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + off) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
+    finish4(a.epi, tile + row * TS + c, m, grp * a.cout_g + nl);
   }
 }
 
@@ -349,34 +424,496 @@ cudaError_t launch_vec(ConvArgs& a, int groups, cudaStream_t stream) {
   return launch<128, 2, VEC>(a, groups, stream);
 }
 
+// --------------------------------------------------------------------------
+// The wgmma path
+// --------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBM = 128;                 // output pixels a tile: two consumers of 64
+constexpr int kBK = 64;                  // K a stage: one 128-byte swizzled row of bf16
+constexpr int kThreads = 384;            // producer + two consumer warpgroups
+constexpr int kRingBytes = 160 * 1024;
+constexpr int kEpiCols = 64;             // fp32 columns a consumer stages at a time
+constexpr int kEpiRow = kEpiCols + 8;    // a staged row in floats (float2 stores hit no bank twice)
+constexpr int kEpiBytes = 2 * 64 * kEpiRow * 4;
+constexpr int kAlign = 1024;             // the 128-byte swizzle's atom
+
+template <int BN>
+struct Cfg {
+  static constexpr int A_BYTES = kBM * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * 128;
+  static constexpr int STAGES = kRingBytes / STAGE_BYTES;   // 5 (BN 128) or 6 (BN 64)
+  static constexpr int SMEM = kAlign + STAGES * STAGE_BYTES + kEpiBytes + 2 * STAGES * 8;
+  static_assert(SMEM <= kMaxSmemBytes, "shared memory");
+};
+
+struct Args {
+  Epilogue epi;
+  int m;              // batch * ho * wo
+  int ho, wo, stride, pad, kw;
+  int cblocks;        // cin / 64
+  int kt;             // K stages a tile: kh * kw * cblocks
+  int n_tiles;        // channel tiles
+  int tiles;          // pixel tiles * channel tiles
+  int im2col;         // 0: the input is the (m, cin) matrix of a 1x1 stride-1 conv
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// 128 output pixels' windows, starting at input pixel (w, h) of image n (the
+// window's top-left corner: negative inside the padding), each at tap (r, s)
+// of its window: channels c .. c + 63 of each.
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                           int c, int w, int h, int n, int s, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h),
+        "r"(n), "h"((uint16_t)s), "h"((uint16_t)r)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+template <int BN, int RES>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap, const Args a) {
+  using C = Cfg<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+  float* staged = reinterpret_cast<float*>(ring + C::STAGES * C::STAGE_BYTES);
+  const uint32_t full0 = smem_u32(ring + C::STAGES * C::STAGE_BYTES + kEpiBytes);
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  const uint32_t ring0 = smem_u32(ring);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);        // the producer's expect_tx; TMA's bytes
+      mbar_init(empty0 + 8 * s, 8);       // each consumer warp, once its wgmmas are done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&wmap))
+                   : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+        const int m0 = (tile / a.n_tiles) * kBM, n0 = (tile % a.n_tiles) * BN;
+        int wi = 0, hi = 0, b = 0;
+        if (a.im2col) {
+          const int hw = a.ho * a.wo;
+          b = m0 / hw;
+          const int rem = m0 - b * hw, ho = rem / a.wo;
+          hi = ho * a.stride - a.pad;
+          wi = (rem - ho * a.wo) * a.stride - a.pad;
+        }
+        for (int kt = 0, rs = 0, cb = 0; kt < a.kt; ++kt) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t dst = ring0 + stage * C::STAGE_BYTES;
+          mbar_expect_tx(full, C::STAGE_BYTES);
+          if (a.im2col) {
+            const int r = rs / a.kw;
+            tma_im2col(dst, &xmap, full, cb * kBK, wi, hi, b, rs - r * a.kw, r);
+          } else {
+            tma_2d(dst, &xmap, full, cb * kBK, m0);
+          }
+          tma_2d(dst + C::A_BYTES, &wmap, full, kt * kBK, n0);
+          if (++cb == a.cblocks) { cb = 0; ++rs; }
+          if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    using dirjax_wgmma::Wgmma;
+    const int half = threadIdx.x / 128 - 1;           // this consumer's 64 pixels of a tile
+    const int ctid = threadIdx.x & 127, warp = ctid >> 5, lane = ctid & 31;
+    float* mine = staged + half * 64 * kEpiRow;
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    // the epilogue's layout: a thread takes 4 channels of P staged rows, RPP
+    // apart; its channels stay the same through a pass
+    constexpr int CPR = kEpiCols / 4, RPP = 128 / CPR, P = 64 / RPP;
+    const int c = (ctid % CPR) * 4, r0 = ctid / CPR;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+      const int m0 = (tile / a.n_tiles) * kBM, n0 = (tile % a.n_tiles) * BN;
+      const int mrow = m0 + 64 * half + r0;   // this thread's first row of the epilogue
+      // the whole tile's scale, shift and residual, read while the wgmmas
+      // run (a row past M reads row M - 1 and stores nothing): the epilogue
+      // then waits on no load of its own
+      constexpr int PASSES = BN / kEpiCols;
+      static_assert(BN % kEpiCols == 0, "epilogue passes");
+      typename Residual<RES>::Raw res[PASSES][P];
+      float4 sc[PASSES], sh[PASSES];
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        sc[p] = scale4(a.epi, n0 + kEpiCols * p + c);
+        sh[p] = shift4(a.epi, n0 + kEpiCols * p + c);
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          res[p][i] = Residual<RES>::load(a.epi, min(mrow + RPP * i, a.m - 1),
+                                          n0 + kEpiCols * p + c);
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < a.kt; ++kt) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sa = ring0 + stage * C::STAGE_BYTES + half * 64 * 128;
+        const uint32_t sb = ring0 + stage * C::STAGE_BYTES + C::A_BYTES;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) pin(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kBK / 16; ++k)    // 32 bytes of each row a k16 step
+          Wgmma<BN>::run(acc, sw128(sa + 32 * k), sw128(sb + 32 * k));
+        wgmma_commit();
+        wgmma_wait_group<1>();   // the stage before this one has been read: release it
+        if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = stage;
+        if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait_group<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) pin(acc[i]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+
+      // epilogue, kEpiCols channels a pass through this consumer's staging
+      // rows (BN divides cout: every channel of the tile exists). Fragment j
+      // (channels 8j .. 8j + 7) holds rows g and g + 8 of the warp's 16,
+      // channels 8j + 2t and 8j + 2t + 1.
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        const int n = n0 + kEpiCols * p + c;
+        named_sync(1 + half);   // the pass before has read the staging rows
+#pragma unroll
+        for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+          const int j = kEpiCols / 8 * p + jj, col = 8 * jj + 2 * t;
+          *reinterpret_cast<float2*>(mine + (16 * warp + g) * kEpiRow + col) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(mine + (16 * warp + g + 8) * kEpiRow + col) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        named_sync(1 + half);
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const int m = mrow + RPP * i;
+          if (m < a.m)
+            store4(a.epi, *reinterpret_cast<const float4*>(mine + (r0 + RPP * i) * kEpiRow + c),
+                   sc[p], sh[p], Residual<RES>::get(res[p][i]), m, n);
+        }
+      }
+    }
+  }
+}
+
+// The driver's tensor-map encoders, reached through the runtime (so that the
+// library links nothing beyond it) once per process.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+struct Encoders {
+  EncodeTiled tiled = nullptr;
+  EncodeIm2col im2col = nullptr;
+};
+
+void* driver_entry(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? fn : nullptr;
+}
+
+const Encoders& encoders() {
+  static const Encoders e = [] {
+    Encoders r;
+    r.tiled = reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
+    r.im2col = reinterpret_cast<EncodeIm2col>(driver_entry("cuTensorMapEncodeIm2col"));
+    return r;
+  }();
+  return e;
+}
+
+// The tile width of the wgmma path for this shape, 0 where it does not take
+// it (grouped convolutions, channels not multiples of 64: the stem). 128
+// rather than 256: a consumer thread holds its 64 accumulators and the
+// tile's residual (another 64) at once, and at R101's stage 3 (M = 24,576)
+// 128-wide tiles make 384 tiles a 256-channel conv, 2.9 waves of 132 SMs
+// where 256-wide make 192, 1.45.
+int tile_width(int cin, int cout, int groups) {
+  if (groups != 1 || cin % 64 != 0 || cout % 64 != 0) return 0;
+  return cout % 128 == 0 ? 128 : 64;
+}
+
+// A 2-D bf16 matrix of `rows` rows of `cols`, read in (box_rows, 64) boxes in
+// the 128-byte swizzle.
+cudaError_t encode_matrix(CUtensorMap* map, const void* base, long long rows, long long cols,
+                          int box_rows) {
+  if (encoders().tiled == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encoders().tiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The NHWC input in im2col mode: 128 output pixels' windows a box, 64
+// channels each, traversed with the convolution's stride over the box of
+// window corners [-pad, dim + pad - k] (zero-filled outside the image).
+cudaError_t encode_im2col(CUtensorMap* map, const void* x, int batch, int h, int w, int cin,
+                          int kh, int kw, int stride, int pad) {
+  if (encoders().im2col == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
+                                 (cuuint64_t)h * w * cin * 2};
+  const int lower[2] = {-pad, -pad};                       // w, h
+  const int upper[2] = {pad - (kw - 1), pad - (kh - 1)};
+  const cuuint32_t steps[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+  const CUresult res = encoders().im2col(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, lower,
+      upper, (cuuint32_t)kBK, (cuuint32_t)kBM, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The last kMapSlots input tensor maps, by what they encode: a forward
+// meets the same activation buffers (the caching allocator hands them out
+// again) at the same shapes call after call, and an encode costs the host
+// microseconds. A map is a function of its key alone, so a hit is the map
+// the encoder would make.
+struct MapKey {
+  const void* x;
+  int batch, h, w, cin, kh, kw, stride, pad, im2col;
+  bool operator==(const MapKey& o) const { return memcmp(this, &o, sizeof(*this)) == 0; }
+};
+constexpr int kMapSlots = 64;
+
+cudaError_t input_map(CUtensorMap* map, const MapKey& key, long long m) {
+  static std::mutex mu;
+  static MapKey keys[kMapSlots];
+  static CUtensorMap maps[kMapSlots];
+  static int filled = 0, next = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < filled; ++i)
+      if (keys[i] == key) {
+        *map = maps[i];
+        return cudaSuccess;
+      }
+  }
+  const cudaError_t err =
+      key.im2col ? encode_im2col(map, key.x, key.batch, key.h, key.w, key.cin, key.kh, key.kw,
+                                 key.stride, key.pad)
+                 : encode_matrix(map, key.x, m, key.cin, kBM);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapSlots;
+  if (filled < kMapSlots) ++filled;
+  return cudaSuccess;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int BN, int RES>
+cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& wmap, const Args& a,
+                   cudaStream_t stream) {
+  auto kernel = conv_wgmma_kernel<BN, RES>;
+  static OptInFlags opted;
+  static std::atomic<int> sms_on[kMaxDevices];   // 0: not yet known
+  cudaError_t err = opt_in_once(kernel, Cfg<BN>::SMEM, Cfg<BN>::SMEM, opted);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int sms = sms_on[dev].load(std::memory_order_acquire);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms_on[dev].store(sms, std::memory_order_release);
+  }
+  kernel<<<a.tiles < sms ? a.tiles : sms, kThreads, Cfg<BN>::SMEM, stream>>>(xmap, wmap, a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// x: (batch, h, w, cin) bf16; w: (cout, kh, kw, cin / groups) bf16; scale,
+// The wgmma path's tile width for this shape (256, 128 or 64), 0 where the
+// mma.sync path takes it: the rule dirjax_conv_fused follows.
+extern "C" int dirjax_conv_path(int cin, int cout, int kh, int kw, int groups) {
+  (void)kh;
+  (void)kw;
+  return wg::tile_width(cin, cout, groups);
+}
+
+// The TMA tensor map of packed weights w (cout, kh, kw, cin / groups) for
+// the wgmma path, written to map (128 bytes of host memory); all zeros for
+// a shape the mma.sync path takes. Returns a cudaError_t.
+extern "C" int dirjax_conv_weight_map(const void* w, int cin, int cout, int kh, int kw,
+                                      int groups, void* map) {
+  if (w == nullptr || map == nullptr || cin <= 0 || cout <= 0 || kh <= 0 || kw <= 0 ||
+      groups <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memset(&m, 0, sizeof(m));
+  const int bn = wg::tile_width(cin, cout, groups);
+  if (bn) {
+    const cudaError_t err = wg::encode_matrix(&m, w, cout, (long long)kh * kw * cin, bn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  memcpy(map, &m, sizeof(m));
+  return (int)cudaSuccess;
+}
+
+// x: (batch, h, w, cin) bf16; w: (cout, kh, kw, cin / groups) bf16, and
+// wmap its dirjax_conv_weight_map (host memory; null: built here); scale,
 // shift: (cout,) fp32 or null; residual: (batch, ho, wo, cout) of res_kind (0
 // none, 1 bf16, 2 fp32); relu: 0 none, 1 before the residual add, 2 after
 // it; out: (batch, ho, wo, cout), bf16 if out_bf16 else fp32. cin / groups
 // and cout / groups must be multiples of 4 and every pointer 16-byte
-// aligned (the epilogue moves 4 channels at a time). Returns a cudaError_t.
-extern "C" int dirjax_conv_fused(const void* x, const void* w, const float* scale,
-                                 const float* shift, const void* residual, int res_kind, int relu,
-                                 void* out, int out_bf16, int batch, int h, int w_in, int cin,
-                                 int cout, int kh, int kw, int stride, int pad, int groups,
-                                 int ho, int wo, void* stream) {
+// aligned (the epilogue moves 4 channels at a time). The path follows from
+// the shape (dirjax_conv_path). Returns a cudaError_t.
+extern "C" int dirjax_conv_fused(const void* x, const void* w, const void* wmap,
+                                 const float* scale, const float* shift, const void* residual,
+                                 int res_kind, int relu, void* out, int out_bf16, int batch,
+                                 int h, int w_in, int cin, int cout, int kh, int kw, int stride,
+                                 int pad, int groups, int ho, int wo, void* stream) {
   if (batch <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || cout <= 0 || kh <= 0 || kw <= 0 ||
       stride <= 0 || pad < 0 || groups <= 0 || ho <= 0 || wo <= 0 || cin % groups != 0 ||
       cout % groups != 0 || res_kind < 0 || res_kind > 2 || relu < 0 || relu > 2 ||
       (res_kind != 0 && residual == nullptr) || x == nullptr || w == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
+  const long long m = (long long)batch * ho * wo;
+  if (m > 0x7fffffffLL || (cout / groups) % 4 != 0 || (cin / groups) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(residual) |
+                          reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(shift);
+  if (bases % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  Epilogue epi;
+  epi.scale = scale;
+  epi.shift = shift;
+  epi.residual = residual;
+  epi.out = out;
+  epi.res_kind = res_kind;
+  epi.relu = relu;
+  epi.out_bf16 = out_bf16;
+  epi.cout = cout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  const int bn = wg::tile_width(cin, cout, groups);
+  if (bn) {
+    alignas(64) CUtensorMap xmap, wm;
+    if (wmap != nullptr) {
+      memcpy(&wm, wmap, sizeof(wm));
+    } else {
+      const cudaError_t err = wg::encode_matrix(&wm, w, cout, (long long)kh * kw * cin, bn);
+      if (err != cudaSuccess) return (int)err;
+    }
+    wg::Args a;
+    a.epi = epi;
+    a.m = (int)m;
+    a.ho = ho;
+    a.wo = wo;
+    a.stride = stride;
+    a.pad = pad;
+    a.kw = kw;
+    a.cblocks = cin / wg::kBK;
+    a.kt = kh * kw * a.cblocks;
+    a.n_tiles = (cout + bn - 1) / bn;
+    const long long tiles = (m + wg::kBM - 1) / wg::kBM * a.n_tiles;
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    a.tiles = (int)tiles;
+    a.im2col = !(kh == 1 && kw == 1 && stride == 1 && pad == 0);
+    wg::MapKey key;
+    memset(&key, 0, sizeof(key));   // the padding too: keys compare as bytes
+    key.x = x;
+    key.batch = batch;
+    key.h = h;
+    key.w = w_in;
+    key.cin = cin;
+    key.kh = kh;
+    key.kw = kw;
+    key.stride = stride;
+    key.pad = pad;
+    key.im2col = a.im2col;
+    const cudaError_t err = wg::input_map(&xmap, key, m);
+    if (err != cudaSuccess) return (int)err;
+    switch (res_kind + 3 * (bn == 128)) {
+      case 0: return (int)wg::launch<64, 0>(xmap, wm, a, s);
+      case 1: return (int)wg::launch<64, 1>(xmap, wm, a, s);
+      case 2: return (int)wg::launch<64, 2>(xmap, wm, a, s);
+      case 3: return (int)wg::launch<128, 0>(xmap, wm, a, s);
+      case 4: return (int)wg::launch<128, 1>(xmap, wm, a, s);
+      default: return (int)wg::launch<128, 2>(xmap, wm, a, s);
+    }
+  }
+
   ConvArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = static_cast<const __nv_bfloat16*>(w);
-  a.scale = scale;
-  a.shift = shift;
-  a.residual = residual;
-  a.out = out;
-  a.res_kind = res_kind;
-  a.relu = relu;
-  a.out_bf16 = out_bf16;
+  a.epi = epi;
   a.h = h;
   a.w_in = w_in;
   a.cin = cin;
@@ -389,14 +926,6 @@ extern "C" int dirjax_conv_fused(const void* x, const void* w, const float* scal
   a.cin_g = cin / groups;
   a.cout_g = cout / groups;
   a.k_g = kh * kw * a.cin_g;
-  const long long m = (long long)batch * ho * wo;
-  if (m > 0x7fffffffLL || a.cout_g % 4 != 0 || a.cin_g % 4 != 0)
-    return (int)cudaErrorInvalidValue;
   a.m = (int)m;
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                          reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(residual) |
-                          reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(shift);
-  if (bases % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a.cin_g % 8 == 0 ? launch_vec<8>(a, groups, s) : launch_vec<4>(a, groups, s));
 }

@@ -137,10 +137,14 @@ def load_library() -> ctypes.CDLL:
         "dirjax_adc_finemax": [vp, i, vp, ll, ll, i, i, ll, vp, vp],
         # luts, lut_bf16, codes, bids, nq, n, m, ksub, block, kf, out, stream
         "dirjax_adc_gather_scores": [vp, i, vp, vp, ll, ll, i, i, ll, ll, vp, vp],
-        # x, w, scale, shift, residual, res_kind, relu, out, out_bf16, batch,
-        # h, w, cin, cout, kh, kw, stride, pad, groups, ho, wo, stream
-        "dirjax_conv_fused": [vp, vp, vp, vp, vp, i, i, vp, i, i, i, i, i, i, i, i, i, i, i,
-                              i, i, vp],
+        # x, w, wmap, scale, shift, residual, res_kind, relu, out, out_bf16,
+        # batch, h, w, cin, cout, kh, kw, stride, pad, groups, ho, wo, stream
+        "dirjax_conv_fused": [vp, vp, ctypes.c_char_p, vp, vp, vp, i, i, vp, i, i, i, i, i, i,
+                              i, i, i, i, i, i, i, vp],
+        # w, cin, cout, kh, kw, groups, map (128 bytes, filled)
+        "dirjax_conv_weight_map": [vp, i, i, i, i, i, ctypes.c_char_p],
+        # cin, cout, kh, kw, groups -> the wgmma tile width, 0 for mma.sync
+        "dirjax_conv_path": [i, i, i, i, i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

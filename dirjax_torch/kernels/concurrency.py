@@ -2,8 +2,10 @@
 
 Each case alternates two launches of one kernel that need different dynamic
 shared memory: K6 resident (m 8 / 64 at ksub 16) and streamed (ksub 256 /
-100 at m 32), the ADC rescore (nq 1 / ``rescore_nq`` at m 64, ksub 256) and
-K1's projection (C 1024 / 2048); K3, whose size is a constant of its
+100 at m 32), the ADC rescore (nq 1 / ``rescore_nq`` at m 64, ksub 256),
+K1's projection (C 1024 / 2048) and the fused conv (a 3x3 256-channel
+convolution on the wgmma path, 218,176 bytes, and ResNeXt's grouped one on
+the mma.sync path, 81,920); K3, whose size is a constant of its
 instantiation, is the control. The threads call the C entry points with
 arguments made beforehand, so they meet inside the launchers, where the
 shared-memory opt-in is set: a launcher that set the kernel's process-wide
@@ -24,7 +26,7 @@ import torch
 
 __all__ = ["CASES", "Launch", "alternation", "race"]
 
-CASES = ("k6_resident", "k6_streamed", "rescore", "k1_project", "k3")
+CASES = ("k6_resident", "k6_streamed", "rescore", "k1_project", "conv", "k3")
 
 
 class Launch(NamedTuple):
@@ -95,6 +97,34 @@ def alternation(case: str, device, *, n: int = 4096, nq: int = 64, rescore_nq: i
                         pooled.data_ptr(), counters.data_ptr(), out.data_ptr(), B, H * W,
                         x.shape[3], d, 1e-6, stream), (out, pooled, counters)
             launches.append(Launch(f"C={c}", lib.dirjax_gem_head, prep, want, 2e-4, 2e-5))
+    elif case == "conv":
+        # the kernel sums in another order than its plain version: each
+        # launch is held to the kernel's own single-thread answer, exactly,
+        # which is first held to the plain version within agreement()'s bounds
+        from ..ops import conv
+
+        for cin, groups in ((256, 1), (256, 32)):
+            x = torch.randn((2, cin, 17, 13), generator=g, device=device).bfloat16()
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = torch.randn((256, cin // groups, 3, 3), generator=g, device=device) * \
+                (9 * cin / groups) ** -0.5
+            scale = torch.rand((256,), generator=g, device=device) + 0.5
+            shift = torch.randn((256,), generator=g, device=device) * 0.1
+            packed = conv.pack(x, w, 1, 1, groups, scale, shift, relu="post")
+            want = conv.run_packed(packed).clone()
+            agree = conv.agreement(want, conv.conv_reference(x, w, 1, 1, groups, scale, shift,
+                                                             relu="post"),
+                                   conv.reference_magnitude(x, w, 1, 1, groups, scale))
+            if agree["over"] > 0:
+                raise AssertionError(f"conv {cin}/{groups}: the kernel disagrees with its "
+                                     f"plain version: {agree}")
+
+            def prep(packed=packed):
+                out = torch.empty_like(packed["out"])
+                return conv.launch_args(packed, out)[1], out
+            launches.append(Launch(f"{conv.kernel_path(cin, 256, 3, 3, groups)} groups={groups}",
+                                   lib.dirjax_conv_fused, prep, want.permute(0, 2, 3, 1),
+                                   0.0, 0.0))
     elif case == "k3":
         db = torch.nn.functional.normalize(
             torch.randn((n, 256), generator=g, device=device), dim=1).bfloat16()

@@ -11,7 +11,8 @@ residual add run in fp32, and each block writes its output in ``dtype``
 Two routes, by dirjax's ``grad_safe`` (``dirjax/models/resnet.py:159-185``):
 - bf16 with ``grad_safe=False`` (inference): every convolution, the stem's,
   each block's (grouped ones included) and each downsample's, is
-  :func:`~dirjax_torch.ops.conv.fused_conv`: bf16 operands, the output kept
+  :func:`~dirjax_torch.ops.conv.fused_conv_packed` (the operands packed
+  once per convolution, ``_conv_operands``): bf16 operands, the output kept
   in fp32 into the fused fp32 epilogue (BN affine or folded bias, residual
   add, ReLU), as dirjax's ``preferred_element_type=float32`` keeps it. The
   stem and the blocks write bf16, the downsample fp32 (dirjax's
@@ -40,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import fused_conv
+from ..ops.conv import fused_conv_packed, pack_weights
 
 __all__ = ["ResNetConfig", "RESNET_CONFIGS", "ResNet", "BatchNormAffine",
            "BN_EPS", "RGB_MEANS", "RGB_STDS", "fold_batchnorm", "is_folded"]
@@ -136,13 +137,37 @@ def _fused_route(dtype: torch.dtype, grad_safe: bool) -> bool:
     return dtype == torch.bfloat16 and not grad_safe
 
 
+def _conv_operands(conv: nn.Conv2d, bn, device) -> dict:
+    """``conv``'s packed operands on ``device``: its bf16 weights and its BN
+    affine (folded: its bias), as ``fused_conv`` packs them per call, made
+    once and kept on the module while its and the BN's parameters stay the
+    same. The key is each tensor's storage address and version counter, so
+    a new storage or an in-place write (``load_state_dict``,
+    ``fold_batchnorm``'s copy, ``.to()``, an optimizer step) repacks; a
+    write through ``.data``, which PyTorch leaves out of the version
+    counter, is not seen."""
+    tensors = (conv._parameters["weight"], conv._parameters["bias"])
+    if bn is not None:
+        tensors += (bn._parameters["weight"], bn._parameters["bias"],
+                    bn._buffers["running_mean"], bn._buffers["running_var"])
+    key = (device,) + tuple(None if t is None else (t.data_ptr(), t._version) for t in tensors)
+    cached = conv.__dict__.get("_packed_operands")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.inference_mode(False), torch.no_grad():
+        scale, shift = (None, conv.bias) if bn is None else bn.affine()
+        packed = pack_weights(conv.weight, conv.groups, scale, shift, device)
+    conv.__dict__["_packed_operands"] = (key, packed)
+    return packed
+
+
 def _fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, relu: str = "post",
                    residual=None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """conv in bf16 with its BN affine (folded: its bias) and the rest of the
-    epilogue fused, in fp32, written as ``out_dtype``."""
-    scale, shift = (None, conv.bias) if bn is None else bn.affine()
-    return fused_conv(x, conv.weight, conv.stride[0], conv.padding[0], conv.groups,
-                      scale, shift, residual, relu, out_dtype)
+    epilogue fused, in fp32, written as ``out_dtype``; the weights, scale
+    and shift packed once (``_conv_operands``)."""
+    return fused_conv_packed(x, _conv_operands(conv, bn, x.device), conv.stride[0],
+                             conv.padding[0], residual, relu, out_dtype)
 
 
 def _fused_shortcut(x: torch.Tensor, downsample) -> torch.Tensor:

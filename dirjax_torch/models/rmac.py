@@ -37,11 +37,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import fused_conv
 from ..ops.gem_head import fused_gem_head
 from ..ops.normalize import l2_normalize
 from ..ops.pooling import center_bias_mask, global_pool
-from .resnet import RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig, _fused_route
+from .resnet import (RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig,
+                     _fused_conv_bn, _fused_route)
 
 __all__ = ["DescriptorConfig", "RMACDescriptor", "downsample_mask", "init_weights"]
 
@@ -204,7 +204,7 @@ class RMACDescriptor(ResNet):
         """[d4, d5]: C4 (merged with C5 in fpn_mode 1) and C5, each pooled
         over its own mask; with a ``generator``, both dropped out first. The
         merge's two convolutions take the backbone's route (``train`` is
-        ``grad_safe``): in bf16 inference each is ``fused_conv`` with an fp32
+        ``grad_safe``): in bf16 inference each is the fused conv with an fp32
         output, ``conv1x5``'s ReLU and the C4 add in its epilogue."""
         cfg = self.cfg
         c4, c5 = self.features(images, dtype, out_layer=-1, grad_safe=train)
@@ -229,10 +229,9 @@ class RMACDescriptor(ResNet):
         relu(conv1x5(C5 upsampled x2, cropped to C4)))), fp32."""
         up = F.interpolate(c5, scale_factor=2, mode="nearest")[:, :, :c4.shape[2], :c4.shape[3]]
         if _fused_route(dtype, train):
-            c4 = fused_conv(up, self.conv1x5.weight, relu="pre", residual=c4,
-                            out_dtype=torch.float32)
-            return fused_conv(c4, self.conv3c4.weight, padding=1, relu="post",
-                              out_dtype=torch.float32)
+            c4 = _fused_conv_bn(up, self.conv1x5, None, relu="pre", residual=c4,
+                                out_dtype=torch.float32)
+            return _fused_conv_bn(c4, self.conv3c4, None, relu="post", out_dtype=torch.float32)
         merged = F.conv2d(up.to(dtype), self.conv1x5.weight.to(dtype))
         c4 = c4.float() + F.relu(merged.float())
         return F.relu(F.conv2d(c4.to(dtype), self.conv3c4.weight.to(dtype), padding=1).float())

@@ -22,6 +22,13 @@ kernel has no backward: on the card it raises when grad mode is on and an
 operand requires grad; training takes the model's ``grad_safe`` route
 (``models/resnet.py``), as dirjax's does.
 
+The operands that do not change between calls (the packed bf16 weights,
+the fp32 scale and shift, and on the card the weights' TMA tensor map) are
+:func:`pack_weights`' dict; :func:`fused_conv_packed` runs a convolution on
+such a dict, which the backbones make once per convolution and reuse
+(``models/resnet.py``), so a forward issues the kernel, its output
+allocation and little else. :func:`fused_conv` packs them per call.
+
 Bound on the card: one read of the input, weights and residual and one write
 of the output against ``2 * M * cout * K`` tensor-core operations; see the
 source's note.
@@ -29,13 +36,15 @@ source's note.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_conv", "conv_reference", "conv_output_hw", "pack", "run_packed",
-           "reference_magnitude", "agreement", "SUM_ORDER_RTOL", "launches"]
+__all__ = ["fused_conv", "fused_conv_packed", "conv_reference", "conv_output_hw", "pack",
+           "pack_weights", "pack_input", "run_packed", "launch_args", "kernel_path", "reference_magnitude",
+           "agreement", "SUM_ORDER_RTOL", "launches"]
 
 #: launches of the CUDA kernel in this process (reset it to count a run)
 launches = 0
@@ -52,6 +61,9 @@ launches = 0
 SUM_ORDER_RTOL = 2.0 ** -16
 
 _RELU = {"none": 0, "pre": 1, "post": 2}
+
+#: bytes of a CUtensorMap (the weights' TMA descriptor, built on the host)
+_MAP_BYTES = 128
 
 
 def conv_output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
@@ -133,14 +145,32 @@ def fused_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: 
     if x.device.type == "cpu":
         return conv_reference(x, weight, stride, padding, groups, scale, shift, residual,
                               relu, out_dtype)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight, scale, shift, residual)):
-        raise RuntimeError("fused_conv has no backward: call it under torch.no_grad() or "
-                           "inference_mode(), or run the backbone with grad_safe=True")
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv runs on cuda or cpu, not {x.device}")
+    _refuse_grad(x, weight, scale, shift, residual)
     return run_packed(pack(x, weight, stride, padding, groups, scale, shift, residual, relu,
                            out_dtype))
+
+
+def fused_conv_packed(x: torch.Tensor, weights: dict, stride: int = 1, padding: int = 0,
+                      residual: Optional[torch.Tensor] = None, relu: str = "none",
+                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`fused_conv` on :func:`pack_weights`' operands (the weight, its
+    groups, scale and shift); on a CPU tensor the plain version of the
+    same weight, scale and shift."""
+    if relu not in _RELU:
+        raise ValueError(f"relu must be one of {sorted(_RELU)}, got {relu!r}")
+    if x.device.type == "cpu":
+        return conv_reference(x, weights["weight"], stride, padding, weights["groups"],
+                              weights["scale"], weights["shift"], residual, relu, out_dtype)
+    _refuse_grad(x, weights["weight"], residual)
+    return run_packed(pack_input(x, weights, stride, padding, residual, relu, out_dtype))
+
+
+def _refuse_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError("fused_conv has no backward: call it under torch.no_grad() or "
+                           "inference_mode(), or run the backbone with grad_safe=True")
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"fused_conv runs on cuda or cpu, not {tensors[0].device}")
 
 
 def pack(x, weight, stride=1, padding=0, groups=1, scale=None, shift=None, residual=None,
@@ -150,80 +180,160 @@ def pack(x, weight, stride=1, padding=0, groups=1, scale=None, shift=None, resid
     per-channel vectors, an NHWC residual) and its NHWC output allocated:
     what :func:`run_packed` launches on. Raises on what the kernel does not
     take."""
-    if x.dim() != 4 or weight.dim() != 4:
-        raise ValueError(f"x and weight must be 4-D, got {tuple(x.shape)}, {tuple(weight.shape)}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
-    B, cin, H, W = x.shape
+    if x.dim() != 4:
+        raise ValueError(f"x must be 4-D, got {tuple(x.shape)}")
+    return pack_input(x, pack_weights(weight, groups, scale, shift, x.device), stride, padding,
+                      residual, relu, out_dtype)
+
+
+def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
+    """The operands of one convolution that stay the same from call to call,
+    on ``device`` (default: the weight's): ``w``, the weights cast to bf16
+    and permuted to (cout, kh, kw, cin / groups), with the stem's 3 input
+    channels padded to 4 with zeros (``extra``: how many); ``scale`` and
+    ``shift`` in fp32; ``weight`` and ``groups`` as given; ``wmap``, the
+    weights' tensor map, which the first launch on the card builds. Raises
+    on what the kernel does not take."""
+    if weight.dim() != 4:
+        raise ValueError(f"weight must be 4-D, got {tuple(weight.shape)}")
+    device = weight.device if device is None else torch.device(device)
     cout, cin_g, kh, kw = weight.shape
-    if cin_g * groups != cin or cout % groups:
-        raise ValueError(f"weight {tuple(weight.shape)} does not fit {cin} channels in "
-                         f"{groups} groups")
+    if cout % groups:
+        raise ValueError(f"weight {tuple(weight.shape)} does not fit {groups} groups")
     if (cout // groups) % 4:
         raise ValueError(f"the kernel's epilogue takes 4 channels at a time: cout / groups = "
                          f"{cout // groups} must be a multiple of 4")
-    ho, wo = conv_output_hw(H, W, kh, kw, stride, padding)
-    # NHWC bf16 input and (cout, kh, kw, cin_g) bf16 weights, packed per call
-    xh = x.to(torch.bfloat16).permute(0, 2, 3, 1)
-    wp = weight.detach().to(device=x.device, dtype=torch.bfloat16).permute(0, 2, 3, 1)
-    if cin_g % 4:
-        if groups != 1:
-            raise ValueError(f"grouped convolution with {cin_g} channels a group: the "
-                             "kernel takes a multiple of 4")
-        # zero channels add exact zeros to every sum (the stem's 3 channels)
-        extra = -cin_g % 4
-        xh, wp = F.pad(xh, (0, extra)), F.pad(wp, (0, extra))
-        cin = cin_g = cin_g + extra
+    extra = -cin_g % 4
+    if extra and groups != 1:
+        raise ValueError(f"grouped convolution with {cin_g} channels a group: the "
+                         "kernel takes a multiple of 4")
+    wp = weight.detach().to(device=device, dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    if extra:   # zero channels add exact zeros to every sum (the stem's 3 channels)
+        wp = F.pad(wp, (0, extra))
 
     def per_channel(t, name):
         if t is None:
             return None
         if t.shape != (cout,):
             raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
-        return t.detach().to(device=x.device, dtype=torch.float32).contiguous()
+        return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
+    p = {"w": wp.contiguous(), "scale": per_channel(scale, "scale"),
+         "shift": per_channel(shift, "shift"), "weight": weight, "groups": groups,
+         "extra": extra, "wmap": None}
+    _check_aligned(p, ("w", "scale", "shift"))
+    return p
+
+
+def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none",
+               out_dtype=torch.bfloat16) -> dict:
+    """:func:`pack`'s dict from the input, the residual and
+    :func:`pack_weights`' operands (which must lie on x's device). An input
+    or residual in channels_last memory is read where it lies (its memory
+    is NHWC); anything else is copied to NHWC."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be 4-D, got {tuple(x.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+    B, cin, H, W = x.shape
+    cout, cin_g, kh, kw = weights["weight"].shape
+    groups = weights["groups"]
+    if cin_g * groups != cin:
+        raise ValueError(f"weight {tuple(weights['weight'].shape)} does not fit {cin} "
+                         f"channels in {groups} groups")
+    dev = x.device
+    if weights["w"].device != dev:
+        raise ValueError(f"the packed weights lie on {weights['w'].device}, x on {dev}")
+    ho, wo = conv_output_hw(H, W, kh, kw, stride, padding)
+    if weights["extra"]:   # the stem: cast and pad in one copy, the extra channels zeros
+        xh = torch.empty((B, H, W, cin + weights["extra"]), dtype=torch.bfloat16, device=dev)
+        xh[..., cin:].zero_()
+        xh[..., :cin].copy_(x.permute(0, 2, 3, 1))
+        x, cin = xh, cin + weights["extra"]
+    else:
+        if x.dtype != torch.bfloat16:
+            x = x.to(torch.bfloat16)
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            x = x.permute(0, 2, 3, 1).contiguous()
     res_kind = 0
     if residual is not None:
-        if residual.shape != (B, cout, ho, wo) or residual.device != x.device:
-            raise ValueError(f"residual must be ({B}, {cout}, {ho}, {wo}) on {x.device}, "
+        if residual.shape != (B, cout, ho, wo) or residual.device != dev:
+            raise ValueError(f"residual must be ({B}, {cout}, {ho}, {wo}) on {dev}, "
                              f"got {tuple(residual.shape)} on {residual.device}")
         if residual.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"residual must be bf16 or fp32, got {residual.dtype}")
         res_kind = 1 if residual.dtype == torch.bfloat16 else 2
-        residual = residual.detach().permute(0, 2, 3, 1).contiguous()
-    p = {"x": xh.contiguous(), "w": wp.contiguous(), "scale": per_channel(scale, "scale"),
-         "shift": per_channel(shift, "shift"), "residual": residual, "res_kind": res_kind,
+        if not residual.is_contiguous(memory_format=torch.channels_last):
+            residual = residual.permute(0, 2, 3, 1).contiguous()
+    p = {"x": x, "weights": weights, "residual": residual, "res_kind": res_kind,
          "relu": _RELU[relu],
-         "out": torch.empty((B, ho, wo, cout), dtype=out_dtype, device=x.device),
+         "out": torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev),
          "dims": (B, H, W, cin, cout, kh, kw, stride, padding, groups, ho, wo)}
-    # the kernel's 16-byte loads and stores: a view that starts mid-vector is refused
-    for name in ("x", "w", "scale", "shift", "residual"):
+    _check_aligned(p, ("x", "residual"))
+    return p
+
+
+def _check_aligned(p: dict, names) -> None:
+    """The kernel's 16-byte loads and stores: a view that starts mid-vector
+    is refused."""
+    for name in names:
         if p[name] is not None and p[name].data_ptr() % 16:
             raise ValueError(f"{name} starts at an address that is not 16-byte aligned "
                              f"(a view with a storage offset): pass a fresh tensor")
-    return p
+
+
+def kernel_path(cin: int, cout: int, kh: int, kw: int, groups: int = 1) -> str:
+    """Which of the kernel's two paths a convolution of this shape takes on
+    the card: "wgmma 128xBN" or "mma.sync" (the rule in csrc/conv.cu)."""
+    from ..kernels.build import load_library
+
+    bn = load_library().dirjax_conv_path(cin, cout, kh, kw, groups)
+    return f"wgmma 128x{bn}" if bn else "mma.sync"
 
 
 def run_packed(p: dict) -> torch.Tensor:
     """Launch the kernel on :func:`pack`'s operands; returns the output as
-    (B, Cout, Ho, Wo) in channels_last memory."""
+    (B, Cout, Ho, Wo) in channels_last memory. The first launch on a set of
+    packed weights builds their tensor map and keeps it with them."""
     global launches
-    from ..kernels.build import load_library
-
     out = p["out"]
     if out.numel() == 0:
         return out.permute(0, 3, 1, 2)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    lib = load_library()
-    with torch.cuda.device(out.device):
-        err = lib.dirjax_conv_fused(
-            ptr(p["x"]), ptr(p["w"]), ptr(p["scale"]), ptr(p["shift"]), ptr(p["residual"]),
-            p["res_kind"], p["relu"], out.data_ptr(), int(out.dtype == torch.bfloat16),
-            *p["dims"], torch.cuda.current_stream().cuda_stream)
+    fn, args = launch_args(p, out)
+    if out.device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(out.device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"conv kernel launch failed: cudaError {err}")
     launches += 1
     return out.permute(0, 3, 1, 2)
+
+
+def launch_args(p: dict, out: torch.Tensor):
+    """(the C entry point, its arguments) that write :func:`pack`'s
+    convolution into ``out`` (NHWC, like ``p["out"]``) on the current
+    stream of its device; builds the weights' tensor map on their first
+    launch."""
+    from ..kernels.build import load_library
+
+    lib = load_library()
+    weights = p["weights"]
+    if weights["wmap"] is None:
+        B, H, W, cin, cout, kh, kw, stride, padding, groups, ho, wo = p["dims"]
+        wmap = ctypes.create_string_buffer(_MAP_BYTES)
+        with torch.cuda.device(out.device):
+            err = lib.dirjax_conv_weight_map(weights["w"].data_ptr(), cin, cout, kh, kw,
+                                             groups, wmap)
+        if err != 0:
+            raise RuntimeError(f"conv weight tensor map failed: cudaError {err}")
+        weights["wmap"] = wmap.raw
+    scale, shift, residual = weights["scale"], weights["shift"], p["residual"]
+    return lib.dirjax_conv_fused, (
+        p["x"].data_ptr(), weights["w"].data_ptr(), weights["wmap"],
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        p["res_kind"], p["relu"], out.data_ptr(), out.dtype == torch.bfloat16,
+        *p["dims"], torch._C._cuda_getCurrentRawStream(out.device.index))

@@ -582,6 +582,27 @@ CONV_CASES = [
 ]
 
 
+# the wgmma path's shapes, at the layer classes of the ResNets and the FPN
+WGMMA_CASES = [
+    (2, 64, 17, 13, 64, 1, 1, 1, True, True, None, "post", "bf16"),         # 1x1, BN 64
+    (2, 256, 17, 13, 128, 1, 1, 1, True, True, None, "post", "bf16"),       # 1x1 reduce, BN 128
+    (2, 64, 17, 13, 256, 1, 1, 1, True, True, "bf16", "post", "bf16"),      # + block input
+    (2, 64, 17, 13, 256, 1, 1, 1, True, True, "fp32", "post", "bf16"),      # + downsample
+    (2, 256, 17, 13, 512, 1, 2, 1, True, True, None, "none", "fp32"),       # downsample, 1x1 s2
+    (2, 128, 17, 13, 128, 3, 1, 1, True, True, None, "post", "bf16"),       # 3x3
+    (2, 128, 17, 13, 128, 3, 2, 1, True, True, None, "post", "bf16"),       # 3x3 stride 2
+    (2, 512, 14, 10, 512, 3, 1, 1, True, True, None, "post", "bf16"),       # K = 4608
+    (2, 512, 9, 7, 2048, 1, 1, 1, True, True, "bf16", "post", "bf16"),      # cout 2048
+    (2, 1024, 9, 7, 2048, 1, 2, 1, True, True, None, "none", "fp32"),       # into stage 4
+    (2, 64, 17, 13, 64, 3, 1, 1, False, True, None, "post", "bf16"),        # folded: bias only
+    (2, 2048, 9, 7, 1024, 1, 1, 1, False, False, "bf16", "pre", "fp32"),    # FPN conv1x5
+    (2, 1024, 9, 7, 1024, 3, 1, 1, False, False, None, "post", "fp32"),     # FPN conv3c4
+    (32, 512, 7, 7, 512, 3, 1, 1, True, True, None, "post", "bf16"),        # 1,568 pixels
+    (32, 512, 7, 7, 2048, 1, 1, 1, True, True, "bf16", "post", "bf16"),     # the same, 1x1
+    (3, 128, 11, 9, 192, 3, 2, 1, True, True, "fp32", "pre", "bf16"),       # three 64-wide tiles
+]
+
+
 def _conv_inputs(rng, device, B, cin, H, W, cout, k, stride, groups, has_scale, has_shift, res):
     x = torch.from_numpy(rng.normal(size=(B, cin, H, W)).astype(np.float32)).to(device)
     x = x.bfloat16().contiguous(memory_format=torch.channels_last)
@@ -624,6 +645,52 @@ class TestConvKernel:
         assert agree["over"] == 0.0, agree
         if out == "bf16":
             assert agree["apart"] <= 1e-3, agree
+
+    @pytest.mark.parametrize("case", WGMMA_CASES)
+    def test_wgmma_path_matches_reference(self, rng, cuda, case):
+        """The wgmma path (every groups-1 shape with cin and cout multiples of
+        64): 1x1 stride 1 (a 2-D TMA box) and 2, 3x3 stride 1 and 2 (TMA's
+        im2col mode), tile widths 64, 128 and 256, cout 64 to 2048, K to
+        4608, both residuals and ReLU placements, bias only, fp32 outputs,
+        and the recall study's ragged 1,568-pixel tile, within
+        agreement()'s bounds of the plain version."""
+        self._check(rng, cuda, case, "wgmma")
+
+    @pytest.mark.parametrize("case", [CONV_CASES[i] for i in (0, 10, 11, 12, 13, 14)])
+    def test_mma_sync_path_keeps_the_rest(self, rng, cuda, case):
+        """The stem (3 channels padded to 4), ResNeXt's grouped 3x3 and
+        channels not multiples of 64 stay on the mma.sync path, within the
+        same bounds."""
+        self._check(rng, cuda, case, "mma.sync")
+
+    def _check(self, rng, cuda, case, path):
+        torch.backends.cudnn.allow_tf32 = False
+        B, cin, H, W, cout, k, stride, groups, sc, sh, res, relu, out = case
+        assert conv.kernel_path(cin, cout, k, k, groups).startswith(path)
+        x, w, scale, shift, r = _conv_inputs(rng, cuda, B, cin, H, W, cout, k, stride, groups,
+                                             sc, sh, res)
+        out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+        args = (x, w, stride, k // 2, groups, scale, shift, r, relu, out_dtype)
+        with torch.no_grad():
+            got = conv.fused_conv(*args)
+            packed = conv.pack_weights(w, groups, scale, shift)
+            again = conv.fused_conv_packed(x, packed, stride, k // 2, r, relu, out_dtype)
+            assert packed["wmap"] is not None
+            assert torch.equal(got, again)
+            assert torch.equal(got, conv.fused_conv_packed(x, packed, stride, k // 2, r, relu,
+                                                           out_dtype))
+        want = conv.conv_reference(*args)
+        assert got.shape == want.shape and got.dtype == out_dtype
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        agree = conv.agreement(got, want, conv.reference_magnitude(x, w, stride, k // 2,
+                                                                   groups, scale))
+        assert agree["over"] == 0.0, agree
+        if out == "bf16":
+            # the share one bf16 rounding apart from cuDNN's fp32 sums grows
+            # with K: at K = 4608 both paths read 1.0e-3-1.3e-3 on these
+            # inputs (the wgmma and mma.sync sums came out bit for bit equal
+            # there), so K above 2304 is held to chip_smoke.py's bound
+            assert agree["apart"] <= (1e-3 if cin // groups * k * k <= 2304 else 2e-3), agree
 
     def test_refuses_a_gradient(self, rng, cuda):
         x, w, scale, shift, _ = _conv_inputs(rng, cuda, 1, 64, 5, 5, 64, 3, 1, 1, True, True,
