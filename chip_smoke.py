@@ -99,10 +99,12 @@ Phases, each of which raises on failure:
    maximum SM clock.
 7. concurrent launches — K6 (resident tables: m 8 and 64 at ksub 16;
    streamed: ksub 256 and 100 at m 32), the ADC rescore (m 64, ksub 256,
-   kf 100, nq 1 and 256) and K1 (C 1024 and 2048 at the main-path shape),
-   each from 8 host threads at once, 50 launches a thread alternating the
-   two shapes, whose dynamic shared memory differs, on 1,048,576 rows;
-   every launch must succeed and every answer equal the plain version.
+   kf 100, nq 1 and 256), K1 (C 1024 and 2048 at the main-path shape) and
+   the fused conv (its wgmma and mma.sync paths), each from 8 host threads
+   at once, 50 launches a thread alternating the two shapes, whose dynamic
+   shared memory differs, on 1,048,576 rows; every launch must succeed and
+   every answer equal the plain version (the conv: its own single-thread
+   answer, itself within its bounds of the plain version).
 8. serving — RetrievalIndex in bf16 and in int8 over the same rows, a
    BinaryIndex (asymmetric) over their 2048-bit codes, a PQIndex (m = 32,
    ksub 16, int8 rerank) and the IVFPQIndex (nprobe 8), each behind the
@@ -549,14 +551,14 @@ def conv_shape_row(key: tuple, entry: dict, totals: dict, classes: dict) -> dict
     a = entry["args"]
     args = {k: a[k] for k in CONV_ARGS}
     agree = check_conv(a)
-    cout, cin_g, kh, kw = a["weight"].shape
+    cout, cin_g = a["weight"].shape[:2]
     shape = {"arch": entry["arch"], "x": list(key[0]), "x_dtype": key[1],
              "weight": list(key[2]), "stride": key[3], "padding": key[4],
              "groups": key[5], "epilogue": {"scale": key[6], "shift": key[7],
                                             "residual": key[8], "relu": key[9],
                                             "out": key[10]},
              "class": conv_class(a),
-             "path": conv.kernel_path(cin_g * a["groups"], cout, kh, kw, a["groups"]),
+             "path": conv.kernel_path(cin_g * a["groups"], cout, a["groups"]),
              "count": entry["count"], **agree, **conv_bound(a)}
     r101 = entry["arch"] == "resnet101_rmac"
     if r101 or (shape["class"] == "grouped 3x3" and entry["arch"].startswith("resnext")):
@@ -2324,15 +2326,16 @@ RACE_NQ, RACE_KF = 32, 100    # K6's queries a launch (one group on the lanes); 
 
 def concurrent_phase(device) -> None:
     """Each shape-dependent case of ``dirjax_torch.kernels.concurrency`` at
-    serving size (SERVE_N rows; K1 at MAIN_SHAPE's batch and map) from
-    RACE_THREADS host threads at once, RACE_LAUNCHES launches a thread
-    alternating the two shapes: every launch must succeed and every answer
-    equal its plain version (K6 and the rescore exactly, K1 within rtol 2e-4
-    / atol 2e-5)."""
+    serving size (SERVE_N rows; K1 at MAIN_SHAPE's batch and map; the conv
+    at the harness's own shapes) from RACE_THREADS host threads at once,
+    RACE_LAUNCHES launches a thread alternating the two shapes: every launch
+    must succeed and every answer equal its plain version (K6 and the
+    rescore exactly, K1 within rtol 2e-4 / atol 2e-5, the conv bit for bit
+    its own single-thread answer)."""
     from dirjax_torch.kernels import concurrency
 
     t0 = time.perf_counter()
-    for case in ("k6_resident", "k6_streamed", "rescore", "k1_project"):
+    for case in ("k6_resident", "k6_streamed", "rescore", "k1_project", "conv"):
         launches = concurrency.alternation(case, device, n=SERVE_N, nq=RACE_NQ,
                                            rescore_nq=SERVE_NQ, kf=RACE_KF,
                                            head=MAIN_SHAPE[:3], d=MAIN_D, seed=6)

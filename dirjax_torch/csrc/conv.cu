@@ -83,7 +83,7 @@
 //   - The epilogue stages the fp32 accumulators in shared memory (the ring's
 //     space), then the same 4-channel epilogue as the wgmma path.
 
-#include <cuda.h>   // CUtensorMap and its encoders' types; nothing is linked from the driver
+#include <cuda.h>   // CUtensorMap and its encoders' types only: nothing more is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -647,8 +647,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// The driver's tensor-map encoders, reached through the runtime (so that the
-// library links nothing beyond it) once per process.
+// The tensor-map encoders, looked up through the runtime's
+// cudaGetDriverEntryPoint once per process (so that the library links
+// nothing new).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -664,7 +665,7 @@ struct Encoders {
   EncodeIm2col im2col = nullptr;
 };
 
-void* driver_entry(const char* name) {
+void* entry_point(const char* name) {
   void* fn = nullptr;
   cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -678,8 +679,8 @@ void* driver_entry(const char* name) {
 const Encoders& encoders() {
   static const Encoders e = [] {
     Encoders r;
-    r.tiled = reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
-    r.im2col = reinterpret_cast<EncodeIm2col>(driver_entry("cuTensorMapEncodeIm2col"));
+    r.tiled = reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+    r.im2col = reinterpret_cast<EncodeIm2col>(entry_point("cuTensorMapEncodeIm2col"));
     return r;
   }();
   return e;
@@ -801,9 +802,7 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& wmap, const Args&
 
 // The wgmma path's tile width for this shape (256, 128 or 64), 0 where the
 // mma.sync path takes it: the rule dirjax_conv_fused follows.
-extern "C" int dirjax_conv_path(int cin, int cout, int kh, int kw, int groups) {
-  (void)kh;
-  (void)kw;
+extern "C" int dirjax_conv_path(int cin, int cout, int groups) {
   return wg::tile_width(cin, cout, groups);
 }
 

@@ -143,8 +143,8 @@ def load_library() -> ctypes.CDLL:
                               i, i, i, i, i, i, i, vp],
         # w, cin, cout, kh, kw, groups, map (128 bytes, filled)
         "dirjax_conv_weight_map": [vp, i, i, i, i, i, ctypes.c_char_p],
-        # cin, cout, kh, kw, groups -> the wgmma tile width, 0 for mma.sync
-        "dirjax_conv_path": [i, i, i, i, i],
+        # cin, cout, groups -> the wgmma tile width, 0 for mma.sync
+        "dirjax_conv_path": [i, i, i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

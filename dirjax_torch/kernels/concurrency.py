@@ -4,8 +4,8 @@ Each case alternates two launches of one kernel that need different dynamic
 shared memory: K6 resident (m 8 / 64 at ksub 16) and streamed (ksub 256 /
 100 at m 32), the ADC rescore (nq 1 / ``rescore_nq`` at m 64, ksub 256),
 K1's projection (C 1024 / 2048) and the fused conv (a 3x3 256-channel
-convolution on the wgmma path, 218,176 bytes, and ResNeXt's grouped one on
-the mma.sync path, 81,920); K3, whose size is a constant of its
+convolution on the wgmma path, 201,808 bytes, and a grouped one of 8
+channels a group on the mma.sync path, 46,080); K3, whose size is a constant of its
 instantiation, is the control. The threads call the C entry points with
 arguments made beforehand, so they meet inside the launchers, where the
 shared-memory opt-in is set: a launcher that set the kernel's process-wide
@@ -122,7 +122,7 @@ def alternation(case: str, device, *, n: int = 4096, nq: int = 64, rescore_nq: i
             def prep(packed=packed):
                 out = torch.empty_like(packed["out"])
                 return conv.launch_args(packed, out)[1], out
-            launches.append(Launch(f"{conv.kernel_path(cin, 256, 3, 3, groups)} groups={groups}",
+            launches.append(Launch(f"{conv.kernel_path(cin, 256, groups)} groups={groups}",
                                    lib.dirjax_conv_fused, prep, want.permute(0, 2, 3, 1),
                                    0.0, 0.0))
     elif case == "k3":

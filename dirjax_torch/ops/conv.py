@@ -43,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fused_conv", "fused_conv_packed", "conv_reference", "conv_output_hw", "pack",
-           "pack_weights", "pack_input", "run_packed", "launch_args", "kernel_path", "reference_magnitude",
-           "agreement", "SUM_ORDER_RTOL", "launches"]
+           "pack_weights", "pack_input", "run_packed", "launch_args", "kernel_path",
+           "reference_magnitude", "agreement", "SUM_ORDER_RTOL", "launches"]
 
 #: launches of the CUDA kernel in this process (reset it to count a run)
 launches = 0
@@ -180,8 +180,6 @@ def pack(x, weight, stride=1, padding=0, groups=1, scale=None, shift=None, resid
     per-channel vectors, an NHWC residual) and its NHWC output allocated:
     what :func:`run_packed` launches on. Raises on what the kernel does not
     take."""
-    if x.dim() != 4:
-        raise ValueError(f"x must be 4-D, got {tuple(x.shape)}")
     return pack_input(x, pack_weights(weight, groups, scale, shift, x.device), stride, padding,
                       residual, relu, out_dtype)
 
@@ -282,12 +280,12 @@ def _check_aligned(p: dict, names) -> None:
                              f"(a view with a storage offset): pass a fresh tensor")
 
 
-def kernel_path(cin: int, cout: int, kh: int, kw: int, groups: int = 1) -> str:
-    """Which of the kernel's two paths a convolution of this shape takes on
-    the card: "wgmma 128xBN" or "mma.sync" (the rule in csrc/conv.cu)."""
+def kernel_path(cin: int, cout: int, groups: int = 1) -> str:
+    """Which of the kernel's two paths a convolution of these channels takes
+    on the card: "wgmma 128xBN" or "mma.sync" (the rule in csrc/conv.cu)."""
     from ..kernels.build import load_library
 
-    bn = load_library().dirjax_conv_path(cin, cout, kh, kw, groups)
+    bn = load_library().dirjax_conv_path(cin, cout, groups)
     return f"wgmma 128x{bn}" if bn else "mma.sync"
 
 

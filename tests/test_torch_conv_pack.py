@@ -62,7 +62,7 @@ def _pairs(block):
 
 
 def _fresh(conv, bn, device="cpu"):
-    """The per-call packing of PR 14's wrapper: the affine, then pack_weights."""
+    """The per-call packing of ``fused_conv``: the affine, then pack_weights."""
     with torch.no_grad():
         scale, shift = (None, conv.bias) if bn is None else bn.affine()
         return tconv.pack_weights(conv.weight, conv.groups, scale, shift, device)

@@ -552,10 +552,13 @@ class TestConcurrentLaunches:
     (``dirjax_torch.kernels.concurrency``): K6 resident m 8 / 64 at ksub 16,
     57,472 / 172,160 bytes; K6 streamed ksub 256 / 100 at m 32, 172,288 /
     147,712; the rescore at m 64, ksub 256, kf 300, nq 1 / 256, 65,680 /
-    66,016; K1's projection C 1024 / 2048, 32,768 / 65,536; K3, a constant
-    of its instantiation, the control. No launch may fail, and each result
-    is its plain version's (K6 and the rescore exactly, K1 within rtol 2e-4
-    / atol 2e-5, K3 within 1e-5)."""
+    66,016; K1's projection C 1024 / 2048, 32,768 / 65,536; the fused conv,
+    wgmma 3x3 256-channel / mma.sync grouped, 201,808 / 46,080; K3, a
+    constant of its instantiation, the control. No launch may fail, and each
+    result is its plain version's (K6 and the rescore exactly, K1 within
+    rtol 2e-4 / atol 2e-5, K3 within 1e-5; the conv bit for bit its own
+    single-thread answer, which is within agreement()'s bounds of its plain
+    version)."""
 
     @pytest.mark.parametrize("case", concurrency.CASES)
     def test_threads_with_other_shared_memory(self, cuda, case):
@@ -666,7 +669,7 @@ class TestConvKernel:
     def _check(self, rng, cuda, case, path):
         torch.backends.cudnn.allow_tf32 = False
         B, cin, H, W, cout, k, stride, groups, sc, sh, res, relu, out = case
-        assert conv.kernel_path(cin, cout, k, k, groups).startswith(path)
+        assert conv.kernel_path(cin, cout, groups).startswith(path)
         x, w, scale, shift, r = _conv_inputs(rng, cuda, B, cin, H, W, cout, k, stride, groups,
                                              sc, sh, res)
         out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
@@ -687,9 +690,10 @@ class TestConvKernel:
         assert agree["over"] == 0.0, agree
         if out == "bf16":
             # the share one bf16 rounding apart from cuDNN's fp32 sums grows
-            # with K: at K = 4608 both paths read 1.0e-3-1.3e-3 on these
-            # inputs (the wgmma and mma.sync sums came out bit for bit equal
-            # there), so K above 2304 is held to chip_smoke.py's bound
+            # with K: the K = 4608 cases read 1.1e-3-1.3e-3, and over
+            # chip_smoke.py's 106 shapes the mma.sync kernel and the wgmma
+            # one read the same largest share; K above 2304 is held to
+            # chip_smoke.py's bound
             assert agree["apart"] <= (1e-3 if cin // groups * k * k <= 2304 else 2e-3), agree
 
     def test_refuses_a_gradient(self, rng, cuda):
