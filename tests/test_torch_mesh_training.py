@@ -4,9 +4,10 @@ checkpoints, ``TrainCheckpointer`` (dirjax's ``orbax_ckpt`` API on
 ``torch.distributed.checkpoint``) and the train CLI's ``--mesh`` and
 ``--ckpt-format``.
 
-Multi-rank runs are one world of 4 gloo ranks (``test_torch_dist_worker``)
-and two ``torch.distributed.run`` launches of the CLI; dirjax runs on
-conftest's virtual devices. Weights cross from the port's seeded init to
+Multi-rank runs are three worlds of 4 gloo ranks (``test_torch_dist_worker``:
+the sharded step, the mesh fits, the checkpoint runs) and two
+``torch.distributed.run`` launches of the CLI; dirjax runs on conftest's
+virtual devices. Weights cross from the port's seeded init to
 dirjax through ``jax_params_from_state_dict``. Tolerances, dirjax's mesh
 bounds (``tests/test_mesh_training.py``): one sharded SGD step's loss within
 1e-5 and every parameter within rtol 2e-4 / atol 2e-5; ``fit``'s per-epoch
@@ -91,7 +92,9 @@ def labeled(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory, labeled):
+def inputs(tmp_path_factory):
+    """The worlds' arrays (the step's and the fit's seeded weights, the
+    step's batch) and the directory their runs write checkpoints to."""
     rng = np.random.default_rng(0)
     _, step_sd = _seeded("resnet18_rmac", 64, seed=1)
     _, fit_sd = _seeded("resnet18_rmac", 32, seed=2)
@@ -99,17 +102,49 @@ def world(tmp_path_factory, labeled):
            **{f"start/{k}": v for k, v in fit_sd.items()},
            "images": rng.normal(size=(8, 64, 64, 3)).astype(np.float32),
            "labels": np.array([0, 0, 1, 1, 2, 2, 3, 3])}
-    runs = tmp_path_factory.mktemp("runs")
-    step_kw = {"mesh": [2, 2], "model": "step", "images": "images", "labels": "labels"}
+    return inp, tmp_path_factory.mktemp("runs")
+
+
+def _world(tmp_path_factory, inp, cases: dict) -> dict:
+    """One world of WORLD ranks on ``cases`` (name -> (case, kwargs)), run
+    in order; each case's outputs by name."""
+    names = list(cases)
+    outs = run_world(str(tmp_path_factory.mktemp("world")), WORLD,
+                     [list(cases[n]) for n in names], inp)
+    return dict(zip(names, outs))
+
+
+# Three worlds, each well inside run_world's TIMEOUT under a loaded CPU: the
+# sharded step, the mesh fits, and the checkpoint runs (whose resumes read
+# what the cases before them wrote, so they share one world).
+_STEP_KW = {"mesh": [2, 2], "model": "step", "images": "images", "labels": "labels"}
+
+
+@pytest.fixture(scope="module")
+def step_world(tmp_path_factory, inputs):
+    return _world(tmp_path_factory, inputs[0], {
+        "step": ("train_step", {**_STEP_KW, "cfg": STEP}),
+        "step_mb": ("train_step", {**_STEP_KW, "cfg": dict(STEP, microbatch=4)}),
+        "per_rank": ("per_rank_loss", {**_STEP_KW, "cfg": STEP})})
+
+
+@pytest.fixture(scope="module")
+def fit_world(tmp_path_factory, inputs, labeled):
     fit_kw = {"cfg": dict(FIT, epochs=1), "root": labeled}
-    resumed = dict(FIT, epochs=3)
-    cases = {
-        "step": ("train_step", {**step_kw, "cfg": STEP}),
-        "step_mb": ("train_step", {**step_kw, "cfg": dict(STEP, microbatch=4)}),
-        "per_rank": ("per_rank_loss", {**step_kw, "cfg": STEP}),
+    return _world(tmp_path_factory, inputs[0], {
         "fit": ("fit", {**fit_kw, "mesh": [2, 2], "steps": 2}),
         "fit_mb": ("fit", {**fit_kw, "mesh": [2, 2], "steps": 1,
                            "cfg": dict(FIT, epochs=1, microbatch=4)}),
+        "divisible": ("fit", {**fit_kw, "mesh": [WORLD, 1], "steps": 1,
+                              "cfg": dict(FIT, epochs=1, batch_size=6)})})
+
+
+@pytest.fixture(scope="module")
+def ckpt_world(tmp_path_factory, inputs, labeled):
+    inp, runs = inputs
+    fit_kw = {"cfg": dict(FIT, epochs=1), "root": labeled}
+    resumed = dict(FIT, epochs=3)
+    return _world(tmp_path_factory, inp, {
         "npz_1": ("fit", {**fit_kw, "mesh": [2, 2], "steps": 1, "out_dir": str(runs / "npz")}),
         "npz_3": ("fit", {**fit_kw, "mesh": [WORLD, 1], "steps": 1, "cfg": resumed,
                           "out_dir": str(runs / "npz"),
@@ -119,22 +154,15 @@ def world(tmp_path_factory, labeled):
         "dcp_3": ("fit", {**fit_kw, "mesh": [2, 2], "steps": 1, "cfg": resumed,
                           "out_dir": str(runs / "dcp"), "ckpt_format": "orbax",
                           "resume": str(runs / "dcp" / "orbax")}),
-        "divisible": ("fit", {**fit_kw, "mesh": [WORLD, 1], "steps": 1,
-                              "cfg": dict(FIT, epochs=1, batch_size=6)}),
-        "dist_ckpt": ("dist_ckpt", {"mesh": [2, 2], "directory": str(runs / "sharded")}),
-    }
-    names = list(cases)
-    outs = run_world(str(tmp_path_factory.mktemp("world")), WORLD,
-                     [list(cases[n]) for n in names], inp)
-    return inp, dict(zip(names, outs)), runs
+        "dist_ckpt": ("dist_ckpt", {"mesh": [2, 2], "directory": str(runs / "sharded")})})
 
 
 @pytest.mark.parametrize("microbatch", [0, 4], ids=["whole", "two_pass"])
-def test_sharded_step_matches_dirjax(world, microbatch):
+def test_sharded_step_matches_dirjax(inputs, step_world, microbatch):
     """One SGD step at (data 2, db 2) against dirjax's make_sharded_train_step
     on make_mesh(2, 2): loss within 1e-5, parameters within rtol 2e-4 /
     atol 2e-5; the FC gathered back is whole."""
-    inp, outs, _ = world
+    inp, outs = inputs[0], step_world
     cfg = JT.TrainConfig(**STEP, microbatch=microbatch)
     jmodel = jcreate("resnet18_rmac", out_dim=64)
     params = _jax_params({k[5:]: v for k, v in inp.items() if k.startswith("step/")},
@@ -151,21 +179,21 @@ def test_sharded_step_matches_dirjax(world, microbatch):
     _same_params(_sd(got), new, "resnet18_rmac", 64)
 
 
-def test_global_loss_is_not_a_per_rank_loss(world):
+def test_global_loss_is_not_a_per_rank_loss(step_world):
     """What is held: the listwise loss over the global batch. Each rank's
     loss over its own rows, averaged as a data-parallel wrapper takes it,
     is another number on the same batch."""
-    _, outs, _ = world
+    outs = step_world
     got = outs["per_rank"]
     assert abs(float(got["global"][0]) - float(outs["step"]["loss"][0])) <= 1e-6
     assert abs(float(got["per_rank_mean"][0]) - float(got["global"][0])) > 1e-3
 
 
 @pytest.fixture(scope="module")
-def jfits(labeled, world):
+def jfits(labeled, inputs):
     """dirjax's fit from the same weights, whole-batch (2 steps) and two-pass
     (1 step)."""
-    inp = world[0]
+    inp = inputs[0]
     params = _jax_params({k[6:]: v for k, v in inp.items() if k.startswith("start/")},
                          "resnet18_rmac", 32)
     data = JD.ImageListLabels(f"{labeled}/train.txt", root=labeled)
@@ -176,10 +204,10 @@ def jfits(labeled, world):
 
 
 @pytest.mark.parametrize("name", ["fit", "fit_mb"])
-def test_mesh_fit_matches_dirjax(world, jfits, name):
+def test_mesh_fit_matches_dirjax(fit_world, jfits, name):
     """test_mesh_training.py: the mesh fit's loss and final weights against
     dirjax's fit (whole-batch and two-pass)."""
-    _, outs, _ = world
+    outs = fit_world
     _, params, hist = jfits[name == "fit_mb"]
     got = outs[name]
     assert got["epochs"].tolist() == [0]
@@ -187,11 +215,11 @@ def test_mesh_fit_matches_dirjax(world, jfits, name):
     _same_params(_sd(got), params, "resnet18_rmac", 32)
 
 
-def test_mesh_fit_checkpoints_and_resume(world):
+def test_mesh_fit_checkpoints_and_resume(inputs, ckpt_world):
     """npz written by rank 0 with the whole FC, resumed on a (4, 1) mesh;
     a sharded checkpoint directory resumed on (2, 2): both run epochs 1 and
     2 and end with the same weights; the directory keeps the newest 2 steps."""
-    _, outs, runs = world
+    outs, runs = ckpt_world, inputs[1]
     assert os.path.exists(runs / "npz" / "checkpoint.npz")
     assert outs["npz_3"]["epochs"].tolist() == outs["dcp_3"]["epochs"].tolist() == [1, 2]
     np.testing.assert_allclose(outs["npz_1"]["losses"], outs["dcp_1"]["losses"], rtol=1e-6)
@@ -202,24 +230,24 @@ def test_mesh_fit_checkpoints_and_resume(world):
         assert ck.read_extra()["epoch"] == 2
 
 
-def test_mesh_batch_divisibility_asserted(world):
-    assert "data axis" in str(world[1]["divisible"]["error"])
+def test_mesh_batch_divisibility_asserted(fit_world):
+    assert "data axis" in str(fit_world["divisible"]["error"])
 
 
-def test_sharded_checkpoint_restores_onto_shards(world):
+def test_sharded_checkpoint_restores_onto_shards(ckpt_world):
     """A DTensor sharded over "db" restores only this rank's rows, and into
     a plain tensor as the whole array."""
-    out = world[1]["dist_ckpt"]
+    out = ckpt_world["dist_ckpt"]
     assert out["local_ok"].tolist() == [True]
     np.testing.assert_array_equal(out["whole"], np.arange(64.0).reshape(8, 8))
     assert out["step"].tolist() == [7] and out["epoch"].tolist() == [0]
     assert out["steps"].tolist() == [0]
 
 
-def test_resume_a_mesh_checkpoint_on_one_device(world, labeled, tmp_path):
+def test_resume_a_mesh_checkpoint_on_one_device(inputs, ckpt_world, labeled, tmp_path):
     """The sharded steps a (2, 2) mesh wrote resume in a single-process fit
     (the FC rows land in one tensor), at the mesh run's weights."""
-    _, outs, runs = world
+    outs, runs = ckpt_world, inputs[1]
     import shutil
 
     ckdir = str(tmp_path / "orbax")
