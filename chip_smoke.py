@@ -28,18 +28,24 @@ Phases, each of which raises on failure:
    over K) plus, for a bf16 output, one bf16 ulp, and at most 2e-3 of a
    bf16 output's elements not equal (9.0e-4 measured at K = 4608); the
    largest fp32-output difference over its magnitude is printed, and the
-   path each shape took (the wgmma kernel or the mma.sync one, by the
-   shape). Each affine R101 batch-8 shape (and ResNeXt's grouped ones)
-   timed (CUDA events): the kernel on packed operands, its wrapper as the
-   backbone calls it on its cached operands (in turns with the kernel),
-   the plain version, cuDNN's bf16 conv2d of the same shape (the
-   convolution alone: no PyTorch call computes it with the fp32 epilogue),
-   beside its bound, summed by layer class (3x3 256-channel, 1x1 with the
-   residual, 1x1 reduce, downsample, stem, grouped); then the R101 bf16
-   backbone, BN-affine and folded, against today's route (cuDNN bf16
-   convolutions and the eager fp32 chain, grad_safe) on the same weights,
-   in turns, its device launches (a torch.profiler trace), and the whole
-   bf16 extractor forward.
+   path each shape took (by the shape: wgmma, wgmma over a grouped conv's
+   64-channel spans, the stem kernel, or mma.sync; every grouped and stem
+   shape must take its own). Each affine R101 batch-8 shape (and ResNeXt's
+   grouped ones) timed (CUDA events): the kernel on packed operands, its
+   wrapper as the backbone calls it on its cached operands (in turns with
+   the kernel), the plain version, cuDNN's bf16 conv2d of the same shape
+   (the convolution alone: no PyTorch call computes it with the fp32
+   epilogue), beside its bound, summed by layer class (3x3 256-channel,
+   1x1 with the residual, 1x1 reduce, downsample, stem, grouped; the
+   grouped class both one shape of each and weighted by its count in a
+   ResNeXt forward); then the R101 bf16 backbone, BN-affine and folded,
+   against today's route (cuDNN bf16 convolutions and the eager fp32 chain,
+   grad_safe) on the same weights, in turns, each backbone's device
+   launches (a torch.profiler trace), and the whole bf16 extractor forward.
+   ``--conv-only`` runs the build and this phase alone, and ``--tree DIR``
+   runs them on the dirjax_torch of DIR (a ``git archive`` of another
+   commit): one process a tree, parent / this / this / parent, times two
+   trees' kernels in turns on one card.
 4. top-k kernels — K2-K4 (csrc/topk.cu) against their plain versions at the
    serving shape: 1,048,576 seeded random unit rows of 2048 (fp32, bf16,
    int8 with per-row scales), nq = 256, 37, 1, 16, 24 and 100 (every query
@@ -484,15 +490,18 @@ def conv_key(a: dict) -> tuple:
 
 
 def conv_bound(a: dict) -> dict:
-    """bytes: the packed input and weights, the per-channel vectors and the
-    residual read once, the output written once; operations: 2 * M * cout *
-    kh * kw * cin / groups, bf16 on the tensor cores."""
+    """bytes: the input (bf16, or fp32 where the stem path reads it so) and
+    the weights, the per-channel vectors and the residual read once, the
+    output written once; operations: 2 * M * cout * kh * kw * cin / groups,
+    bf16 on the tensor cores."""
     B, cin, H, W = a["x"].shape
     cout, cin_g, kh, kw = a["weight"].shape
     ho = (H + 2 * a["padding"] - kh) // a["stride"] + 1
     wo = (W + 2 * a["padding"] - kw) // a["stride"] + 1
     out_bytes = 2 if a["out_dtype"] == torch.bfloat16 else 4
-    nbytes = (B * H * W * cin * 2 + cout * kh * kw * cin_g * 2 + B * ho * wo * cout * out_bytes
+    x_bytes = 4 if a["x"].dtype == torch.float32 and conv_class(a) == "stem" else 2
+    nbytes = (B * H * W * cin * x_bytes + cout * kh * kw * cin_g * 2
+              + B * ho * wo * cout * out_bytes
               + 4 * cout * ((a["scale"] is not None) + (a["shift"] is not None)))
     if a["residual"] is not None:
         nbytes += a["residual"].numel() * a["residual"].element_size()
@@ -518,6 +527,23 @@ def check_conv(a: dict) -> dict:
         raise AssertionError(f"fused conv {conv_key(a)} disagrees with its plain version: "
                              f"{agree}")
     return agree
+
+
+def conv_kernel_path(a: dict) -> str:
+    """The path the kernel takes for a recorded call (``kernel_path`` of the
+    tree under test; a tree from before the stem and span paths names its
+    path by the channels alone)."""
+    from dirjax_torch.ops import conv
+
+    cout, cin_g, kh, kw = a["weight"].shape
+    cin = cin_g * a["groups"]
+    if not hasattr(conv, "conv_path"):
+        return conv.kernel_path(cin, cout, a["groups"])
+    path = conv.kernel_path(cin, cout, a["groups"], kh, kw, a["stride"])
+    if path != conv.conv_path(cin, cout, a["groups"], kh, kw, a["stride"]):
+        raise AssertionError(f"fused conv {conv_key(a)}: the library takes {path}, the "
+                             "wrapper packs for another path")
+    return path
 
 
 def conv_class(a: dict) -> str:
@@ -557,8 +583,7 @@ def conv_shape_row(key: tuple, entry: dict, totals: dict, classes: dict) -> dict
              "groups": key[5], "epilogue": {"scale": key[6], "shift": key[7],
                                             "residual": key[8], "relu": key[9],
                                             "out": key[10]},
-             "class": conv_class(a),
-             "path": conv.kernel_path(cin_g * a["groups"], cout, a["groups"]),
+             "class": conv_class(a), "path": conv_kernel_path(a),
              "count": entry["count"], **agree, **conv_bound(a)}
     r101 = entry["arch"] == "resnet101_rmac"
     if r101 or (shape["class"] == "grouped 3x3" and entry["arch"].startswith("resnext")):
@@ -581,8 +606,12 @@ def conv_shape_row(key: tuple, entry: dict, totals: dict, classes: dict) -> dict
         row = classes.setdefault(shape["class"], defaultdict(float))
         row["count"] += n
         row["path"] = shape["path"]
-        for k in ("ms", "library_ms", "bound_ms"):
+        for k in ("ms", "wrapper_ms", "library_ms", "bound_ms"):
             row[k] += n * shape[k]
+            if not r101:   # ResNeXt's grouped shapes: also weighted by their count a forward
+                row[f"forward_{k}"] += entry["count"] * shape[k]
+        if not r101:
+            row["forward_count"] += entry["count"]
         if r101:
             for k in ("ms", "plain_ms", "wrapper_ms", "library_ms", "bytes", "ops"):
                 totals[k] += entry["count"] * shape[k]
@@ -677,8 +706,18 @@ def fused_conv_phase(device) -> dict:
     for name, c in sorted(classes.items()):
         print(f"fused conv class {name} ({c['path']}), {int(c['count'])} convs "
               f"{'of one R101 forward' if name != 'grouped 3x3' else 'of ResNeXt (one each)'}: "
-              f"kernel {c['ms']:.3f} ms, cuDNN {c['library_ms']:.3f}, bounds summed "
-              f"{c['bound_ms']:.3f}")
+              f"kernel {c['ms']:.4f} ms (wrapper {c['wrapper_ms']:.4f}), cuDNN "
+              f"{c['library_ms']:.4f}, bounds summed {c['bound_ms']:.4f}")
+        if "forward_count" in c:
+            print(f"fused conv class {name}, its {int(c['forward_count'])} convs of one "
+                  f"ResNeXt forward (each shape times its count): kernel {c['forward_ms']:.4f}"
+                  f" ms (wrapper {c['forward_wrapper_ms']:.4f}), cuDNN "
+                  f"{c['forward_library_ms']:.4f}, bounds summed {c['forward_bound_ms']:.4f}")
+    wrong = sorted({(s["class"], s["path"]) for s in per_shape
+                    if (s["class"] == "grouped 3x3") != s["path"].endswith("grouped")
+                    or (s["class"] == "stem") != s["path"].startswith("stem")})
+    if hasattr(conv, "conv_path") and wrong:
+        raise AssertionError(f"fused conv: a grouped or stem shape off its path: {wrong}")
     r101 = bound(totals["bytes"], totals["ops"], "bf16")
     print(f"fused conv, the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward "
           f"(batch 8, 1024x768): kernel {totals['ms']:.3f} ms (wrapper {totals['wrapper_ms']:.3f}),"
@@ -702,17 +741,23 @@ def fused_conv_phase(device) -> dict:
                 lambda: m.features(x, torch.bfloat16, grad_safe=True),
                 lambda: m.features(x, torch.bfloat16), iters=10)
             forward[f"{kind}_ms"], forward[f"{kind}_cudnn_chain_ms"] = ms, old_ms
+        backbones = {"resnet101_rmac": model, "resnet101_rmac folded": folded,
+                     "resnext101_32x4d_rmac": models["resnext101_32x4d_rmac"][0]}
+        forward["device_launches"] = {}
+        for label, m in backbones.items():
             names = cuda_kernels_of(lambda: m.features(x, torch.bfloat16))
-            forward[f"{kind}_device_launches"] = None if names is None else len(names)
+            forward["device_launches"][label] = None if names is None else len(names)
+        forward["resnext101_32x4d_rmac_ms"] = _time_ms(
+            lambda: backbones["resnext101_32x4d_rmac"].features(x, torch.bfloat16), iters=10)
         forward["extractor_ms"] = _time_ms(lambda: ex(images), iters=10)
     conv.launches = saved
     print(f"fused conv: resnet101_rmac bf16 backbone, batch 8 at 1024x768 (CUDA events, in "
           f"turns): BN-affine {forward['affine_ms']:.2f} ms against today's cuDNN + fp32 "
           f"chain {forward['affine_cudnn_chain_ms']:.2f} ms; folded {forward['folded_ms']:.2f}"
           f" against {forward['folded_cudnn_chain_ms']:.2f} ms; the whole bf16 extractor "
-          f"forward (K1 included) {forward['extractor_ms']:.2f} ms; device launches a "
-          f"backbone forward (torch.profiler) {forward['affine_device_launches']} affine, "
-          f"{forward['folded_device_launches']} folded")
+          f"forward (K1 included) {forward['extractor_ms']:.2f} ms; resnext101_32x4d_rmac bf16 "
+          f"backbone {forward['resnext101_32x4d_rmac_ms']:.2f} ms; device launches a bf16 "
+          f"backbone forward (torch.profiler): " + json.dumps(forward["device_launches"]))
     row.update(forward=forward, shapes=len(shapes), seconds=time.perf_counter() - t0)
     return {"name": "conv_fused", "route": "cuda", "source": "dirjax_torch/csrc/conv.cu",
             "replaces": "dirjax/models/resnet.py:159 (_conv, preferred_element_type=float32, "
@@ -3136,7 +3181,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="", metavar="DIR",
                         help="also profile an extraction; traces go to DIR")
+    parser.add_argument("--conv-only", action="store_true",
+                        help="build and run the fused conv phase alone (no result lines)")
+    parser.add_argument("--tree", default="", metavar="DIR",
+                        help="import dirjax_torch from DIR (e.g. a git archive of another "
+                             "commit) instead of this checkout")
     args = parser.parse_args(argv)
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3152,8 +3204,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: phase {name}")
 
     try:
-        import dirjax_torch  # noqa: F401  (fails outside the repository)
+        import dirjax_torch  # (fails outside the repository)
         from dirjax_torch.ops import conv, gem_head
+
+        print(f"dirjax_torch from {os.path.dirname(os.path.abspath(dirjax_torch.__file__))}")
 
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3166,6 +3220,11 @@ def main(argv=None) -> int:
         entries = [kernel_phase(device)]
         enter("fused conv")
         conv_entry = fused_conv_phase(device)
+        if args.conv_only:
+            enter("report")
+            print("fused conv entry: " + json.dumps(conv_entry))
+            print("phase seconds: " + json.dumps(seconds))
+            return 0
         enter("top-k kernels")
         topk_entries, db16 = topk_kernel_phase(device)
         enter("binary kernels")

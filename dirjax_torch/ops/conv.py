@@ -15,7 +15,10 @@ written as ``out_dtype``. Tensors are NCHW in ``channels_last`` memory, as
 the port's backbone keeps them; the output is too.
 
 On a CUDA tensor it launches the hand-written implicit-GEMM kernel of
-``csrc/conv.cu`` or raises; on a CPU tensor it runs :func:`conv_reference`,
+``csrc/conv.cu`` or raises, on the path the shape picks (:func:`conv_path`:
+wgmma for channels in multiples of 64, wgmma over 64-channel spans for
+ResNeXt's grouped 3x3s, the stem kernel for the 3-channel stem, mma.sync
+for the rest); on a CPU tensor it runs :func:`conv_reference`,
 the plain PyTorch version (an fp32 convolution over the bf16-rounded
 operands), which is also the kernel's oracle. No other path exists. The
 kernel has no backward: on the card it raises when grad mode is on and an
@@ -44,7 +47,8 @@ import torch.nn.functional as F
 
 __all__ = ["fused_conv", "fused_conv_packed", "conv_reference", "conv_output_hw", "pack",
            "pack_weights", "pack_input", "run_packed", "launch_args", "kernel_path",
-           "reference_magnitude", "agreement", "SUM_ORDER_RTOL", "launches"]
+           "conv_path", "span_weights", "reference_magnitude", "agreement", "SUM_ORDER_RTOL",
+           "launches"]
 
 #: launches of the CUDA kernel in this process (reset it to count a run)
 launches = 0
@@ -68,6 +72,48 @@ _MAP_BYTES = 128
 
 def conv_output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
     return (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+
+
+def conv_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[int] = None,
+              stride: int = 1) -> str:
+    """The path the kernel takes for a convolution of this shape, by
+    csrc/conv.cu's rule (``dirjax_conv_path``), written out here so that
+    the operands are packed for it on any device:
+
+    - "wgmma 128x128" / "wgmma 128x64": groups 1, cin and cout multiples
+      of 64 (the tile is 64 wide where cout is not a multiple of 128);
+    - "wgmma 128x64 grouped": a grouped conv with as many channels out as
+      in, cin / groups dividing 64 and cin a multiple of 64, over 64-channel
+      spans (its weights :func:`span_weights`; every grouped 3x3 of ResNeXt);
+    - "stem wgmma 128x64": groups 1, at most 4 input channels, 64 outputs,
+      kh and kw at most 7, stride at most 2 (the 7x7/2 stem of every
+      architecture), whose kernel reads an fp32 or bf16 NHWC input where it
+      lies;
+    - "mma.sync": anything else."""
+    kw = kh if kw is None else kw
+    if groups > 1 and cin == cout and cin % groups == 0 and 64 % (cin // groups) == 0 \
+            and cin % 64 == 0:
+        return "wgmma 128x64 grouped"
+    if groups == 1 and cin % 64 == 0 and cout % 64 == 0:
+        return f"wgmma 128x{128 if cout % 128 == 0 else 64}"
+    if groups == 1 and cin <= 4 and cout == 64 and kh <= 7 and kw <= 7 and stride <= 2:
+        return "stem wgmma 128x64"
+    return "mma.sync"
+
+
+def span_weights(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """A grouped convolution's weights (cout, cin / groups, kh, kw) as its
+    wgmma path reads them, over 64-channel spans: (cout, kh, kw, 64), row n
+    holding at each tap the 64 input channels of its span n // 64, its own
+    group's weights where that group's channels lie and zeros elsewhere (a
+    block-diagonal 64 x 64 block a tap). The zeros add exact zeros to each
+    fp32 sum. Keeps the dtype and device."""
+    cout, g, kh, kw = weight.shape
+    first = torch.arange(cout, device=weight.device) % 64 // g * g   # n's group in its span
+    cols = first[:, None] + torch.arange(g, device=weight.device)
+    out = weight.new_zeros((cout, kh, kw, 64))
+    return out.scatter_(3, cols[:, None, None, :].expand(cout, kh, kw, g),
+                        weight.permute(0, 2, 3, 1))
 
 
 def _epilogue(y, scale, shift, residual, relu):
@@ -188,7 +234,8 @@ def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
     """The operands of one convolution that stay the same from call to call,
     on ``device`` (default: the weight's): ``w``, the weights cast to bf16
     and permuted to (cout, kh, kw, cin / groups), with the stem's 3 input
-    channels padded to 4 with zeros (``extra``: how many); ``scale`` and
+    channels padded to 4 with zeros (``extra``: how many), or for a grouped
+    conv on the wgmma path its :func:`span_weights`; ``scale`` and
     ``shift`` in fp32; ``weight`` and ``groups`` as given; ``wmap``, the
     weights' tensor map, which the first launch on the card builds. Raises
     on what the kernel does not take."""
@@ -205,7 +252,11 @@ def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
     if extra and groups != 1:
         raise ValueError(f"grouped convolution with {cin_g} channels a group: the "
                          "kernel takes a multiple of 4")
-    wp = weight.detach().to(device=device, dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    wb = weight.detach().to(device=device, dtype=torch.bfloat16)
+    if conv_path(cin_g * groups, cout, groups, kh, kw) == "wgmma 128x64 grouped":
+        wp = span_weights(wb, groups)
+    else:
+        wp = wb.permute(0, 2, 3, 1)
     if extra:   # zero channels add exact zeros to every sum (the stem's 3 channels)
         wp = F.pad(wp, (0, extra))
 
@@ -228,7 +279,10 @@ def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none"
     """:func:`pack`'s dict from the input, the residual and
     :func:`pack_weights`' operands (which must lie on x's device). An input
     or residual in channels_last memory is read where it lies (its memory
-    is NHWC); anything else is copied to NHWC."""
+    is NHWC); anything else is copied to NHWC. The stem path reads an fp32
+    or bf16 input as it is (``x_fp32``); any other input is cast to bf16,
+    and on the mma.sync path a 3-channel input is padded to 4 with zeros
+    in the same copy."""
     if x.dim() != 4:
         raise ValueError(f"x must be 4-D, got {tuple(x.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -243,16 +297,18 @@ def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none"
     if weights["w"].device != dev:
         raise ValueError(f"the packed weights lie on {weights['w'].device}, x on {dev}")
     ho, wo = conv_output_hw(H, W, kh, kw, stride, padding)
-    if weights["extra"]:   # the stem: cast and pad in one copy, the extra channels zeros
+    stem = conv_path(cin, cout, groups, kh, kw, stride).startswith("stem")
+    if weights["extra"] and not stem:   # cast and pad in one copy, the extra channels zeros
         xh = torch.empty((B, H, W, cin + weights["extra"]), dtype=torch.bfloat16, device=dev)
         xh[..., cin:].zero_()
         xh[..., :cin].copy_(x.permute(0, 2, 3, 1))
         x, cin = xh, cin + weights["extra"]
     else:
-        if x.dtype != torch.bfloat16:
+        if x.dtype != torch.bfloat16 and not (stem and x.dtype == torch.float32):
             x = x.to(torch.bfloat16)
         if not x.is_contiguous(memory_format=torch.channels_last):
-            x = x.permute(0, 2, 3, 1).contiguous()
+            xh = torch.empty((B, H, W, cin), dtype=torch.bfloat16, device=dev)
+            x = xh.copy_(x.permute(0, 2, 3, 1))
     res_kind = 0
     if residual is not None:
         if residual.shape != (B, cout, ho, wo) or residual.device != dev:
@@ -263,7 +319,8 @@ def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none"
         res_kind = 1 if residual.dtype == torch.bfloat16 else 2
         if not residual.is_contiguous(memory_format=torch.channels_last):
             residual = residual.permute(0, 2, 3, 1).contiguous()
-    p = {"x": x, "weights": weights, "residual": residual, "res_kind": res_kind,
+    p = {"x": x, "x_fp32": x.dtype == torch.float32, "weights": weights,
+         "residual": residual, "res_kind": res_kind,
          "relu": _RELU[relu],
          "out": torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev),
          "dims": (B, H, W, cin, cout, kh, kw, stride, padding, groups, ho, wo)}
@@ -280,13 +337,17 @@ def _check_aligned(p: dict, names) -> None:
                              f"(a view with a storage offset): pass a fresh tensor")
 
 
-def kernel_path(cin: int, cout: int, groups: int = 1) -> str:
-    """Which of the kernel's two paths a convolution of these channels takes
-    on the card: "wgmma 128xBN" or "mma.sync" (the rule in csrc/conv.cu)."""
+def kernel_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[int] = None,
+                stride: int = 1) -> str:
+    """The path the built kernel takes for a convolution of this shape on
+    the card, named as :func:`conv_path` names it (the library's rule, which
+    that function mirrors)."""
     from ..kernels.build import load_library
 
-    bn = load_library().dirjax_conv_path(cin, cout, groups)
-    return f"wgmma 128x{bn}" if bn else "mma.sync"
+    code = load_library().dirjax_conv_path(cin, cout, groups, kh, kh if kw is None else kw,
+                                           stride)
+    return {0: "mma.sync", 1: "stem wgmma 128x64", 2: "wgmma 128x64 grouped"}.get(
+        code, f"wgmma 128x{code}")
 
 
 def run_packed(p: dict) -> torch.Tensor:
@@ -329,7 +390,7 @@ def launch_args(p: dict, out: torch.Tensor):
         weights["wmap"] = wmap.raw
     scale, shift, residual = weights["scale"], weights["shift"], p["residual"]
     return lib.dirjax_conv_fused, (
-        p["x"].data_ptr(), weights["w"].data_ptr(), weights["wmap"],
+        p["x"].data_ptr(), p["x_fp32"], weights["w"].data_ptr(), weights["wmap"],
         None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(),
         None if residual is None else residual.data_ptr(),

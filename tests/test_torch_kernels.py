@@ -553,7 +553,7 @@ class TestConcurrentLaunches:
     57,472 / 172,160 bytes; K6 streamed ksub 256 / 100 at m 32, 172,288 /
     147,712; the rescore at m 64, ksub 256, kf 300, nq 1 / 256, 65,680 /
     66,016; K1's projection C 1024 / 2048, 32,768 / 65,536; the fused conv,
-    wgmma 3x3 256-channel / mma.sync grouped, 201,808 / 46,080; K3, a
+    wgmma 3x3 256-channel / grouped over spans, 201,808 / 185,440; K3, a
     constant of its instantiation, the control. No launch may fail, and each
     result is its plain version's (K6 and the rescore exactly, K1 within
     rtol 2e-4 / atol 2e-5, K3 within 1e-5; the conv bit for bit its own
@@ -603,6 +603,23 @@ WGMMA_CASES = [
     (32, 512, 7, 7, 512, 3, 1, 1, True, True, None, "post", "bf16"),        # 1,568 pixels
     (32, 512, 7, 7, 2048, 1, 1, 1, True, True, "bf16", "post", "bf16"),     # the same, 1x1
     (3, 128, 11, 9, 192, 3, 2, 1, True, True, "fp32", "pre", "bf16"),       # three 64-wide tiles
+]
+
+
+# ResNeXt's grouped 3x3s on the wgmma path over 64-channel spans: g = 4, 8,
+# 16, 32 at stride 1 and 2, each with a ragged last 128-pixel tile (M = 442
+# at stride 1, 126 at stride 2)
+GROUPED_CASES = [(2, 32 * g, 17, 13, 32 * g, 3, stride, 32, True, True, None, "post", "bf16")
+                 for g in (4, 8, 16, 32) for stride in (1, 2)]
+
+# shapes that stay on the mma.sync path: a 3-channel conv with 32 outputs,
+# a group width that does not divide 64, more channels out than in, and
+# the narrow and two-tile cases above
+MMA_SYNC_CASES = [
+    (2, 3, 37, 29, 32, 7, 2, 1, True, True, None, "post", "bf16"),          # 3 -> 32
+    (2, 96, 17, 13, 96, 3, 1, 8, True, True, None, "post", "bf16"),         # 12 a group
+    (2, 128, 17, 13, 256, 3, 2, 32, True, True, None, "post", "bf16"),      # 4 -> 8 a group
+    CONV_CASES[13], CONV_CASES[14],
 ]
 
 
@@ -659,19 +676,63 @@ class TestConvKernel:
         agreement()'s bounds of the plain version."""
         self._check(rng, cuda, case, "wgmma")
 
-    @pytest.mark.parametrize("case", [CONV_CASES[i] for i in (0, 10, 11, 12, 13, 14)])
+    @pytest.mark.parametrize("case", MMA_SYNC_CASES)
     def test_mma_sync_path_keeps_the_rest(self, rng, cuda, case):
-        """The stem (3 channels padded to 4), ResNeXt's grouped 3x3 and
-        channels not multiples of 64 stay on the mma.sync path, within the
-        same bounds."""
+        """A 3-channel conv the stem path does not take (3 channels padded
+        to 4), grouped convs without 64-channel spans and channels not
+        multiples of 64 stay on the mma.sync path, within the same bounds."""
         self._check(rng, cuda, case, "mma.sync")
 
-    def _check(self, rng, cuda, case, path):
+    @pytest.mark.parametrize("case", GROUPED_CASES)
+    def test_grouped_path_matches_reference(self, rng, cuda, case):
+        """ResNeXt's grouped 3x3s (g = 4, 8, 16, 32, stride 1 and 2, ragged
+        last tile) on wgmma over block-diagonal 64-channel spans, within
+        agreement()'s bounds of the plain version, bit for bit on repeat."""
+        self._check(rng, cuda, case, "wgmma 128x64 grouped")
+
+    @pytest.mark.parametrize("given", ["fp32_channels_last", "bf16_channels_last",
+                                       "fp32_nchw", "bf16_nchw"])
+    @pytest.mark.parametrize("relu,res,out", [("post", None, "bf16"), ("pre", "fp32", "fp32")],
+                             ids=["stem", "residual_fp32"])
+    def test_stem_path_matches_reference(self, rng, cuda, given, relu, res, out):
+        """The 7x7/2 stem at an odd 37x29 (ragged strips) from an fp32 or
+        bf16 input, channels_last (read where it lies) or NCHW (one NHWC
+        copy), within agreement()'s bounds of the plain version, bit for
+        bit on repeat; also with an fp32 residual and an fp32 output."""
+        case = (2, 3, 37, 29, 64, 7, 2, 1, True, True, res, relu, out)
+        self._check(rng, cuda, case, "stem wgmma 128x64", given)
+
+    @pytest.mark.parametrize("case,given", [
+        ((1, 3, 9, 11, 64, 3, 1, 1, True, True, None, "post", "bf16"), "fp32_channels_last"),
+        ((2, 1, 23, 40, 64, 5, 2, 1, True, True, None, "post", "bf16"), "bf16_channels_last"),
+        ((2, 4, 17, 19, 64, 1, 1, 1, False, True, None, "none", "fp32"), "fp32_nchw"),
+        ((1, 2, 70, 33, 64, 7, 1, 1, True, True, "bf16", "post", "bf16"), "fp32_channels_last"),
+    ], ids=["3x3_narrow", "1ch_5x5", "4ch_1x1", "2ch_7x7_s1"])
+    def test_stem_path_other_shapes(self, rng, cuda, case, given):
+        """Every shape the stem path takes, not only the 7x7/2 stem: 1 to 4
+        channels, 1x1 to 7x7, stride 1 and 2, an image narrower than a tile,
+        a residual; within agreement()'s bounds, bit for bit on repeat."""
+        self._check(rng, cuda, case, "stem wgmma 128x64", given)
+
+    def test_kernel_path_is_conv_path(self, cuda):
+        """The built library's rule names the path ops/conv.py packs the
+        operands for, at every shape of these tests and the backbones'."""
+        for B, cin, H, W, cout, k, stride, groups, *_ in (
+                CONV_CASES + WGMMA_CASES + GROUPED_CASES + MMA_SYNC_CASES):
+            assert conv.kernel_path(cin, cout, groups, k, k, stride) == \
+                conv.conv_path(cin, cout, groups, k, k, stride)
+
+    def _check(self, rng, cuda, case, path, given="bf16_channels_last"):
         torch.backends.cudnn.allow_tf32 = False
         B, cin, H, W, cout, k, stride, groups, sc, sh, res, relu, out = case
-        assert conv.kernel_path(cin, cout, groups).startswith(path)
+        assert conv.kernel_path(cin, cout, groups, k, k, stride).startswith(path)
         x, w, scale, shift, r = _conv_inputs(rng, cuda, B, cin, H, W, cout, k, stride, groups,
                                              sc, sh, res)
+        if given.startswith("fp32"):   # values that bf16 does not hold: the kernel rounds them
+            x = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(cuda)
+            x = x.contiguous(memory_format=torch.channels_last)
+        if given.endswith("nchw"):
+            x = x.contiguous()
         out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
         args = (x, w, stride, k // 2, groups, scale, shift, r, relu, out_dtype)
         with torch.no_grad():
