@@ -1,0 +1,6 @@
+"""K1, the GeM -> FC -> L2 head (ops/gem_head.py -> csrc/gem_head.cu), its two
+launches against their bounds (%).
+The same reading, in a cell whose end-to-end metric is the device's ms an
+image."""
+
+from harness.readings import gem_head_roofline as read  # noqa: F401

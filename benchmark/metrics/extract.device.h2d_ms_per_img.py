@@ -1,0 +1,6 @@
+"""Device ms of host-to-device copies in the traced slice, over the images
+handed to the extractor in it (the FeatureExtractor upload).
+The same reading, in a cell whose end-to-end metric is the device's ms an
+image."""
+
+from harness.readings import h2d_ms_per_img as read  # noqa: F401
