@@ -1632,8 +1632,10 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
     index; returns the launch counts of K2-K6 and the rescores during the
     traffic. With ``profile_dir``, also :func:`serving_profile`."""
     from dirjax_torch.ops import binary, pq, topk
+    from dirjax_torch.serve import latency_ms
     from dirjax_torch.server import Client, IndexServer
     from dirjax_torch.serving import BinaryIndex, PQIndex, RetrievalIndex
+    from dirjax_torch.utils import timer
 
     t0 = time.perf_counter()
     indexes = {"bf16": RetrievalIndex(db16, dtype=torch.bfloat16, device=device),
@@ -1678,6 +1680,8 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
             for counts in (topk.launches, binary.launches, pq.launches):
                 for key in counts:
                     counts[key] = 0
+            timer.clear()
+            timer.enable()
             t0 = time.perf_counter()
             with ThreadPoolExecutor(len(indexes) * CLIENTS_PER_INDEX) as pool:
                 jobs = {(name, c): pool.submit(client_run, servers[name].address, reqs)
@@ -1688,6 +1692,7 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
             wall = max(last for _, last in done.values()) - t0
             launches = {**topk.launches, **binary.launches, **pq.launches}
         finally:
+            timer.disable()
             for srv in servers.values():
                 with Client(srv.address) as c:
                     c.shutdown_server()
@@ -1703,10 +1708,12 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
                         indexes[name].search(q, k=k, **opts))
             rows += len(q)
     for name, srv in servers.items():
-        st, lat = srv.batcher.stats, srv.batcher.latency_stats()
+        st = srv.batcher.stats
         print(f"serving {name}: {st['requests']} requests, {st['rows']} query "
-              f"rows in {st['batches']} batches; latency ms " +
-              " ".join(f"{k[:-3]} {v:.2f}" for k, v in lat.items()))
+              f"rows in {st['batches']} batches")
+    print("serving: latency ms, from a frame's arrival to its reply's send, every "
+          "server: " + " ".join(f"{k} {v:.2f}" for k, v in
+                                latency_ms(timer.spans("server.request")).items()))
     print(f"serving: {len(answers) * REQUESTS_PER_CLIENT} requests, {rows} query "
           f"rows from {len(answers)} concurrent clients in {wall:.3f} s = "
           f"{rows / wall:.1f} QPS (host clock); launches {launches}; every "
@@ -1733,10 +1740,13 @@ def upload_bf16_check(indexes: dict) -> None:
     unimportable: the same burst (8 client threads, 1-16 queries a request,
     k = 10 and 100) through each; bf16 indices equal and values within rtol
     1e-6, PQ values within 0.02 (dirjax's test_upload_bf16_pq_close_to_f32).
-    The kernels' counters must rise in the bf16-upload bursts. QPS and
-    latency percentiles of each burst are printed as information."""
+    The kernels' counters must rise in the bf16-upload bursts. QPS and the
+    percentiles of each burst's queue wait (the ``batcher.wait`` spans, from
+    submit to dispatch) are printed as information."""
     from dirjax_torch.ops import pq, topk
+    from dirjax_torch.serve import latency_ms
     from dirjax_torch.server import DynamicBatcher
+    from dirjax_torch.utils import timer
 
     saved = sys.modules.get("ml_dtypes")
     sys.modules["ml_dtypes"] = None   # the port must not need it
@@ -1756,10 +1766,16 @@ def upload_bf16_check(indexes: dict) -> None:
             def client(reqs):
                 return [batcher.submit(q, k=k).result(timeout=300) for q, k in reqs]
 
+            timer.clear()
+            timer.enable()
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(UPLOAD_CLIENTS) as pool:
-                answers = list(pool.map(client, plan))
-            return answers, time.perf_counter() - t0, batcher.latency_stats()
+            try:
+                with ThreadPoolExecutor(UPLOAD_CLIENTS) as pool:
+                    answers = list(pool.map(client, plan))
+            finally:
+                timer.disable()
+            return (answers, time.perf_counter() - t0,
+                    latency_ms(timer.spans("batcher.wait")))
 
         for name, index in indexes.items():
             results = {}
@@ -1771,7 +1787,6 @@ def upload_bf16_check(indexes: dict) -> None:
                     for counts in (topk.launches, pq.launches):
                         for key in counts:
                             counts[key] = 0
-                    batcher.reset_latency_stats()
                     results[upload] = burst(batcher)
                     launches = {k: v for k, v in {**topk.launches, **pq.launches}.items() if v}
                 finally:
@@ -1781,8 +1796,8 @@ def upload_bf16_check(indexes: dict) -> None:
                 answers, wall, lat = results[upload]
                 print(f"serving upload_bf16={upload} {name}: {rows} query rows from "
                       f"{UPLOAD_CLIENTS} client threads in {wall:.3f} s = {rows / wall:.1f} QPS "
-                      "(host clock); latency ms " +
-                      " ".join(f"{k[:-3]} {v:.2f}" for k, v in lat.items()) +
+                      "(host clock); queue wait ms " +
+                      " ".join(f"{k} {v:.2f}" for k, v in lat.items()) +
                       f"; launches {launches}")
             worst = 0.0
             for reqs, want_c, got_c in zip(plan, results[False][0], results[True][0]):

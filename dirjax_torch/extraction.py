@@ -19,6 +19,7 @@ from . import ops
 from .data.loader import get_loader, iterate_batches
 from .models import RMACDescriptor
 from .utils import evaluation as ev
+from .utils import timer
 
 __all__ = ["extract_image_features", "eval_model", "FeatureExtractor",
            "adaptive_call"]
@@ -70,15 +71,19 @@ class FeatureExtractor:
     def __call__(self, images: np.ndarray,
                  mask: Optional[np.ndarray] = None) -> torch.Tensor:
         """(B, H, W, 3) uint8 or normalized float images -> (B, D) fp32
-        descriptors on the device (not synchronised)."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        if x.dtype == torch.uint8:
-            # normalize on the device: the host ships raw pixels
-            x = x.float() * self._scale - self._offset
-        x = x.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
-        m = None if mask is None else torch.from_numpy(
-            np.ascontiguousarray(mask)).to(self.device)
-        return self.model(x, mask=m, dtype=self.dtype)
+        descriptors on the device (not synchronised). The upload with its
+        normalize is the span ``extract.upload``, the forward's launches
+        ``extract.forward``."""
+        with timer.span("extract.upload", len(images)):
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            if x.dtype == torch.uint8:
+                # normalize on the device: the host ships raw pixels
+                x = x.float() * self._scale - self._offset
+            x = x.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
+            m = None if mask is None else torch.from_numpy(
+                np.ascontiguousarray(mask)).to(self.device)
+        with timer.span("extract.forward", len(images)):
+            return self.model(x, mask=m, dtype=self.dtype)
 
     def call_adaptive(self, images: np.ndarray,
                       mask: Optional[np.ndarray] = None) -> np.ndarray:
@@ -124,7 +129,14 @@ def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor
             out = np.zeros((n, descs.shape[1]), np.float32)
         out[idxs] = descs
 
-    for batch in batches:
+    batches = iter(batches)
+    while True:
+        # the wait for the loader's next batch: its decodes, then the batching
+        wait = timer.begin()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        timer.end(wait, "extract.wait", len(batch.indices))
         images = batch.images
         if flip is not None:
             for r, idx in enumerate(batch.indices):

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import fused_conv_packed, pack_weights
+from ..utils import timer
 
 __all__ = ["ResNetConfig", "RESNET_CONFIGS", "ResNet", "BatchNormAffine",
            "BN_EPS", "RGB_MEANS", "RGB_STDS", "fold_batchnorm", "is_folded"]
@@ -165,9 +166,13 @@ def _fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, relu: str = "post",
                    residual=None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """conv in bf16 with its BN affine (folded: its bias) and the rest of the
     epilogue fused, in fp32, written as ``out_dtype``; the weights, scale
-    and shift packed once (``_conv_operands``)."""
-    return fused_conv_packed(x, _conv_operands(conv, bn, x.device), conv.stride[0],
-                             conv.padding[0], residual, relu, out_dtype)
+    and shift packed once (``_conv_operands``). The wrapper's host time is
+    the span ``conv.call``."""
+    call = timer.begin()
+    out = fused_conv_packed(x, _conv_operands(conv, bn, x.device), conv.stride[0],
+                            conv.padding[0], residual, relu, out_dtype)
+    timer.end(call, "conv.call")
+    return out
 
 
 def _fused_shortcut(x: torch.Tensor, downsample) -> torch.Tensor:

@@ -17,7 +17,9 @@ options (``aqe``, ``nprobe``, ``rerank_factor``, ...) pass through.
 ``DynamicBatcher(pipeline > 1)`` calls ``search`` from several threads; each
 launches on the current CUDA stream of the index's device.
 ``--upload-bf16`` hands each coalesced batch to the index as a CPU
-``torch.bfloat16`` tensor.
+``torch.bfloat16`` tensor. At exit it prints the requests' latency
+percentiles, each from its frame's arrival to its reply's send (the
+``server.request`` spans of the newest 65,536 requests).
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
+import numpy as np
+
 from .server import Client, DynamicBatcher, IndexServer
+from .utils import timer
 
 __all__ = ["Client", "DynamicBatcher", "IndexServer", "main"]
 
@@ -80,15 +85,28 @@ def main(argv: Optional[list] = None) -> IndexServer:
     print(f"serving {name} ({index.n} x {index.dim}) on {server.address} "
           f"(max_batch={args.max_batch}, max_wait={args.max_wait_ms} ms)",
           flush=True)
+    timer.enable()
     server.serve_forever()
     s = server.batcher.stats
     mean = s["batched_rows"] / max(1, s["batches"])
     print(f"served {s['requests']} requests ({s['rows']} query rows) in "
           f"{s['batches']} batches (mean batch {mean:.1f})")
-    lat = server.batcher.latency_stats()
+    lat = latency_ms(timer.spans("server.request"))
+    timer.disable()
     if lat:
-        print("latency ms: " + "  ".join(f"{k[:-3]} {v:.2f}" for k, v in lat.items()))
+        print("latency ms: " + "  ".join(f"{k} {v:.2f}" for k, v in lat.items()))
     return server
+
+
+def latency_ms(spans) -> dict:
+    """p50, p90, p99, mean and max of the spans' lengths in ms; empty for
+    no span."""
+    if not spans:
+        return {}
+    ms = np.array([s[3] - s[2] for s in spans]) * 1e3
+    return {"p50": float(np.percentile(ms, 50)), "p90": float(np.percentile(ms, 90)),
+            "p99": float(np.percentile(ms, 99)), "mean": float(ms.mean()),
+            "max": float(ms.max())}
 
 
 if __name__ == "__main__":

@@ -3,10 +3,15 @@
 The port's own copy of ``dirjax/server.py``, which it mirrors: dirjax_torch
 imports nothing of the JAX package, so it carries this jax-free host module
 itself. The wire protocol is byte-identical, so a client of either package
-talks to a server of either. Three differences: :meth:`Client.close` shuts its
+talks to a server of either. Four differences: :meth:`Client.close` shuts its
 socket down before closing it, ``upload_bf16`` makes each batch a CPU
 ``torch.bfloat16`` tensor (dirjax makes an ``ml_dtypes`` array, and the port
-does not need that package), and ``main`` lives in :mod:`dirjax_torch.serve`.
+does not need that package), ``main`` lives in :mod:`dirjax_torch.serve`,
+and the batcher keeps no latency window: the port's spans
+(:mod:`dirjax_torch.utils.timer`) time each request's queue wait
+(``batcher.wait``) and its whole stay in the server, from its frame's length
+to its reply's send (``server.request``, with ``server.parse`` and
+``server.reply`` inside).
 
 The reference toolbox stops at offline evaluation
 (``dirtorch/test_dir.py`` — one process, one score matrix);
@@ -51,6 +56,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .utils import timer
 
 __all__ = ["DynamicBatcher", "IndexServer", "Client"]
 
@@ -156,12 +163,9 @@ class DynamicBatcher:
         self._queues: Dict[Any, list] = {}
         self._event = threading.Event()
         self._stopping = False
+        # counted under _lock as requests arrive and as batches are formed
         self.stats = {"requests": 0, "rows": 0, "batches": 0,
                       "batched_rows": 0}
-        # submit->result latency of the most recent requests (ms);
-        # written by the dispatch workers, snapshotted under _lat_lock
-        self._latencies = deque(maxlen=10_000)
-        self._lat_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(
             max_workers=int(pipeline),
             thread_name_prefix="dirjax-dispatch") if pipeline > 1 else None
@@ -188,7 +192,7 @@ class DynamicBatcher:
             if self._stopping:
                 raise RuntimeError("batcher is closed")
             self._queues.setdefault(sig, []).append(
-                (q, len(q), fut, time.monotonic(), int(k), opts))
+                (q, len(q), fut, time.perf_counter(), int(k), opts))
             self.stats["requests"] += 1
             self.stats["rows"] += len(q)
         self._event.set()
@@ -211,7 +215,7 @@ class DynamicBatcher:
     def _take_ready(self, drain: bool):
         """Pop (sig, requests) batches that are due; return them plus the
         next deadline among the queues left pending."""
-        now = time.monotonic()
+        now = time.perf_counter()
         ready, deadline = [], None
         with self._lock:
             for sig in list(self._queues):
@@ -236,6 +240,8 @@ class DynamicBatcher:
                     take.append(reqs.pop(0))
                     taken_rows += take[-1][1]
                 ready.append((sig, take))
+                self.stats["batches"] += 1
+                self.stats["batched_rows"] += taken_rows
                 if reqs:   # leftovers: due again immediately
                     deadline = now
                 else:
@@ -243,6 +249,10 @@ class DynamicBatcher:
         return ready, deadline
 
     def _dispatch(self, requests) -> None:
+        if timer.recording():   # each request's wait from submit to here
+            start = time.perf_counter()
+            for r in requests:
+                timer.record("batcher.wait", r[3], start, r[1])
         qs = np.concatenate([r[0] for r in requests])
         if self.upload_bf16:
             qs = _to_bf16(qs)
@@ -254,19 +264,14 @@ class DynamicBatcher:
                 fut.set_exception(exc)
             return
         vals, idxs = np.asarray(vals), np.asarray(idxs)
-        done, off = time.monotonic(), 0
-        for _, n, fut, t0, _, _ in requests:
+        off = 0
+        for _, n, fut, _, _, _ in requests:
             fut.set_result((vals[off:off + n], idxs[off:off + n]))
-            with self._lat_lock:
-                self._latencies.append((done - t0) * 1e3)
             off += n
-        with self._lat_lock:   # pipeline>1: _dispatch runs concurrently
-            self.stats["batches"] += 1
-            self.stats["batched_rows"] += off
 
     def warmup(self, k: int = 10, **opts) -> None:
         """Pre-compile every query-count bucket this batcher can emit for
-        one ``(k, opts)`` signature, then clear the latency window.
+        one ``(k, opts)`` signature.
 
         Coalesced batches land on arbitrary row counts <= ``max_batch``;
         the index pads them to its ``NQ_BUCKETS`` ladder (256-row rungs
@@ -296,26 +301,6 @@ class DynamicBatcher:
             if self.upload_bf16:   # match the dispatch dtype signature
                 qs = _to_bf16(qs)
             self.index.search(qs, k=k, **opts)
-        self.reset_latency_stats()
-
-    def reset_latency_stats(self) -> None:
-        """Drop the latency window (e.g. after :meth:`warmup`, whose
-        compile-bound searches would otherwise dominate the percentiles)."""
-        with self._lat_lock:
-            self._latencies.clear()
-
-    def latency_stats(self) -> Dict[str, float]:
-        """Submit->result latency percentiles (ms) over the most recent
-        requests (10k-deep window). Empty dict before the first result."""
-        with self._lat_lock:   # a concurrent append would break iteration
-            lat = np.asarray(self._latencies)
-        if lat.size == 0:
-            return {}
-        return {"p50_ms": float(np.percentile(lat, 50)),
-                "p90_ms": float(np.percentile(lat, 90)),
-                "p99_ms": float(np.percentile(lat, 99)),
-                "mean_ms": float(lat.mean()),
-                "max_ms": float(lat.max())}
 
     def _loop(self) -> None:
         while True:
@@ -333,7 +318,7 @@ class DynamicBatcher:
             if ready:            # more work may already be due
                 continue
             timeout = None if deadline is None \
-                else max(0.0, deadline - time.monotonic())
+                else max(0.0, deadline - time.perf_counter())
             self._event.wait(timeout)
             self._event.clear()
 
@@ -460,13 +445,14 @@ class IndexServer:
                               name="dirjax-conn-sender")
         st.start()
 
-        def respond(fut, want_keys):
+        def respond(fut, want_keys, request, n):
             try:
                 vals, idxs = fut.result()
             except Exception as exc:
                 _send_frame(conn, {"error": f"{type(exc).__name__}: "
                                             f"{exc}"})
                 return
+            reply = timer.begin()
             keys = None
             if want_keys:
                 try:
@@ -478,11 +464,20 @@ class IndexServer:
                 conn, {"shape": list(vals.shape), "keys": keys},
                 np.ascontiguousarray(vals, np.float32).tobytes()
                 + np.ascontiguousarray(idxs, np.int32).tobytes())
+            timer.end(reply, "server.reply", n)
+            timer.end(request, "server.request", n)
 
         try:
             while not self._shutdown.is_set():
+                # a request's spans start once its frame's length is in:
+                # server.request to its reply's send, server.parse to its
+                # submit to the batcher
                 try:
-                    meta, payload = _recv_frame(conn, _payload_len)
+                    (mlen,) = struct.unpack("!I", _recv_exact(conn, 4))
+                    request = timer.begin()
+                    parse = timer.begin()
+                    meta = json.loads(_recv_exact(conn, mlen))
+                    payload = _recv_exact(conn, _payload_len(meta))
                 except (ConnectionError, struct.error):
                     break
                 if meta.get("cmd") == "shutdown":
@@ -499,8 +494,10 @@ class IndexServer:
                     sendq.put(lambda m=msg: _send_frame(conn,
                                                         {"error": m}))
                     continue
+                timer.end(parse, "server.parse", n)
                 sendq.put(functools.partial(respond, fut,
-                                            bool(meta.get("keys"))))
+                                            bool(meta.get("keys")),
+                                            request, n))
         finally:
             sendq.put(None)   # flush in-order, then close
             st.join()

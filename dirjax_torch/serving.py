@@ -61,6 +61,7 @@ from .ops.qe import (_drop_excluded, _weights, expand_queries_chunked,
 from .ops.topk import _topk, quantize_db, rank_topk_fused
 from .parallel import ranking as shr
 from .parallel.mesh import mesh_device
+from .utils import timer
 
 __all__ = ["RetrievalIndex", "BinaryIndex", "PQIndex", "IVFPQIndex"]
 
@@ -297,7 +298,9 @@ class RetrievalIndex(_Tombstones):
         ``aqe={'k':, 'alpha':}`` expands the queries against the index first
         (``test_dir.py:24-44`` semantics); ``int8_queries=True`` (int8
         indexes) quantizes the possibly expanded queries per row, so the
-        contraction is int8 x int8."""
+        contraction is int8 x int8. Its host time up to the results' pull
+        is the span ``index.launch``, the pull ``index.pull``."""
+        launch = timer.begin()
         if int8_queries and self._scales is None:
             raise ValueError("int8_queries requires an int8 index "
                              "(RetrievalIndex(dtype=torch.int8))")
@@ -307,17 +310,18 @@ class RetrievalIndex(_Tombstones):
         if q.dim() != 2 or q.shape[1] != self.dim:
             raise ValueError(f"queries must be (nq, {self.dim}), got {tuple(q.shape)}")
         if not self.n_removed:
-            return self._search(q, k, aqe, bool(int8_queries))
+            return self._search(q, k, aqe, bool(int8_queries), launch)
         if k > self.n:   # the same contract as the clean path
             raise ValueError(f"k={k} exceeds the {self.n} database rows")
         vals, idxs = self._search(q, min(k + self._tomb_pad(), self.n), aqe,
-                                  bool(int8_queries))
+                                  bool(int8_queries), launch)
         return self._tomb_filter(vals, idxs, k)
 
-    def _search(self, q, k: int, aqe: Optional[dict], int8_queries: bool):
+    def _search(self, q, k: int, aqe: Optional[dict], int8_queries: bool,
+                launch: Optional[tuple] = None):
         if self.mesh is not None:
-            return self._search_mesh(q, k, aqe, int8_queries)
-        if self._scales is not None:
+            vals, idxs = self._search_mesh(q, k, aqe, int8_queries)
+        elif self._scales is not None:
             q = q.to(self.device, torch.float32)
             if aqe:
                 q = expand_queries_quantized(q, self._db, self._scales,
@@ -332,13 +336,16 @@ class RetrievalIndex(_Tombstones):
                                            k=aqe["k"], **self._tomb_aqe_kwargs()
                                            ).to(self.dtype)
             vals, idxs = rank_topk_fused(q, self._db, k)
-        return vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
+        timer.end(launch, "index.launch", len(q))
+        with timer.span("index.pull", len(q)):
+            return vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
 
     def _search_mesh(self, q, k: int, aqe: Optional[dict], int8_queries: bool):
-        """AQE against the shards, then the sharded top-k (the single-device
-        contract: ``k`` at most ``n``). A float index takes the query at its
-        own dtype into the expansion, as its single-device search does
-        (dirjax's mesh path expands the fp32 query of a bf16 index)."""
+        """AQE against the shards, then the sharded top-k, left on the device
+        (the single-device contract: ``k`` at most ``n``). A float index takes
+        the query at its own dtype into the expansion, as its single-device
+        search does (dirjax's mesh path expands the fp32 query of a bf16
+        index)."""
         if k > self.n:
             raise ValueError(f"k={k} exceeds the {self.n} database rows")
         q = q.to(self.device, torch.float32 if self._scales is not None else self.dtype)
@@ -348,10 +355,9 @@ class RetrievalIndex(_Tombstones):
                                 **self._tomb_aqe_kwargs())
             if self._scales is None:
                 q = q.to(self.dtype)
-        vals, idxs = shr.sharded_topk(q, self._db, k, self.mesh, self._n_valid,
-                                      db_scales=self._scales,
-                                      quantize_queries=self._scales is not None and int8_queries)
-        return vals.cpu().numpy(), idxs.to(torch.int32).cpu().numpy()
+        return shr.sharded_topk(q, self._db, k, self.mesh, self._n_valid,
+                                db_scales=self._scales,
+                                quantize_queries=self._scales is not None and int8_queries)
 
     # --- mutation -------------------------------------------------------
     def add(self, descriptors, keys: Optional[Sequence[str]] = None) -> None:
