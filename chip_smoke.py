@@ -165,7 +165,13 @@ Phases, each of which raises on failure:
    The mAPs are only checked to be finite in [0, 1]: the synthetic
    classes differ by colour, so even random weights rank them perfectly and
    mAP = 1 says nothing about the path. Prints which host decoder ran (the
-   native one, or PIL where it cannot build).
+   native one, or PIL where it cannot build). Then FeatureExtractor's
+   pinned upload on a bf16 batch of 8 of these images: three calls (the
+   batch, it flipped, a masked batch), each in a fresh page-locked array,
+   issued while a sleep kernel holds the stream give descriptors bit for bit
+   those of a pageable upload, the ``extraction.staged_*`` counters rise by
+   the calls and bytes, and the batch's pinned non-blocking copy is timed
+   against the pageable one (CUDA events, in turns, GB/s).
 12. main path of the other heads — resnet101_fpn_rmac (FPN, 3072-D) and
    resnext101_32x4d_rmac the same way on a smaller benchmark (16 images),
    each with its own seeded checkpoint: K1 launches above 0 for ResNeXt and
@@ -2514,6 +2520,77 @@ def folded_phase(bench: str, ckpt: str, device) -> dict:
     return row
 
 
+def staged_upload_check(bench: str, ckpt: str, device) -> dict:
+    """FeatureExtractor's pinned upload on a bf16 resnet101_rmac and batches
+    of 8 of the first database images at 1024x768: three calls in a row (the
+    batch, it flipped, and it with a bucket mask), each batch written into a
+    fresh ``extraction.pinned_empty`` array after the previous one was
+    released, all issued while a sleep kernel holds the stream; each
+    descriptor bit for bit that of a pageable ``torch.from_numpy(...).to()``
+    upload of the same pixels. ``extraction.staged_uploads`` must rise by 3
+    and ``staged_bytes`` by the arrays' bytes. Then the batch's copy from
+    pinned memory (non-blocking) against the pageable copy, CUDA events, in
+    turns, in GB/s."""
+    from dirjax_torch import extraction
+    from dirjax_torch.utils.checkpoints import load_checkpoint
+
+    batch = first_images(bench, 8)
+    ck = load_checkpoint(ckpt)
+    ex = extraction.FeatureExtractor(ck.model, device, dtype=torch.bfloat16,
+                                     preprocess=ck.preprocess)
+    b, h, w, _ = batch.shape
+    mask = np.zeros((b, h, w), bool)
+    mask[:, : h - 40, : w - 72] = True
+    masked = np.where(mask[..., None], batch, 0).astype(np.uint8)
+    calls = [(batch, None), (np.ascontiguousarray(batch[:, :, ::-1]), None), (masked, mask)]
+
+    def pinned(a):
+        if a is None:
+            return None
+        p = extraction.pinned_empty(a.shape, a.dtype)
+        p[...] = a
+        return p
+
+    @torch.inference_mode()
+    def pageable(images, m):
+        x = torch.from_numpy(images).to(device)
+        x = (x.float() * ex._scale - ex._offset).permute(0, 3, 1, 2)
+        m = None if m is None else torch.from_numpy(m).to(device)
+        return ex.model(x, mask=m, dtype=ex.dtype)
+
+    for images, m in calls:   # warm: every shape, and the host cache
+        ex(pinned(images), pinned(m))
+    torch.cuda.synchronize()
+    uploads, nbytes = extraction.staged_uploads, extraction.staged_bytes
+    torch.cuda._sleep(4_000_000_000)   # ~2 s: every copy below waits behind it
+    got = [ex(pinned(images), pinned(m)) for images, m in calls]
+    if torch.cuda.current_stream().query():
+        raise AssertionError("pinned upload: the stream drained before the last call")
+    torch.cuda.synchronize()
+    for i, (images, m) in enumerate(calls):
+        if not torch.equal(got[i], pageable(images, m)):
+            raise AssertionError(f"pinned upload: call {i}'s descriptors differ from "
+                                 f"the pageable upload's")
+    want_bytes = sum(images.nbytes + (0 if m is None else m.nbytes) for images, m in calls)
+    if (extraction.staged_uploads - uploads, extraction.staged_bytes - nbytes) != \
+            (3, want_bytes):
+        raise AssertionError(f"pinned upload counters rose by "
+                             f"{extraction.staged_uploads - uploads} calls, "
+                             f"{extraction.staged_bytes - nbytes} B; want 3, {want_bytes}")
+    src = pinned(batch)
+    staged_ms, pageable_ms = time_in_turns(
+        f"host-to-device copy of {batch.nbytes} B (kernel: pinned, non-blocking; "
+        f"plain: pageable)", lambda: torch.from_numpy(batch).to(device),
+        lambda: src.base.to(device, non_blocking=True), iters=10)
+    row = {"pageable_h2d_gb_per_s": batch.nbytes / pageable_ms / 1e6,
+           "staged_h2d_gb_per_s": batch.nbytes / staged_ms / 1e6}
+    print(f"pinned upload: 3 calls on a busy stream bit-identical to pageable uploads; "
+          f"counters +3 calls, +{want_bytes} B; the batch's copy "
+          f"{row['staged_h2d_gb_per_s']:.2f} GB/s pinned, "
+          f"{row['pageable_h2d_gb_per_s']:.2f} pageable")
+    return row
+
+
 PCA_ROWS, PCA_CHUNK, PCA_TOP = 1_048_576, 131_072, 64
 
 
@@ -3296,6 +3373,7 @@ def main(argv=None) -> int:
             conv_by_path["resnet101_rmac"] = conv.launches
             for tag, (_, bdescs) in runs.items():
                 check_against_cpu(tag, bdescs[:N_REF], ref)
+            upload_row = staged_upload_check(bench, ckpt, device)
 
             arch_rows = {}
             for arch in NEW_ARCHS:
@@ -3326,7 +3404,8 @@ def main(argv=None) -> int:
                 profile_phase(bench, ckpt, device, args.profile, card)
         enter("report")
         print("extraction side: " + json.dumps({"architectures": arch_rows, "folded_bn": folded_row,
-                                                "fit_pca_device": pca_row}))
+                                                "fit_pca_device": pca_row,
+                                                "staged_upload": upload_row}))
         print("training: " + json.dumps(train_row))
         print("sharded: " + json.dumps(sharded_row))
         print("recall study: " + json.dumps(recall_row))

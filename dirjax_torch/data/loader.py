@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -218,7 +218,8 @@ def iterate_batches(loader: SampleLoader, order: Sequence[int],
                     batch_size: int = 8, threads: int = 8,
                     batching: str = "group", bucket_multiple: int = 64,
                     max_pixels: Optional[int] = None,
-                    processes: int = 0) -> Iterator[Batch]:
+                    processes: int = 0,
+                    alloc: Optional[Callable] = None) -> Iterator[Batch]:
     """Decode+transform in a thread pool (or worker processes), then batch.
 
     ``batching='group'``: exact shapes, same-shape rows batched together.
@@ -235,7 +236,12 @@ def iterate_batches(loader: SampleLoader, order: Sequence[int],
     ``loader.decode`` span (:mod:`dirjax_torch.utils.timer`). With
     ``processes > 0`` the decode runs in the worker processes, and this
     process records no such span.
+
+    ``alloc(shape, dtype)`` gives the uninitialised array each batch's images,
+    and its mask, are written into (default ``np.empty``): the extractor's
+    page-locked host memory, so the batch goes to the device as it is.
     """
+    alloc = alloc or np.empty
     order = list(order)
     skip_errors = getattr(loader, "on_error", "raise") == "skip"
 
@@ -272,18 +278,24 @@ def iterate_batches(loader: SampleLoader, order: Sequence[int],
         fields = {k: [it[k] for it in items]
                   for k in items[0] if k != "img"}
         if len(shapes) == 1 and batching != "bucket":
-            return Batch(images=np.stack(imgs), mask=None,
+            dtype = np.result_type(*{im.dtype for im in imgs})
+            images = np.stack(imgs, out=alloc((len(imgs),) + imgs[0].shape, dtype))
+            return Batch(images=images, mask=None,
                          indices=np.asarray(idxs), fields=fields)
         hmax = max(im.shape[0] for im in imgs)
         wmax = max(im.shape[1] for im in imgs)
         hmax = _round_up(hmax, bucket_multiple)
         wmax = _round_up(wmax, bucket_multiple)
-        canvas = np.zeros((len(imgs), hmax, wmax, imgs[0].shape[2]),
-                          imgs[0].dtype)
-        mask = np.zeros((len(imgs), hmax, wmax), bool)
-        for r, im in enumerate(imgs):
-            canvas[r, :im.shape[0], :im.shape[1]] = im
-            mask[r, :im.shape[0], :im.shape[1]] = True
+        canvas = alloc((len(imgs), hmax, wmax, imgs[0].shape[2]), imgs[0].dtype)
+        mask = alloc((len(imgs), hmax, wmax), bool)
+        for r, im in enumerate(imgs):  # every element written once
+            h, w = im.shape[:2]
+            canvas[r, :h, :w] = im
+            canvas[r, :h, w:] = 0
+            canvas[r, h:] = 0
+            mask[r, :h, :w] = True
+            mask[r, :h, w:] = False
+            mask[r, h:] = False
         return Batch(images=canvas, mask=mask, indices=np.asarray(idxs),
                      fields=fields)
 

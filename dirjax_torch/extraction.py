@@ -2,14 +2,17 @@
 ``dirjax/extraction.py``).
 
 The host decodes and batches images through the port's copy of dirjax's
-host loader (:mod:`dirjax_torch.data`) as uint8; the device normalizes them
-with the checkpoint's mean/std, runs the descriptor forward, pools the transform
-chains, whitens, expands (AQE/ADBA) and scores. mAP stays on the host.
+host loader (:mod:`dirjax_torch.data`) as uint8; for a model on a CUDA
+device the loader builds each batch in page-locked memory, which goes up by a
+non-blocking copy. The device normalizes them with the checkpoint's
+mean/std, runs the descriptor forward, pools the transform chains, whitens,
+expands (AQE/ADBA) and scores. mAP stays on the host.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,7 +25,37 @@ from .utils import evaluation as ev
 from .utils import timer
 
 __all__ = ["extract_image_features", "eval_model", "FeatureExtractor",
-           "adaptive_call"]
+           "adaptive_call", "pinned_empty", "staged_uploads", "staged_bytes"]
+
+#: ``FeatureExtractor`` calls whose batch or mask went up from page-locked
+#: host memory by a non-blocking copy, and the bytes so sent, in this process
+#: (reset them to count a run)
+staged_uploads = 0
+staged_bytes = 0
+
+
+def pinned_empty(shape, dtype) -> np.ndarray:
+    """An uninitialised host array in page-locked memory from PyTorch's
+    caching host allocator: the numpy view of a pinned tensor, which
+    :class:`FeatureExtractor` sends to its CUDA device as it is, without a
+    host copy and without blocking. Needs CUDA."""
+    a = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                    pin_memory=True).numpy()
+    _PINNED[id(a.base)] = a.base
+    return a
+
+
+#: the pinned tensors that :func:`pinned_empty`'s live arrays view (each
+#: array's ``base``), by id: such an array goes up without a host copy
+_PINNED: "weakref.WeakValueDictionary[int, torch.Tensor]" = weakref.WeakValueDictionary()
+
+
+def _batch_alloc(extractor):
+    """The loader's allocator for ``extractor``'s batches: :func:`pinned_empty`
+    when its model is on a CUDA device, else None (numpy's)."""
+    model = getattr(extractor, "model", None)
+    param = None if model is None else next(model.parameters(), None)
+    return pinned_empty if param is not None and param.is_cuda else None
 
 
 def _to_numpy(descs) -> np.ndarray:
@@ -74,16 +107,36 @@ class FeatureExtractor:
         descriptors on the device (not synchronised). The upload with its
         normalize is the span ``extract.upload``, the forward's launches
         ``extract.forward``."""
+        global staged_uploads, staged_bytes
         with timer.span("extract.upload", len(images)):
-            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            x, pinned = self._upload(images)
             if x.dtype == torch.uint8:
                 # normalize on the device: the host ships raw pixels
                 x = x.float() * self._scale - self._offset
             x = x.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
-            m = None if mask is None else torch.from_numpy(
-                np.ascontiguousarray(mask)).to(self.device)
+            m = None
+            if mask is not None:
+                m, mask_pinned = self._upload(mask)
+                pinned += mask_pinned
+            if pinned:
+                staged_uploads += 1
+                staged_bytes += pinned
         with timer.span("extract.forward", len(images)):
             return self.model(x, mask=m, dtype=self.dtype)
+
+    def _upload(self, a: np.ndarray):
+        """``a`` on the device, and the bytes sent from page-locked memory.
+        An array of :func:`pinned_empty` (the loader's batches for a CUDA
+        device) goes up by a non-blocking copy on the current stream, a DMA
+        at the link's rate. The copy is launched from the pinned tensor
+        itself, so the caching host allocator records its event on the block
+        and hands the block out again only after the copy has read it. Any
+        other array, a view of one included, takes the plain copy, which
+        the host waits for."""
+        t = getattr(a, "base", None)
+        if t is not None and _PINNED.get(id(t)) is t and self.device.type == "cuda":
+            return t.to(self.device, non_blocking=True), a.nbytes
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device), 0
 
     def call_adaptive(self, images: np.ndarray,
                       mask: Optional[np.ndarray] = None) -> np.ndarray:
@@ -114,7 +167,8 @@ def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor
     done = 0
     batches = iterate_batches(loader, range(n), batch_size=batch_size,
                               threads=threads, processes=processes,
-                              batching=batching, bucket_multiple=bucket_multiple)
+                              batching=batching, bucket_multiple=bucket_multiple,
+                              alloc=_batch_alloc(extractor))
     if progress:
         import tqdm
 
@@ -157,12 +211,13 @@ def extract_image_features(dataset, transforms: str, extractor: FeatureExtractor
         pending = (batch.indices, dev)
         if ret_imgs:
             for r, idx in enumerate(batch.indices):
+                # copies: a view would hold the whole (page-locked) batch
                 if batch.mask is None:
-                    imgs_out[idx] = np.asarray(images[r])
+                    imgs_out[idx] = images[r].copy()
                 else:  # un-pad back to the image's real extent
                     h = int(batch.mask[r, :, 0].sum())
                     w = int(batch.mask[r, 0, :].sum())
-                    imgs_out[idx] = np.asarray(images[r, :h, :w])
+                    imgs_out[idx] = images[r, :h, :w].copy()
         done += len(batch.indices)
     if pending is not None:
         flush(pending)
