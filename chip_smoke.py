@@ -176,7 +176,12 @@ Phases, each of which raises on failure:
    resnext101_32x4d_rmac the same way on a smaller benchmark (16 images),
    each with its own seeded checkpoint: K1 launches above 0 for ResNeXt and
    none for the FPN head (as dirjax gates it), the same cosine bounds, and
-   each forward's ms per batch of 8 (CUDA events), fp32 and bf16.
+   each forward's ms per batch of 8 (CUDA events), fp32 and bf16. Then
+   dinov2_vitl14_reg_rmac (DINOv2 ViT-L/14, 4 registers) at its published
+   widths: a bf16 FeatureExtractor forward at 1022x770 against the plain
+   fp32 forward of tests/plain_vit_gem.py (within 0.03), its 24 attention
+   calls on cuDNN's fused kernel (no softmax kernel of the math backend), a
+   head the pinned backend refuses raising, and the batch-8 forward's ms.
 13. folded BN — resnet101_rmac with every BN folded into its conv
    (fold_batchnorm) against the BN-affine model on 8 database images:
    cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
@@ -2479,6 +2484,61 @@ def arch_phase(work: str, device, arch: str) -> dict:
     return row
 
 
+def vit_phase(device) -> dict:
+    """DINOv2 ViT-L/14 with registers (``dinov2_vitl14_reg_rmac``) at its
+    published widths, seeded random weights (LayerScale 0.1-0.5, so every
+    block counts): a bf16 FeatureExtractor forward of 2 images of 1022 x 770
+    (4,020 tokens) against the plain fp32 forward of
+    ``tests/plain_vit_gem.py`` (TF32 off), within 0.03 of a unit descriptor;
+    the pinned attention backend ran each block's attention (24 calls, the
+    profiler sees cuDNN's fused kernel and no softmax of the math backend);
+    a head 320 wide, beyond that backend, raises; and the batch-8 forward's
+    ms (CUDA events)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import plain_vit_gem
+    from torch.profiler import ProfilerActivity, profile
+
+    from dirjax_torch.extraction import FeatureExtractor
+    from dirjax_torch.models import create_model, vit
+
+    model = create_model("dinov2_vitl14_reg_rmac")
+    sd = plain_vit_gem.draw({k: v.shape for k, v in model.state_dict().items()}, 21)
+    model.load_state_dict(sd)
+    ex = FeatureExtractor(model, device, dtype=torch.bfloat16)
+    batch = np.random.default_rng(21).integers(0, 256, (8, 770, 1022, 3), dtype=np.uint8)
+    calls = vit.attention_calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ex(batch[:2])
+        torch.cuda.synchronize()
+    if vit.attention_calls - calls != 24:
+        raise AssertionError(f"ViT-L forward made {vit.attention_calls - calls} attention calls")
+    names = [e.key for e in prof.key_averages()]
+    if not any("fort_native_sdpa" in n for n in names) or any("softmax" in n.lower()
+                                                              for n in names):
+        raise AssertionError(f"ViT-L attention did not run on cuDNN's fused kernel: {names}")
+    x = torch.from_numpy(batch[:2]).to(device).permute(0, 3, 1, 2).float() \
+        * ex._scale[:, None, None] - ex._offset[:, None, None]
+    widths = {"patch_size": 14, "num_heads": 16, "ln_eps": 1e-6, "depth": 24,
+              "num_registers": 4}
+    want = plain_vit_gem.forward({k: v.to(device) for k, v in sd.items()}, widths, x)
+    dist = (got.double() - want.double()).norm(dim=1).max().item()
+    if not dist < 0.03:
+        raise AssertionError(f"ViT-L bf16 forward {dist!r} from the plain fp32 forward")
+    q = torch.randn(1, 2, 64, 320, device=device, dtype=torch.bfloat16)
+    try:
+        vit.attention(q, q, q)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the pinned attention backend ran a head 320 wide")
+    row = {"arch": "dinov2_vitl14_reg_rmac", "bf16_desc_dist": dist,
+           "bf16_forward_ms": forward_ms(ex, batch)}
+    print(f"dinov2_vitl14_reg_rmac bf16: {dist!r} from the plain fp32 forward at 1022x770; "
+          f"24 attention calls on cuDNN's fused kernel; batch 8 forward "
+          f"{row['bf16_forward_ms']:.2f} ms (CUDA events)")
+    return row
+
+
 def folded_phase(bench: str, ckpt: str, device) -> dict:
     """resnet101_rmac with every BN folded into its conv (fold_batchnorm)
     against the BN-affine model on the first 8 database images: descriptor
@@ -3382,6 +3442,8 @@ def main(argv=None) -> int:
                 k1_by_path[arch] = arch_rows[arch]["fp32_k1_launches"] + \
                     arch_rows[arch]["bf16_k1_launches"]
                 conv_by_path[arch] = arch_rows[arch]["bf16_conv_launches"]
+            enter("main path dinov2_vitl14_reg_rmac")
+            arch_rows["dinov2_vitl14_reg_rmac"] = vit_phase(device)
             enter("folded BN")
             folded_row = folded_phase(bench, ckpt, device)
             k1_by_path["resnet101_rmac folded"] = folded_row["k1_launches"]

@@ -318,4 +318,5 @@ def fold_batchnorm(model: ResNet) -> ResNet:
 
 
 def is_folded(model: ResNet) -> bool:
-    return model.bn1 is None
+    """True for :func:`fold_batchnorm`'s copy; a model without BN is not."""
+    return getattr(model, "bn1", False) is None

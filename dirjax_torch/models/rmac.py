@@ -26,6 +26,11 @@ composition, never the K1 kernel (dirjax gates it the same way), and
 ``dropout_p`` drops backbone features (C4 and C5 in the FPN heads) with a
 caller's ``torch.Generator``. :func:`init_weights` draws
 dirjax's initial distributions (``init_descriptor``).
+
+:class:`ViTDescriptor` puts the same plain GeM -> FC -> L2 head, on K1, over
+DINOv2's vision transformer (``models/vit.py``): GeM pools the final-normed
+patch tokens as a (B, h, w, D) fp32 map. It is for inference on whole
+images: a bucket ``mask`` and the training forward are refused.
 """
 
 from __future__ import annotations
@@ -42,8 +47,10 @@ from ..ops.normalize import l2_normalize
 from ..ops.pooling import center_bias_mask, global_pool
 from .resnet import (RGB_MEANS, RGB_STDS, BatchNormAffine, ResNet, ResNetConfig,
                      _fused_conv_bn, _fused_route)
+from .vit import ViTConfig, VisionTransformer
 
-__all__ = ["DescriptorConfig", "RMACDescriptor", "downsample_mask", "init_weights"]
+__all__ = ["DescriptorConfig", "RMACDescriptor", "ViTDescriptorConfig", "ViTDescriptor",
+           "downsample_mask", "init_weights"]
 
 
 @dataclass(frozen=True)
@@ -244,3 +251,53 @@ class RMACDescriptor(ResNet):
         if not cfg.without_fc:
             desc = desc.float() @ self.fc.weight.T + self.fc.bias
         return l2_normalize(desc, dim=-1)
+
+
+@dataclass(frozen=True)
+class ViTDescriptorConfig:
+    """A vision transformer under the plain GeM -> FC -> L2 head. The other
+    head options of :class:`DescriptorConfig` are held at the values this
+    head has, so checkpoints record them alike."""
+
+    backbone: ViTConfig
+    out_dim: int = 1024
+    pooling: str = "gem"
+    gemp: float = 3.0
+    center_bias: float = 0.0
+    norm_features: bool = False
+    without_fc: bool = False
+    dropout_p: Optional[float] = None
+
+    @property
+    def fc_in_dim(self) -> int:
+        return self.backbone.embed_dim
+
+    @property
+    def preprocess(self) -> dict:
+        return {"mean": list(RGB_MEANS), "std": list(RGB_STDS), "input_size": 224}
+
+
+class ViTDescriptor(VisionTransformer):
+    """DINOv2's backbone + the GeM -> FC -> L2 head, with DINOv2's state-dict
+    keys, ``adpool.p`` and ``fc``."""
+
+    def __init__(self, cfg: ViTDescriptorConfig, arch: str = ""):
+        super().__init__(cfg.backbone)
+        self.cfg = cfg
+        self.arch = arch
+        self.adpool = GeneralizedMeanPoolingP(cfg.gemp)
+        self.fc = nn.Linear(cfg.fc_in_dim, cfg.out_dim)
+
+    def forward(self, images: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``images``: NCHW float, already normalized. Returns (B, out_dim)
+        fp32 unit descriptors; GeM, the FC and the L2 run in fp32 on K1."""
+        if mask is not None:
+            raise ValueError(f"{self.arch or 'a ViT descriptor'} takes whole images: extract "
+                             "with batching='group', not padded and masked buckets")
+        if train:
+            raise NotImplementedError(f"{self.arch or 'a ViT descriptor'} runs inference "
+                                      "only: it has no training forward")
+        x = self.patch_map(images, dtype)
+        return fused_gem_head(x, self.adpool.p, self.fc.weight.T, self.fc.bias)

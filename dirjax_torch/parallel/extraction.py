@@ -5,7 +5,8 @@ Every rank is given the whole batch: it pads the batch to a multiple of the
 "data" size, runs its contiguous slice through
 :class:`~dirjax_torch.extraction.FeatureExtractor` on its device (K1 on the
 card), all-gathers the descriptors over "data" and returns the first ``n``.
-Global pooling is per image, so no rank needs another's activations.
+Global pooling is per image, so no rank needs another's activations. The
+ViT descriptors are refused: no path across cards has run them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..extraction import FeatureExtractor, adaptive_call
-from ..models import RMACDescriptor
+from ..models import RMACDescriptor, is_vit
 from .mesh import axis_rank, axis_size, mesh_device
 from .ranking import gather_shards
 
@@ -32,6 +33,9 @@ class ShardedExtractor:
 
     def __init__(self, model: RMACDescriptor, mesh: DeviceMesh, dtype=torch.float32,
                  axis: str = "data", preprocess: Optional[dict] = None):
+        if is_vit(model):
+            raise NotImplementedError(f"ShardedExtractor does not run {model.arch}: the "
+                                      "ViT descriptors extract on one device")
         self.mesh, self.axis = mesh, axis
         self.n_shards = axis_size(mesh, axis)
         self._inner = FeatureExtractor(model, mesh_device(mesh), dtype=dtype,

@@ -49,7 +49,7 @@ from torch import nn
 
 from . import loss as losses
 from .data.loader import BalancedSampler, get_loader, iterate_batches
-from .models import RMACDescriptor, create_model, init_weights
+from .models import RMACDescriptor, create_model, init_weights, is_vit
 from .models.resnet import BatchNormAffine
 from .ops.normalize import l2_normalize
 from .parallel.mesh import axis_rank, axis_size, mesh_device
@@ -434,6 +434,9 @@ def make_sharded_train_step(model: RMACDescriptor, cfg: TrainConfig,
 
     BN is affine in the training forward (no batch statistics), so no rank
     needs another's activations."""
+    if is_vit(model):
+        raise NotImplementedError(f"the sharded train step cannot train {model.arch}: "
+                                  "the ViT descriptors run inference only")
     batch_obj = make_batch_objective(cfg)
     m = cfg.microbatch
     if m and cfg.batch_size % m:
@@ -791,10 +794,14 @@ def fit(dataset, cfg: TrainConfig, *, val_dataset=None,
     orbax directory is refused by name).
 
     A config with ``dropout_p`` is refused, since dirjax's steps cannot
-    train it (they pass no key). On the card in fp32, TF32 is turned off
-    for the process, as the CLIs' ``setup_device`` turns it off."""
+    train it (they pass no key), and so is a ViT architecture, which runs
+    inference only. On the card in fp32, TF32 is turned off for the
+    process, as the CLIs' ``setup_device`` turns it off."""
     from .utils.dist_ckpt import TrainCheckpointer
 
+    if is_vit(cfg.arch if model is None else model):
+        raise NotImplementedError(f"fit cannot train {cfg.arch if model is None else model.arch}: "
+                                  "the ViT descriptors run inference only")
     if ckpt_format not in ("npz", "orbax"):
         raise ValueError(f"ckpt_format must be 'npz' or 'orbax', got {ckpt_format!r}")
     if cfg.microbatch and cfg.batch_size % cfg.microbatch:

@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import DescriptorConfig, RMACDescriptor, create_model, is_folded
+from ..models import DescriptorConfig, RMACDescriptor, create_model, is_folded, is_vit
 from ..ops.binary import BinaryCodec
 from ..ops.ivf import IVFArrays
 from ..ops.whitening import PCAParams
@@ -306,7 +306,11 @@ def _config_options(cfg: DescriptorConfig) -> dict:
 
 
 def save_native(path: str, ckpt: Checkpoint) -> None:
-    """Write dirjax's native ``.npz``: params pytree + pca arrays + JSON meta."""
+    """Write dirjax's native ``.npz``: params pytree + pca arrays + JSON meta.
+    A ViT descriptor has no dirjax pytree: save it in the reference schema."""
+    if is_vit(ckpt.model):
+        raise ValueError(f"{ckpt.model.arch} has no dirjax parameter pytree: save it with "
+                         "save_torch_checkpoint")
     cfg = ckpt.model.cfg
     arrays = _flatten(jax_params_from_state_dict(ckpt.model.state_dict(), cfg),
                       "params/")

@@ -6,7 +6,8 @@ spans.
 
 Spans name the host time of each layer of the program (the loader's
 decode, the extractor's upload and forward launches, the conv wrapper, the
-batcher's queue wait, the index's launch and pull, the server's front). A
+ViT's embedding and blocks, the batcher's queue wait, the index's launch
+and pull, the server's front). A
 span is the tuple ``(id, parent, start, end, n)``: ``start`` and ``end`` on
 ``time.perf_counter`` (seconds), ``n`` the work it carried (images, rows,
 requests), ``parent`` the id of the :func:`span` open on the same thread

@@ -104,7 +104,12 @@ def _run_main(module, argv, capsys, seed=None):
 def test_models_main_matches_dirjax(capsys):
     want = _run_main("dirjax.models", [], capsys)
     got = _run_main("dirjax_torch.models", [], capsys)
-    assert got == want and "resnet101_rmac" in got
+    # dirjax's listing, and in its order the port's ViT descriptor, which
+    # dirjax does not have
+    vit = "  dinov2_vitl14_reg_rmac"
+    assert vit in got.splitlines()
+    assert [line for line in got.splitlines() if line != vit] == want.splitlines()
+    assert "resnet101_rmac" in got
 
 
 def test_datasets_main_matches_dirjax(capsys, tmp_path):
