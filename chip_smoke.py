@@ -181,7 +181,14 @@ Phases, each of which raises on failure:
    widths: a bf16 FeatureExtractor forward at 1022x770 against the plain
    fp32 forward of tests/plain_vit_gem.py (within 0.03), its 24 attention
    calls on cuDNN's fused kernel (no softmax kernel of the math backend), a
-   head the pinned backend refuses raising, and the batch-8 forward's ms.
+   head the pinned backend refuses raising, and the batch-8 forward's ms;
+   its 49 calls (2 * 24 + 1) of the fused LayerScale residual update and
+   LayerNorm (csrc/residual_norm.cu; no addcmul or LayerNorm kernel in the
+   profile), and that kernel at (8, 4,020, 1,024) with a bf16 branch and
+   output against the plain composition (addcmul_, layer_norm, .to: a few
+   fp32 ulps on the stream, at most 1e-3 of the bf16 outputs one ulp
+   apart), timed with CUDA events in turns with it (`library_ms`) beside
+   its 395 MB at 3.35 TB/s (`hbm_pct`).
 13. folded BN — resnet101_rmac with every BN folded into its conv
    (fold_batchnorm) against the BN-affine model on 8 database images:
    cosine against the affine fp32 forward (fp32 > 0.9999, bf16 > 0.999),
@@ -272,7 +279,7 @@ import tempfile
 import threading
 import time
 import traceback
-from collections import defaultdict
+from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -790,11 +797,13 @@ def fused_conv_phase(device) -> dict:
 TRACE_TRIES = 3
 
 
-def kernel_trace(fn, iters: int = 1) -> list:
+def kernel_trace(fn, iters: int = 1, whole=None) -> list:
     """(name, ms) of each device kernel that ``iters`` warm calls of ``fn``
     launch, from a torch.profiler trace; [] when TRACE_TRIES traces in a row
-    record no device kernel (on the card's machine a trace sometimes comes
-    back without its device events: a measurement lost, not a fault)."""
+    record no device kernel, or none that ``whole`` (a test of the list)
+    takes as whole (on the card's machine a trace sometimes comes back
+    without some or all of its device events: a measurement lost, not a
+    fault)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -811,9 +820,10 @@ def kernel_trace(fn, iters: int = 1) -> list:
                 kernels = [(re.sub(r"^void |\(anonymous namespace\)::", "", e["name"]).split("(")[0],
                             e["dur"] / 1e3) for e in json.load(f)["traceEvents"]
                            if e.get("ph") == "X" and e.get("cat") == "kernel"]
-        if kernels:
+        if kernels and (whole is None or whole(kernels)):
             return kernels
-    print(f"torch.profiler recorded no device kernel in {TRACE_TRIES} traces: not measured")
+    print(f"torch.profiler recorded no {'whole trace' if whole else 'device kernel'} in "
+          f"{TRACE_TRIES} traces: not measured")
     return []
 
 
@@ -2484,7 +2494,10 @@ def arch_phase(work: str, device, arch: str) -> dict:
     return row
 
 
-def vit_phase(device) -> dict:
+VIT_STREAM = (8, 4020, 1024)     # cell 6's residual stream: batch 8 at 1022x770
+
+
+def vit_phase(device):
     """DINOv2 ViT-L/14 with registers (``dinov2_vitl14_reg_rmac``) at its
     published widths, seeded random weights (LayerScale 0.1-0.5, so every
     block counts): a bf16 FeatureExtractor forward of 2 images of 1022 x 770
@@ -2492,30 +2505,49 @@ def vit_phase(device) -> dict:
     ``tests/plain_vit_gem.py`` (TF32 off), within 0.03 of a unit descriptor;
     the pinned attention backend ran each block's attention (24 calls, the
     profiler sees cuDNN's fused kernel and no softmax of the math backend);
-    a head 320 wide, beyond that backend, raises; and the batch-8 forward's
-    ms (CUDA events)."""
+    the fused residual and norm kernel launched 2 * 24 + 1 times (the
+    wrapper's launch counter, which ``vit.residual_norm_calls`` and a whole
+    trace agree with), and no addcmul or LayerNorm kernel, nor a copy
+    kernel once a block (a bf16 cast of the stream), did; a head 320 wide, beyond that backend, raises; and
+    the batch-8 forward's ms (CUDA events). Returns the architecture's row
+    and the fused kernel's JSON entry (:func:`residual_norm_timing`)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import plain_vit_gem
-    from torch.profiler import ProfilerActivity, profile
 
     from dirjax_torch.extraction import FeatureExtractor
     from dirjax_torch.models import create_model, vit
+    from dirjax_torch.ops import residual_norm as rn
 
     model = create_model("dinov2_vitl14_reg_rmac")
     sd = plain_vit_gem.draw({k: v.shape for k, v in model.state_dict().items()}, 21)
     model.load_state_dict(sd)
     ex = FeatureExtractor(model, device, dtype=torch.bfloat16)
     batch = np.random.default_rng(21).integers(0, 256, (8, 770, 1022, 3), dtype=np.uint8)
-    calls = vit.attention_calls
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = ex(batch[:2])
-        torch.cuda.synchronize()
+    ex(batch[:2])     # the first call casts the weights to bf16 once: count a warm one
+    calls, fused_calls, rn.launches = vit.attention_calls, vit.residual_norm_calls, 0
+    got = ex(batch[:2])
+    torch.cuda.synchronize()
     if vit.attention_calls - calls != 24:
         raise AssertionError(f"ViT-L forward made {vit.attention_calls - calls} attention calls")
-    names = [e.key for e in prof.key_averages()]
+    fused_calls, launches = vit.residual_norm_calls - fused_calls, rn.launches
+    if launches != 2 * 24 + 1 or fused_calls != launches:
+        raise AssertionError(f"ViT-L forward launched the fused residual/norm kernel {launches} "
+                             f"times in {fused_calls} calls, not 49")
+    # the checks below read a trace only if it holds every launch counted
+    kernels = kernel_trace(lambda: ex(batch[:2]), whole=lambda ks: launches == sum(
+        "residual_norm_kernel" in name for name, _ in ks))
+    if not kernels:
+        raise AssertionError("no whole trace of a ViT-L forward: its kernels went unchecked")
+    names = Counter(name for name, _ in kernels)
     if not any("fort_native_sdpa" in n for n in names) or any("softmax" in n.lower()
                                                               for n in names):
         raise AssertionError(f"ViT-L attention did not run on cuDNN's fused kernel: {names}")
+    unfused = [n for n in names if "addcmul_cuda_kernel" in n or "layer_norm_kernel" in n]
+    # a bf16 cast of the stream would be a copy kernel launched once a block or more
+    copies = {n[:120]: c for n, c in names.items() if "copy" in n.lower()}
+    print(f"ViT-L forward's copy kernels (launches): {copies}")
+    if unfused or any(c >= 24 for c in copies.values()):
+        raise AssertionError(f"ViT-L pointwise passes: unfused kernels {unfused}, copies {copies}")
     x = torch.from_numpy(batch[:2]).to(device).permute(0, 3, 1, 2).float() \
         * ex._scale[:, None, None] - ex._offset[:, None, None]
     widths = {"patch_size": 14, "num_heads": 16, "ln_eps": 1e-6, "depth": 24,
@@ -2532,11 +2564,57 @@ def vit_phase(device) -> dict:
     else:
         raise AssertionError("the pinned attention backend ran a head 320 wide")
     row = {"arch": "dinov2_vitl14_reg_rmac", "bf16_desc_dist": dist,
-           "bf16_forward_ms": forward_ms(ex, batch)}
+           "bf16_forward_ms": forward_ms(ex, batch), "residual_norm_launches": launches}
     print(f"dinov2_vitl14_reg_rmac bf16: {dist!r} from the plain fp32 forward at 1022x770; "
-          f"24 attention calls on cuDNN's fused kernel; batch 8 forward "
-          f"{row['bf16_forward_ms']:.2f} ms (CUDA events)")
-    return row
+          f"24 attention calls on cuDNN's fused kernel; {launches} fused residual/norm "
+          f"launches (as many in the trace), no addcmul or LayerNorm kernel; "
+          f"batch 8 forward {row['bf16_forward_ms']:.2f} ms (CUDA events)")
+    return row, residual_norm_timing(device)
+
+
+def residual_norm_timing(device) -> dict:
+    """The fused residual update and LayerNorm (csrc/residual_norm.cu) at
+    cell 6's stream with a bf16 branch and output, as 47 of a forward's 49
+    launches take it: held to the plain composition on the card, then timed
+    in turns with it (CUDA events); its JSON entry."""
+    from dirjax_torch.ops import residual_norm as rn
+
+    g = torch.Generator(device=device).manual_seed(22)
+    B, N, D = VIT_STREAM
+    z0 = torch.randn(VIT_STREAM, generator=g, device=device) * 2 + 0.5
+    y = torch.randn(VIT_STREAM, generator=g, device=device).to(torch.bfloat16)
+    gamma = torch.rand(D, generator=g, device=device) * 0.4 + 0.1
+    w = torch.rand(D, generator=g, device=device) * 0.4 + 0.8
+    b = torch.randn(D, generator=g, device=device) * 0.05
+    args = (y, gamma, w, b, 1e-6, torch.bfloat16)
+    z, z_want = z0.clone(), z0.clone()
+    got, want = rn.fused_residual_norm(z, *args), rn.residual_norm_reference(z_want, *args)
+    torch.cuda.synchronize()
+    summands = z0.abs() + (gamma * y.float()).abs()
+    stream_ulps = ((z - z_want).abs() / summands).max().item() * 2 ** 23
+    apart = (got != want).float().mean().item()
+    one_ulp = ((got.float() - want.float()).abs() <= want.float().abs() * 2 ** -7 + 1e-5).all()
+    print(f"residual_norm {VIT_STREAM} bf16: stream within {stream_ulps:.2f} fp32 ulps of its "
+          f"summands, bf16 outputs apart {apart:.2e}")
+    if stream_ulps > 2 or apart > 1e-3 or not one_ulp:
+        raise AssertionError("residual_norm strays from the plain composition")
+    del z_want, want, got
+    ms, library_ms = time_in_turns(f"residual_norm {VIT_STREAM} bf16",
+                                   lambda: rn.residual_norm_reference(z, *args),
+                                   lambda: rn.fused_residual_norm(z, *args))
+    nbytes = B * N * D * (4 + 2 + 4 + 2)   # z and y read, z and the bf16 rows written
+    entry = {"name": "residual_norm", "route": "cuda",
+             "source": "dirjax_torch/csrc/residual_norm.cu",
+             "replaces": "no TPU kernel: models/vit.py's addcmul_, layer_norm and bf16 cast",
+             "stream_max_ulps": stream_ulps, "bf16_apart": apart, "ms": ms,
+             "plain_ms": library_ms, **bound(nbytes, 10 * B * N * D, "fp32"),
+             "library_ms": library_ms,
+             "library_note": "the plain composition: addcmul_, F.layer_norm, .to (ATen)"}
+    entry["hbm_pct"] = 100 * entry["bound_ms"] / ms
+    print(f"residual_norm {VIT_STREAM}: {ms:.4f} ms (CUDA events), "
+          f"composition {library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({nbytes / 1e6:.0f} MB): {entry['hbm_pct']:.1f}% of 3.35 TB/s")
+    return entry
 
 
 def folded_phase(bench: str, ckpt: str, device) -> dict:
@@ -3443,7 +3521,7 @@ def main(argv=None) -> int:
                     arch_rows[arch]["bf16_k1_launches"]
                 conv_by_path[arch] = arch_rows[arch]["bf16_conv_launches"]
             enter("main path dinov2_vitl14_reg_rmac")
-            arch_rows["dinov2_vitl14_reg_rmac"] = vit_phase(device)
+            arch_rows["dinov2_vitl14_reg_rmac"], fused_norm_entry = vit_phase(device)
             enter("folded BN")
             folded_row = folded_phase(bench, ckpt, device)
             k1_by_path["resnet101_rmac folded"] = folded_row["k1_launches"]
@@ -3479,6 +3557,11 @@ def main(argv=None) -> int:
         conv_entry["launches"] = sum(conv_by_path.values())
         conv_entry["launches_by_path"] = conv_by_path
         entries.append(conv_entry)
+        fused_norm_entry["launches"] = arch_rows["dinov2_vitl14_reg_rmac"][
+            "residual_norm_launches"]
+        fused_norm_entry["launches_by_path"] = {"dinov2_vitl14_reg_rmac": fused_norm_entry[
+            "launches"]}
+        entries.append(fused_norm_entry)
         for entry in topk_entries + binary_entries + pq_entries:
             by_path = {"serving": serving_launches[entry["name"]],
                        "sharded": sharded_launches[entry["name"]],

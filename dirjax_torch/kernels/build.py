@@ -145,6 +145,8 @@ def load_library() -> ctypes.CDLL:
         "dirjax_conv_weight_map": [vp, i, i, i, i, i, ctypes.c_char_p],
         # cin, cout, groups, kh, kw, stride -> the path (ops/conv.py::kernel_path)
         "dirjax_conv_path": [i, i, i, i, i, i],
+        # z, batch_stride, y, branch, gamma, w, b, out, out_bf16, batch, rows, d, eps, stream
+        "dirjax_residual_norm": [vp, ll, vp, i, vp, vp, vp, vp, i, i, i, i, f, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

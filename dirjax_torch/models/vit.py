@@ -26,7 +26,16 @@ then the h*w patches, N = 1 + registers + h*w of them.
   a bias, its heads are 64 wide, ``softmax(q k^T / sqrt(64)) v`` with no
   mask; GELU is exact (erf); LayerNorm's eps is 1e-6.
 - The final LayerNorm, on the patch tokens the head pools (DINOv2 norms every
-  token; the class and register tokens feed nothing here).
+  token; the class and register tokens feed nothing here, so the last
+  block's MLP update skips them too).
+
+Each LayerScale residual update runs in one pass with the LayerNorm that
+follows it, across block boundaries (``ops/residual_norm.py``, on the card
+``csrc/residual_norm.cu``): ``LN1`` of block 0 alone, then each block's
+``z += gamma1 * attn`` with its ``LN2``, and ``z += gamma2 * mlp`` with the
+next block's ``LN1`` or, after the last block, the final norm on the patch
+tokens. So a forward makes 2 * depth + 1 such calls, and each writes the
+normed rows straight in the dtype the next layer reads.
 
 Modules are named after DINOv2's state-dict keys (``cls_token``,
 ``pos_embed``, ``register_tokens``, ``mask_token``, ``patch_embed.proj``,
@@ -38,7 +47,9 @@ ls2.gamma}``, ``norm``), so a DINOv2 checkpoint loads with
 gives DINOv2's own module: every linear layer, the patch embedding
 included, and the attention take bf16 operands, sum in fp32 and write bf16;
 LayerNorm reads and writes fp32; LayerScale widens its bf16 input, so the
-residual stream stays fp32; GELU runs on fc1's bf16 output. The bf16
+residual stream stays fp32; GELU runs on fc1's bf16 output. The fused
+pass rounds the fp32 LayerNorm output to bf16 where autocast's next linear
+layer would, and keeps the final norm's output fp32. The bf16
 weights are cast once and kept while the parameters stay the same (as the
 convolution's packed operands are). ``dtype`` fp32 runs everything in fp32.
 
@@ -49,9 +60,10 @@ store a B x heads x N x N matrix (sixteen 4,020^2 matrices an image at
 1022 x 770). On the CPU it is the math backend, the plain path.
 
 The host time of the embedding's launches is the span ``vit.embed``, that of
-the blocks' launches (not synchronised) ``vit.blocks``. :data:`attention_calls`
-counts the attention calls that returned, :data:`pos_embed_builds` the
-position-embedding resamplings.
+the blocks' launches (not synchronised, the final norm's included)
+``vit.blocks``. :data:`attention_calls` counts the attention calls that
+returned, :data:`residual_norm_calls` the fused residual and norm calls
+that returned, :data:`pos_embed_builds` the position-embedding resamplings.
 """
 
 from __future__ import annotations
@@ -64,10 +76,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..ops.residual_norm import fused_residual_norm
 from ..utils import timer
 
 __all__ = ["ViTConfig", "VIT_CONFIGS", "VisionTransformer", "ATTENTION_BACKENDS",
-           "POS_CACHE_GRIDS", "attention", "attention_calls", "pos_embed_builds"]
+           "POS_CACHE_GRIDS", "attention", "attention_calls", "residual_norm_calls",
+           "pos_embed_builds"]
 
 #: the one fused backend the attention may take on the card, by dtype; a
 #: call the backend refuses raises. bf16 takes cuDNN's: 1.30 ms against
@@ -81,6 +95,8 @@ POS_CACHE_GRIDS = 4
 
 #: attention calls that returned, in this process (reset them to count a run)
 attention_calls = 0
+#: fused residual and LayerNorm calls that returned (reset them to count a run)
+residual_norm_calls = 0
 #: position-embedding resamplings, one a new grid (reset them to count a run)
 pos_embed_builds = 0
 
@@ -148,6 +164,17 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x, *_cast((lin.weight, lin.bias), dtype, lin, "_cast_operands"))
 
 
+def _residual_norm(z: torch.Tensor, y, scale, norm: nn.LayerNorm,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``z += scale.gamma * y`` (where ``y`` is given), then ``norm`` of
+    ``z`` in ``dtype``, in one pass (:func:`ops.residual_norm.fused_residual_norm`)."""
+    global residual_norm_calls
+    out = fused_residual_norm(z, y, None if scale is None else scale.gamma, norm.weight,
+                              norm.bias, norm.eps, dtype)
+    residual_norm_calls += 1
+    return out
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -189,11 +216,6 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.mlp = Mlp(cfg)
         self.ls2 = LayerScale(cfg.embed_dim)
-
-    def forward(self, z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """``z``: the fp32 residual stream (B, N, D), updated in place."""
-        z.addcmul_(self.attn(self.norm1(z).to(dtype), dtype), self.ls1.gamma)
-        return z.addcmul_(self.mlp(self.norm2(z).to(dtype), dtype), self.ls2.gamma)
 
 
 class PatchEmbed(nn.Module):
@@ -274,6 +296,15 @@ class VisionTransformer(nn.Module):
             z[:, 1:front] = self.register_tokens[0]
             torch.add(patches, self._patch_pos(h, w), out=z[:, front:])
         with timer.span("vit.blocks", B):
-            for blk in self.blocks:
-                z = blk(z, dtype)
-        return self.norm(z[:, front:]).view(B, h, w, d)
+            # z, the fp32 stream, is updated in place; a, the normed rows
+            # the next branch reads
+            blocks = self.blocks
+            a = _residual_norm(z, None, None, blocks[0].norm1, dtype)
+            for i, blk in enumerate(blocks):
+                a = _residual_norm(z, blk.attn(a, dtype), blk.ls1, blk.norm2, dtype)
+                if i + 1 < len(blocks):
+                    a = _residual_norm(z, blk.mlp(a, dtype), blk.ls2, blocks[i + 1].norm1, dtype)
+                else:   # the final norm, on the patch tokens alone, in fp32
+                    a = _residual_norm(z[:, front:], blk.mlp(a, dtype)[:, front:], blk.ls2,
+                                       self.norm, torch.float32)
+        return a.view(B, h, w, d)

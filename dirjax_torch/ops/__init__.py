@@ -23,6 +23,7 @@ from .qe import (  # noqa: F401
     expand_queries_quantized,
 )
 from .ranking import compute_scores, compute_scores_chunked, rank_topk  # noqa: F401
+from .residual_norm import fused_residual_norm, residual_norm_reference  # noqa: F401
 from .topk import quantize_db, rank_topk_fused  # noqa: F401
 from .whitening import (PCAParams, apply_whitening, fit_pca,  # noqa: F401
                         fit_pca_device, whitening_matrix)

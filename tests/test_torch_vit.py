@@ -357,7 +357,9 @@ def test_published_widths_bf16_on_the_card(cuda):
     770 (4,020 tokens), bf16 through FeatureExtractor, against the plain
     fp32 forward on the card: 24 blocks of bf16 operands, so 0.03 of a
     unit descriptor. The pinned backend ran every attention, and the
-    profiler saw no kernel of the math backend (no softmax kernel)."""
+    profiler saw no kernel of the math backend (no softmax kernel); the
+    fused residual update and norm ran 2 * 24 + 1 times, and no addcmul or
+    LayerNorm kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
     model = create_model("dinov2_vitl14_reg_rmac").eval()
@@ -365,13 +367,15 @@ def test_published_widths_bf16_on_the_card(cuda):
     model.load_state_dict(sd)
     ex = FeatureExtractor(model, cuda, dtype=torch.bfloat16)
     px = np.random.default_rng(1).integers(0, 256, (2, 770, 1022, 3), dtype=np.uint8)
-    calls = vit.attention_calls
+    calls, fused = vit.attention_calls, vit.residual_norm_calls
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = ex(px)
         torch.cuda.synchronize()
     assert vit.attention_calls - calls == 24
+    assert vit.residual_norm_calls - fused == 49
     names = {e.key for e in prof.key_averages()}
     assert not [n for n in names if "softmax" in n.lower()], names
+    assert not [n for n in names if "addcmul" in n or "layer_norm" in n], names
     x = torch.from_numpy(px).to(cuda).permute(0, 3, 1, 2).float() * ex._scale[:, None, None] \
         - ex._offset[:, None, None]
     want = plain.forward({k: v.to(cuda) for k, v in sd.items()}, widths(model.vit_cfg), x)
