@@ -29,8 +29,8 @@ Phases, each of which raises on failure:
    bf16 output's elements not equal (9.0e-4 measured at K = 4608); the
    largest fp32-output difference over its magnitude is printed, and the
    path each shape took (by the shape: wgmma, wgmma over a grouped conv's
-   64-channel spans, the stem kernel, or mma.sync; every grouped and stem
-   shape must take its own). Each affine R101 batch-8 shape (and ResNeXt's
+   64-channel spans, or the stem kernel; every grouped and stem shape must
+   take its own). Each affine R101 batch-8 shape (and ResNeXt's
    grouped ones) timed (CUDA events): the kernel on packed operands, its
    wrapper as the backbone calls it on its cached operands (in turns with
    the kernel), the plain version, cuDNN's bf16 conv2d of the same shape
@@ -106,7 +106,7 @@ Phases, each of which raises on failure:
 7. concurrent launches — K6 (resident tables: m 8 and 64 at ksub 16;
    streamed: ksub 256 and 100 at m 32), the ADC rescore (m 64, ksub 256,
    kf 100, nq 1 and 256), K1 (C 1024 and 2048 at the main-path shape) and
-   the fused conv (its wgmma and mma.sync paths), each from 8 host threads
+   the fused conv (its dense and grouped wgmma paths), each from 8 host threads
    at once, 50 launches a thread alternating the two shapes, whose dynamic
    shared memory differs, on 1,048,576 rows; every launch must succeed and
    every answer equal the plain version (the conv: its own single-thread
@@ -238,17 +238,6 @@ Phases, each of which raises on failure:
    extraction img/s (host clock), the fine-tune's first and last 25-step AP
    loss, the spectrum, every tier's recall, and one ksub-256 IVF search
    (nq 256, k 10, nprobe 4 and 16; CUDA events, ms and QPS).
-
-    python3 chip_smoke.py --profile DIR   # also phase 18
-
-18. profile — where a warm database extraction's time goes, fp32 and bf16:
-   unprofiled wall (host clock), forward ms per batch of 8 (CUDA events) and
-   peak memory, and a torch.profiler trace whose device intervals are merged
-   into busy time and split into convolution, elementwise, copies, K1 and
-   other. Writes the traces and ``profile_summary.json`` into DIR. And where
-   one direct search's time goes, per serving signature at nq = 1, 16 and
-   64: host ms per search and device ms by kernel
-   (``serving_profile.json``).
 
 Each phase prints ``chip_smoke: phase <name>`` as it starts; on any
 exception the script prints ``chip_smoke: phase <name> failed: <error>``,
@@ -549,14 +538,11 @@ def check_conv(a: dict) -> dict:
 
 def conv_kernel_path(a: dict) -> str:
     """The path the kernel takes for a recorded call (``kernel_path`` of the
-    tree under test; a tree from before the stem and span paths names its
-    path by the channels alone)."""
+    tree under test)."""
     from dirjax_torch.ops import conv
 
     cout, cin_g, kh, kw = a["weight"].shape
     cin = cin_g * a["groups"]
-    if not hasattr(conv, "conv_path"):
-        return conv.kernel_path(cin, cout, a["groups"])
     path = conv.kernel_path(cin, cout, a["groups"], kh, kw, a["stride"])
     if path != conv.conv_path(cin, cout, a["groups"], kh, kw, a["stride"]):
         raise AssertionError(f"fused conv {conv_key(a)}: the library takes {path}, the "
@@ -734,7 +720,7 @@ def fused_conv_phase(device) -> dict:
     wrong = sorted({(s["class"], s["path"]) for s in per_shape
                     if (s["class"] == "grouped 3x3") != s["path"].endswith("grouped")
                     or (s["class"] == "stem") != s["path"].startswith("stem")})
-    if hasattr(conv, "conv_path") and wrong:
+    if wrong:
         raise AssertionError(f"fused conv: a grouped or stem shape off its path: {wrong}")
     r101 = bound(totals["bytes"], totals["ops"], "bf16")
     print(f"fused conv, the {R101_CONVS} convolutions of one resnet101_rmac bf16 forward "
@@ -1604,54 +1590,11 @@ def same_answer(tag: str, got, want) -> None:
             raise AssertionError(f"{tag}: index {gi[r, c]} is no near-tie")
 
 
-def serving_profile(indexes: dict, out_dir: str, card: str) -> None:
-    """Where one direct search's time goes, per serving signature at nq = 1,
-    16 and 64: host ms per search (5 searches, the result pull included) and
-    the device time of each kernel in a torch.profiler trace of one more
-    (the four largest, and the ADC rescore's sum)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(out_dir, exist_ok=True)
-    rng = np.random.default_rng(6)
-    rows = []
-    for name, index in indexes.items():
-        for k, opts in SIGNATURES[name]:
-            for nq in (1, 16, 64):
-                q = rng.standard_normal((nq, SERVE_D)).astype(np.float32)
-                index.search(q, k=k, **opts)
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    index.search(q, k=k, **opts)
-                host_ms = (time.perf_counter() - t0) / 5 * 1e3
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    index.search(q, k=k, **opts)
-                trace = os.path.join(out_dir, "trace_search.json")
-                prof.export_chrome_trace(trace)
-                kernels = defaultdict(float)
-                with open(trace) as f:
-                    for e in json.load(f)["traceEvents"]:
-                        if e.get("ph") == "X" and e.get("cat") in (
-                                "kernel", "gpu_memcpy", "gpu_memset"):
-                            kname = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
-                            kernels[kname.split("(")[0][:48]] += e["dur"] / 1e3
-                top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
-                row = {"index": name, "k": k, "opts": opts, "nq": nq,
-                       "host_ms": host_ms, "device_ms": sum(kernels.values()),
-                       "top_device_ms": top,
-                       "rescore_ms": sum(v for kn, v in kernels.items() if "adc_rescore" in kn)}
-                rows.append(row)
-                print("serving profile: " + json.dumps(row))
-    os.unlink(os.path.join(out_dir, "trace_search.json"))
-    with open(os.path.join(out_dir, "serving_profile.json"), "w") as f:
-        json.dump({"card": card, "rows": SERVE_N, "dim": SERVE_D, "searches": rows},
-                  f, indent=1)
-
-
 def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_books,
-                  ivf_index, profile_dir: str = "", card: str = "") -> dict:
+                  ivf_index) -> dict:
     """The serving main path: concurrent Clients against an IndexServer per
     index; returns the launch counts of K2-K6 and the rescores during the
-    traffic. With ``profile_dir``, also :func:`serving_profile`."""
+    traffic."""
     from dirjax_torch.ops import binary, pq, topk
     from dirjax_torch.serve import latency_ms
     from dirjax_torch.server import Client, IndexServer
@@ -1747,8 +1690,6 @@ def serving_phase(device, db16: torch.Tensor, db32: torch.Tensor, codec, pq_book
     # exact score after it, which says nothing about the upload
     upload_bf16_check({"bf16": indexes["bf16"],
                        "pq": PQIndex(db32, device=device, _trained=(None, pq_books))})
-    if profile_dir:
-        serving_profile(indexes, profile_dir, card)
     return launches
 
 
@@ -2306,97 +2247,6 @@ def check_against_cpu(tag: str, got: np.ndarray, want: np.ndarray,
         raise AssertionError(f"{label} {tag} descriptors disagree with {against}: "
                              f"shape {got.shape} vs {want.shape}, cosine {cos}")
     return float(cos.min())
-
-
-_K1_KERNELS = ("gem_pool_kernel", "project_kernel")
-_CONV_OPS = ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution")
-
-
-def device_breakdown(trace_path: str) -> dict:
-    """Device time of a torch.profiler chrome trace, in ms: ``busy`` is the
-    union of every kernel, copy and memset interval; the parts sum the
-    intervals by kind. A kernel is K1 by name, a convolution when an aten
-    convolution op launched it (cuDNN's GEMM, FFT and layout kernels), the
-    fused conv (csrc/conv.cu) by name otherwise, and elementwise when
-    ATen's elementwise templates run it."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    ops = {e["args"]["External id"]: e["name"] for e in events
-           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
-    parts = defaultdict(float)
-    spans = []
-    k1_launches = 0
-    for e in events:
-        cat = e.get("cat")
-        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        spans.append((e["ts"], e["ts"] + e["dur"]))
-        name = e["name"]
-        if cat != "kernel":
-            kind = "copies"
-        elif any(k in name for k in _K1_KERNELS):
-            kind = "K1"
-            k1_launches += "gem_pool_kernel" in name
-        elif ops.get(e.get("args", {}).get("External id")) in _CONV_OPS:
-            kind = "convolution"
-        elif re.search(r"namespace\)::(wg::conv_wgmma_kernel|conv_kernel)<", name):   # csrc/conv.cu
-            kind = "fused_conv"
-        elif "elementwise" in name:
-            kind = "elementwise"
-        else:
-            kind = "other"
-        parts[kind] += e["dur"] / 1e3
-    busy, reach = 0.0, -math.inf
-    for lo, hi in sorted(spans):
-        if hi > reach:
-            busy += hi - max(lo, reach)
-            reach = hi
-    return {"busy_ms": busy / 1e3, "k1_launches": k1_launches,
-            **{f"{k}_ms": v for k, v in sorted(parts.items())}}
-
-
-def profile_phase(bench: str, ckpt: str, device, out_dir: str, card: str):
-    """Where a warm database extraction's time goes, fp32 and bf16."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from dirjax_torch import datasets
-    from dirjax_torch.extraction import FeatureExtractor, extract_image_features
-    from dirjax_torch.utils.checkpoints import load_checkpoint
-
-    os.makedirs(out_dir, exist_ok=True)
-    db = datasets.create(f"Synthetic('{bench}')")
-    batch = np.stack([np.asarray(db.get_image(i).convert("RGB")) for i in range(8)])
-    summary = {"card": card, "images": len(db), "batch_size": 8}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        ck = load_checkpoint(ckpt)
-        ex = FeatureExtractor(ck.model, device, dtype=dtype, preprocess=ck.preprocess)
-
-        def extract() -> float:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            extract_image_features(db, "", ex)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3
-
-        extract()  # warm-up: cuDNN picks its algorithms, the allocator fills
-        walls = [extract(), extract()]
-        torch.cuda.reset_peak_memory_stats(device)
-        fwd_ms = _time_ms(lambda: ex(batch), iters=10)
-        peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prof_wall = extract()
-        trace = os.path.join(out_dir, f"trace_extract_{tag}.json")
-        prof.export_chrome_trace(trace)
-        b = device_breakdown(trace)
-        row = {"wall_ms": walls, "img_per_s": [len(db) * 1e3 / w for w in walls],
-               "forward_ms_per_batch": fwd_ms, "forward_img_per_s": 8e3 / fwd_ms,
-               "peak_gib": peak_gib, "profiled_wall_ms": prof_wall,
-               "idle_share": 1.0 - b["busy_ms"] / prof_wall, **b}
-        summary[tag] = row
-        print(f"profile {tag}: " + json.dumps(row))
-    with open(os.path.join(out_dir, "profile_summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
 
 
 # --- concurrent launches: the launchers' shared-memory opt-in under threads --
@@ -3409,8 +3259,6 @@ def recall_phase(work: str, device) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", default="", metavar="DIR",
-                        help="also profile an extraction; traces go to DIR")
     parser.add_argument("--conv-only", action="store_true",
                         help="build and run the fused conv phase alone (no result lines)")
     parser.add_argument("--tree", default="", metavar="DIR",
@@ -3464,8 +3312,7 @@ def main(argv=None) -> int:
         enter("concurrent launches")
         concurrent_phase(device)
         enter("serving")
-        serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index,
-                                         args.profile, card)
+        serving_launches = serving_phase(device, db16, db32, codec, pq_books, ivf_index)
         enter("sharded")
         sharded_row, sharded_launches = sharded_phase(device, db16, db32, codec, pq_books,
                                                       ivf_index, card)
@@ -3539,9 +3386,6 @@ def main(argv=None) -> int:
             recall_row = recall_phase(work, device)
             k1_by_path["recall study"] = recall_row["launches"]["gem_head"]
             conv_by_path["recall study"] = recall_row["launches"]["conv_fused"]
-            if args.profile:
-                enter("profile")
-                profile_phase(bench, ckpt, device, args.profile, card)
         enter("report")
         print("extraction side: " + json.dumps({"architectures": arch_rows, "folded_bn": folded_row,
                                                 "fit_pca_device": pca_row,

@@ -28,7 +28,8 @@
 // at 3.35 TB/s): most layers are bound by their bytes, the 3x3 layers of the
 // deeper stages by their operations.
 //
-// Four paths, chosen from the shape alone (dirjax_conv_path below):
+// Three paths, chosen from the shape alone (dirjax_conv_path below); a shape
+// none takes is refused:
 //
 // wgmma (groups == 1, cin and cout multiples of 64: every convolution of
 // the ResNets but the stem, and the FPN merge; and, over 64-channel spans,
@@ -74,15 +75,15 @@
 // channels 64s .. 64s + 63 at one tap (the dense path's 128-byte-swizzled
 // full-row box) against that tap's block-diagonal 64 x 64 weight block:
 // the input is read in whole 128-byte rows once a span and tap, and each
-// stage is a dense wgmma, where the mma.sync kernel read 8-byte chunks, one
-// group's channels a CTA, into N tiles three quarters empty at g = 4.
+// stage is a dense wgmma, where one group's channels a CTA would fill N
+// tiles three quarters empty at g = 4.
 //
 // stem (groups == 1, at most 4 input channels, 64 outputs, kh, kw <= 7,
 // stride <= 2: the 7x7/2 stem of every architecture). What bounds it is
 // its bytes: at batch 8, 1024x768, 75.5 MB of fp32 input and 201.3 MB of
 // bf16 output (0.083 ms) against 41.9 GFLOP (0.042 ms). It reads the input
-// where it lies, fp32 or bf16 NHWC, so the wrapper's cast-and-pad copy is
-// gone. Persistent CTAs, two an SM, each of two warpgroups, walk tiles of
+// where it lies, fp32 or bf16 NHWC: the wrapper makes no copy of it.
+// Persistent CTAs, two an SM, each of two warpgroups, walk tiles of
 // 8 x 16 output pixels. For each tile a CTA
 //   - copies the input rows under the tile's windows (21 runs of 37
 //     pixels, each contiguous in NHWC) into shared memory with 16-byte
@@ -100,23 +101,6 @@
 //     contiguous bytes of the epilogue's output.
 // The other CTA on the SM runs meanwhile: one CTA an SM (8 warps) left
 // each tile's chain of shared-memory loads and stores exposed.
-//
-// mma.sync (everything else: grouped convolutions without spans, channels
-// not multiples of 64; a 3-channel input arrives padded to 4 with zeros by
-// the wrapper, which adds exact zeros to each sum):
-//   - A CTA of 8 warps owns a 128-pixel x BN-channel output tile (BN = 16,
-//     32, 64 or 128, the least that covers cout / groups) of one group; the
-//     grid is (pixel tiles, groups x channel tiles).
-//   - K walks in 32-wide slices through a 4-stage cp.async ring in shared
-//     memory (rows padded to 80 bytes, so ldmatrix reads no bank twice).
-//     Each thread's input chunks share one (r, s, c) a slice; a chunk outside
-//     the image, past K or past M is zero-filled by the copy itself
-//     (src-size 0): that is the convolution's zero padding. Chunks are 16
-//     bytes where cin / groups is a multiple of 8, else 8 bytes.
-//   - mma.sync m16n8k16 (bf16 in, fp32 accumulate) on ldmatrix fragments;
-//     each warp owns a (128 / WARPS_M) x (BN / WARPS_N) piece of the tile.
-//   - The epilogue stages the fp32 accumulators in shared memory (the ring's
-//     space), then the same 4-channel epilogue as the wgmma path.
 
 #include <cuda.h>   // CUtensorMap and its encoders' types only: nothing more is linked
 #include <cuda_bf16.h>
@@ -134,45 +118,7 @@
 
 namespace {
 
-constexpr int kBM = 128;          // output pixels a CTA
-constexpr int kBK = 32;           // K a stage
-constexpr int kStages = 4;
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kRow = kBK + 8;     // a staged row: 32 bf16 and 8 of padding (80 bytes)
-
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int VEC>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const int bytes = valid ? VEC * 2 : 0;   // 0: the copy zero-fills dst
-  if constexpr (VEC == 8) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The epilogue's operands, shared by both paths.
+// The epilogue's operands, shared by every path.
 struct Epilogue {
   const float* scale;         // (cout,) or null
   const float* shift;         // (cout,) or null
@@ -213,16 +159,6 @@ template <> struct Residual<2> {
                                                  m * a.cout + n));
   }
   __device__ __forceinline__ static float4 get(Raw raw) { return raw; }
-};
-
-struct ConvArgs {
-  const __nv_bfloat16* x;     // (batch, h, w, cin) bf16
-  const __nv_bfloat16* w;     // (cout, kh, kw, cin_g) bf16
-  Epilogue epi;
-  int h, w_in, cin, ho, wo, cout, kw, stride, pad;
-  int cin_g, cout_g, k_g;     // per group; k_g = kh * kw * cin_g
-  int m;                      // batch * ho * wo
-  int n_tiles;                // channel tiles a group
 };
 
 // One output element from its fp32 sum: the multiply and the adds rounded
@@ -271,192 +207,6 @@ __device__ __forceinline__ void store4(const Epilogue& a, float4 acc, float4 sc,
   } else {
     *reinterpret_cast<float4*>(static_cast<float*>(a.out) + off) = make_float4(v0, v1, v2, v3);
   }
-}
-
-// The same from the four sums in shared memory, its operands read here.
-__device__ __forceinline__ void finish4(const Epilogue& a, const float* sums, long long m,
-                                        int n) {
-  store4(a, *reinterpret_cast<const float4*>(sums), scale4(a, n), shift4(a, n),
-         residual4(a, m, n), m, n);
-}
-
-template <int BN, int WARPS_M, int VEC>
-__global__ void __launch_bounds__(kThreads) conv_kernel(ConvArgs a) {
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WM = kBM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int MT = WM / 16, NT = WN / 8;
-  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
-  constexpr int CPR = kBK / VEC;                // chunks a staged row
-  constexpr int A_CHUNKS = kBM * CPR / kThreads;
-  static_assert(kBM * CPR % kThreads == 0 && kThreads % CPR == 0, "loader");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sA = smem;                               // [kStages][kBM][kRow]
-  __nv_bfloat16* sB = smem + kStages * kBM * kRow;        // [kStages][BN][kRow]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int m0 = blockIdx.x * kBM;
-  const int grp = blockIdx.y / a.n_tiles;
-  const int n0 = (blockIdx.y % a.n_tiles) * BN;
-  const int KT = (a.k_g + kBK - 1) / kBK;
-
-  // this thread's input rows: every chunk it copies has the same column
-  const int a_col = tid % CPR;
-  long long a_pix[A_CHUNKS];     // first element of image b's pixel (0, 0) and channel grp * cin_g
-  int a_hi[A_CHUNKS], a_wi[A_CHUNKS];
-  bool a_ok[A_CHUNKS];
-  const int hw_out = a.ho * a.wo;
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    const int m = m0 + (tid + i * kThreads) / CPR;
-    a_ok[i] = m < a.m;
-    const int mm = a_ok[i] ? m : 0;
-    const int b = mm / hw_out, rem = mm - b * hw_out;
-    const int ho = rem / a.wo, wo = rem - ho * a.wo;
-    a_hi[i] = ho * a.stride - a.pad;
-    a_wi[i] = wo * a.stride - a.pad;
-    a_pix[i] = (long long)b * a.h * a.w_in * a.cin + (long long)grp * a.cin_g;
-  }
-
-  auto load_tile = [&](int stage, int kt) {
-    // input: one (r, s, c) for all of this thread's chunks
-    const int k = kt * kBK + a_col * VEC;
-    const bool k_ok = k < a.k_g;
-    const int rs = k / a.cin_g, c = k - rs * a.cin_g;
-    const int r = rs / a.kw, s = rs - r * a.kw;
-    __nv_bfloat16* dst_a = sA + stage * kBM * kRow;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int row = (tid + i * kThreads) / CPR;
-      const int hi = a_hi[i] + r, wi = a_wi[i] + s;
-      const bool ok = a_ok[i] && k_ok && hi >= 0 && hi < a.h && wi >= 0 && wi < a.w_in;
-      const __nv_bfloat16* src =
-          ok ? a.x + a_pix[i] + ((long long)hi * a.w_in + wi) * a.cin + c : a.x;
-      cp_async<VEC>(dst_a + row * kRow + a_col * VEC, src, ok);
-    }
-    // weights: BN rows of this group's channel tile
-    __nv_bfloat16* dst_b = sB + stage * BN * kRow;
-    for (int idx = tid; idx < BN * CPR; idx += kThreads) {
-      const int n = idx / CPR, col = idx - n * CPR;
-      const int kk = kt * kBK + col * VEC;
-      const bool ok = n0 + n < a.cout_g && kk < a.k_g;
-      const __nv_bfloat16* src =
-          ok ? a.w + (long long)(grp * a.cout_g + n0 + n) * a.k_g + kk : a.w;
-      cp_async<VEC>(dst_b + n * kRow + col * VEC, src, ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // tile kt is in; every warp is done with the stage refilled below
-    const int next = kt + kStages - 1;
-    if (next < KT) load_tile(next % kStages, next);
-    cp_async_commit();
-
-    const __nv_bfloat16* tA = sA + (kt % kStages) * kBM * kRow;
-    const __nv_bfloat16* tB = sB + (kt % kStages) * BN * kRow;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int row = wm * WM + i * 16 + (lane & 15);
-        ldmatrix_x4(af[i], tA + row * kRow + kk + (lane >> 4) * 8);
-      }
-      uint32_t bf[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        const int n = wn * WN + j * 8 + (lane & 7) + (lane >> 4) * 8;
-        uint32_t r[4];
-        ldmatrix_x4(r, tB + n * kRow + kk + ((lane >> 3) & 1) * 8);
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the accumulators go through shared memory (the ring is free
-  // now), so that each thread then takes 4 consecutive channels of a pixel:
-  // 16-byte reads of the tile, the residual and the scale/shift, 8- or
-  // 16-byte stores, a warp on 512 contiguous bytes of a row where BN allows
-  constexpr int TS = BN + 8;   // the staged row in floats: float2 stores hit no bank twice
-  static_assert(kBM * TS * 4 <= kStages * (kBM + BN) * kRow * 2, "staged tile");
-  float* tile = reinterpret_cast<float*>(smem_raw);
-  __syncthreads();   // every warp is done reading the ring
-  {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = wm * WM + i * 16 + g + half * 8, col = wn * WN + j * 8 + 2 * t;
-          *reinterpret_cast<float2*>(tile + row * TS + col) =
-              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-        }
-  }
-  __syncthreads();
-  constexpr int CHUNKS = BN / 4;   // 4-channel chunks a row of the tile
-  for (int idx = tid; idx < kBM * CHUNKS; idx += kThreads) {
-    const int row = idx / CHUNKS, c = (idx - row * CHUNKS) * 4;
-    const int m = m0 + row, nl = n0 + c;
-    if (m >= a.m || nl >= a.cout_g) continue;
-    finish4(a.epi, tile + row * TS + c, m, grp * a.cout_g + nl);
-  }
-}
-
-template <int BN, int WARPS_M, int VEC>
-cudaError_t launch(const ConvArgs& a, int groups, cudaStream_t stream) {
-  auto kernel = conv_kernel<BN, WARPS_M, VEC>;
-  const int smem = kStages * (kBM + BN) * kRow * (int)sizeof(__nv_bfloat16);
-  static OptInFlags opted;   // one size per instance: the ceiling is this launch's
-  cudaError_t err = opt_in_once(kernel, smem, smem, opted);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.m + kBM - 1) / kBM, groups * a.n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int VEC>
-cudaError_t launch_vec(ConvArgs& a, int groups, cudaStream_t stream) {
-  if (a.cout_g <= 16) {
-    a.n_tiles = 1;
-    return launch<16, 8, VEC>(a, groups, stream);
-  }
-  if (a.cout_g <= 32) {
-    a.n_tiles = 1;
-    return launch<32, 8, VEC>(a, groups, stream);
-  }
-  if (a.cout_g <= 64) {
-    a.n_tiles = 1;
-    return launch<64, 4, VEC>(a, groups, stream);
-  }
-  a.n_tiles = (a.cout_g + 127) / 128;
-  return launch<128, 2, VEC>(a, groups, stream);
 }
 
 // --------------------------------------------------------------------------
@@ -1133,8 +883,8 @@ cudaError_t launch(Args& a, int batch, int x_fp32, cudaStream_t stream) {
 
 // The path a convolution of this shape takes, the rule dirjax_conv_fused
 // follows: 128 or 64, the wgmma path at that tile width; 2, the wgmma path
-// over a grouped convolution's 64-channel spans; 1, the stem path; 0, the
-// mma.sync path.
+// over a grouped convolution's 64-channel spans; 1, the stem path; 0, no
+// path (dirjax_conv_fused refuses the shape).
 extern "C" int dirjax_conv_path(int cin, int cout, int groups, int kh, int kw, int stride) {
   if (wg::spans(cin, cout, groups)) return 2;
   if (const int bn = wg::tile_width(cin, cout, groups)) return bn;
@@ -1143,8 +893,8 @@ extern "C" int dirjax_conv_path(int cin, int cout, int groups, int kh, int kw, i
 
 // The TMA tensor map of packed weights w (cout, kh, kw, cin / groups; a
 // grouped conv over spans: (cout, kh, kw, 64)) for the wgmma path, written to
-// map (128 bytes of host memory); all zeros for a shape another path takes.
-// Returns a cudaError_t.
+// map (128 bytes of host memory); all zeros for a shape the wgmma path does
+// not take. Returns a cudaError_t.
 extern "C" int dirjax_conv_weight_map(const void* w, int cin, int cout, int kh, int kw,
                                       int groups, void* map) {
   if (w == nullptr || map == nullptr || cin <= 0 || cout <= 0 || kh <= 0 || kw <= 0 ||
@@ -1170,8 +920,8 @@ extern "C" int dirjax_conv_weight_map(const void* w, int cin, int cout, int kh, 
 // add, 2 after it; out: (batch, ho, wo, cout), bf16 if out_bf16 else fp32.
 // cin / groups (but on the stem path) and cout / groups must be multiples of
 // 4 and every pointer 16-byte aligned (the epilogue moves 4 channels at a
-// time). The path follows from the shape (dirjax_conv_path). Returns a
-// cudaError_t.
+// time). The path follows from the shape (dirjax_conv_path); a shape no
+// path takes returns cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int dirjax_conv_fused(const void* x, int x_fp32, const void* w, const void* wmap,
                                  const float* scale, const float* shift, const void* residual,
                                  int res_kind, int relu, void* out, int out_bf16, int batch,
@@ -1184,8 +934,8 @@ extern "C" int dirjax_conv_fused(const void* x, int x_fp32, const void* w, const
     return (int)cudaErrorInvalidValue;
   const long long m = (long long)batch * ho * wo;
   const int path = dirjax_conv_path(cin, cout, groups, kh, kw, stride);
-  if (m > 0x7fffffffLL || (cout / groups) % 4 != 0 || (path != 1 && (cin / groups) % 4 != 0) ||
-      (x_fp32 && path != 1))
+  if (path == 0 || m > 0x7fffffffLL || (cout / groups) % 4 != 0 ||
+      (path != 1 && (cin / groups) % 4 != 0) || (x_fp32 && path != 1))
     return (int)cudaErrorInvalidValue;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                           reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(residual) |
@@ -1221,71 +971,50 @@ extern "C" int dirjax_conv_fused(const void* x, int x_fp32, const void* w, const
   }
 
   const int bn = wg::tile_width(cin, cout, groups);
-  if (bn) {
-    alignas(64) CUtensorMap xmap, wm;
-    if (wmap != nullptr) {
-      memcpy(&wm, wmap, sizeof(wm));
-    } else {
-      const cudaError_t err =
-          wg::encode_matrix(&wm, w, cout, wg::packed_k(cin, groups, kh, kw), bn);
-      if (err != cudaSuccess) return (int)err;
-    }
-    wg::Args a;
-    a.epi = epi;
-    a.m = (int)m;
-    a.ho = ho;
-    a.wo = wo;
-    a.stride = stride;
-    a.pad = pad;
-    a.kw = kw;
-    a.spans = groups > 1;
-    a.cblocks = a.spans ? 1 : cin / wg::kBK;
-    a.kt = kh * kw * a.cblocks;
-    a.n_tiles = (cout + bn - 1) / bn;
-    const long long tiles = (m + wg::kBM - 1) / wg::kBM * a.n_tiles;
-    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    a.tiles = (int)tiles;
-    a.im2col = !(kh == 1 && kw == 1 && stride == 1 && pad == 0);
-    wg::MapKey key;
-    memset(&key, 0, sizeof(key));   // the padding too: keys compare as bytes
-    key.x = x;
-    key.batch = batch;
-    key.h = h;
-    key.w = w_in;
-    key.cin = cin;
-    key.kh = kh;
-    key.kw = kw;
-    key.stride = stride;
-    key.pad = pad;
-    key.im2col = a.im2col;
-    const cudaError_t err = wg::input_map(&xmap, key, m);
+  alignas(64) CUtensorMap xmap, wm;
+  if (wmap != nullptr) {
+    memcpy(&wm, wmap, sizeof(wm));
+  } else {
+    const cudaError_t err =
+        wg::encode_matrix(&wm, w, cout, wg::packed_k(cin, groups, kh, kw), bn);
     if (err != cudaSuccess) return (int)err;
-    switch (res_kind + 3 * (bn == 128)) {
-      case 0: return (int)wg::launch<64, 0>(xmap, wm, a, s);
-      case 1: return (int)wg::launch<64, 1>(xmap, wm, a, s);
-      case 2: return (int)wg::launch<64, 2>(xmap, wm, a, s);
-      case 3: return (int)wg::launch<128, 0>(xmap, wm, a, s);
-      case 4: return (int)wg::launch<128, 1>(xmap, wm, a, s);
-      default: return (int)wg::launch<128, 2>(xmap, wm, a, s);
-    }
   }
-
-  ConvArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const __nv_bfloat16*>(w);
+  wg::Args a;
   a.epi = epi;
-  a.h = h;
-  a.w_in = w_in;
-  a.cin = cin;
+  a.m = (int)m;
   a.ho = ho;
   a.wo = wo;
-  a.cout = cout;
-  a.kw = kw;
   a.stride = stride;
   a.pad = pad;
-  a.cin_g = cin / groups;
-  a.cout_g = cout / groups;
-  a.k_g = kh * kw * a.cin_g;
-  a.m = (int)m;
-  return (int)(a.cin_g % 8 == 0 ? launch_vec<8>(a, groups, s) : launch_vec<4>(a, groups, s));
+  a.kw = kw;
+  a.spans = groups > 1;
+  a.cblocks = a.spans ? 1 : cin / wg::kBK;
+  a.kt = kh * kw * a.cblocks;
+  a.n_tiles = (cout + bn - 1) / bn;
+  const long long tiles = (m + wg::kBM - 1) / wg::kBM * a.n_tiles;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  a.im2col = !(kh == 1 && kw == 1 && stride == 1 && pad == 0);
+  wg::MapKey key;
+  memset(&key, 0, sizeof(key));   // the padding too: keys compare as bytes
+  key.x = x;
+  key.batch = batch;
+  key.h = h;
+  key.w = w_in;
+  key.cin = cin;
+  key.kh = kh;
+  key.kw = kw;
+  key.stride = stride;
+  key.pad = pad;
+  key.im2col = a.im2col;
+  const cudaError_t err = wg::input_map(&xmap, key, m);
+  if (err != cudaSuccess) return (int)err;
+  switch (res_kind + 3 * (bn == 128)) {
+    case 0: return (int)wg::launch<64, 0>(xmap, wm, a, s);
+    case 1: return (int)wg::launch<64, 1>(xmap, wm, a, s);
+    case 2: return (int)wg::launch<64, 2>(xmap, wm, a, s);
+    case 3: return (int)wg::launch<128, 0>(xmap, wm, a, s);
+    case 4: return (int)wg::launch<128, 1>(xmap, wm, a, s);
+    default: return (int)wg::launch<128, 2>(xmap, wm, a, s);
+  }
 }

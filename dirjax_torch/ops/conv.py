@@ -15,12 +15,14 @@ written as ``out_dtype``. Tensors are NCHW in ``channels_last`` memory, as
 the port's backbone keeps them; the output is too.
 
 On a CUDA tensor it launches the hand-written implicit-GEMM kernel of
-``csrc/conv.cu`` or raises, on the path the shape picks (:func:`conv_path`:
-wgmma for channels in multiples of 64, wgmma over 64-channel spans for
-ResNeXt's grouped 3x3s, the stem kernel for the 3-channel stem, mma.sync
-for the rest); on a CPU tensor it runs :func:`conv_reference`,
-the plain PyTorch version (an fp32 convolution over the bf16-rounded
-operands), which is also the kernel's oracle. No other path exists. The
+``csrc/conv.cu`` on one of three paths, which the shape picks
+(:func:`conv_path`: wgmma for channels in multiples of 64, wgmma over
+64-channel spans for ResNeXt's grouped 3x3s, the stem kernel for the
+3-channel stem), and raises for a shape none takes; on a CPU tensor it runs
+:func:`conv_reference`, the plain PyTorch version (an fp32 convolution over
+the bf16-rounded operands), which takes any shape and is also the kernel's
+oracle. No other path exists. Packing (:func:`pack_weights`,
+:func:`pack_input`) refuses a shape no path takes on every device. The
 kernel has no backward: on the card it raises when grad mode is on and an
 operand requires grad; training takes the model's ``grad_safe`` route
 (``models/resnet.py``), as dirjax's does.
@@ -75,7 +77,7 @@ def conv_output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
 
 
 def conv_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[int] = None,
-              stride: int = 1) -> str:
+              stride: int = 1) -> Optional[str]:
     """The path the kernel takes for a convolution of this shape, by
     csrc/conv.cu's rule (``dirjax_conv_path``), written out here so that
     the operands are packed for it on any device:
@@ -89,7 +91,8 @@ def conv_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[in
       kh and kw at most 7, stride at most 2 (the 7x7/2 stem of every
       architecture), whose kernel reads an fp32 or bf16 NHWC input where it
       lies;
-    - "mma.sync": anything else."""
+
+    None where no path takes the shape."""
     kw = kh if kw is None else kw
     if groups > 1 and cin == cout and cin % groups == 0 and 64 % (cin // groups) == 0 \
             and cin % 64 == 0:
@@ -98,7 +101,21 @@ def conv_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[in
         return f"wgmma 128x{128 if cout % 128 == 0 else 64}"
     if groups == 1 and cin <= 4 and cout == 64 and kh <= 7 and kw <= 7 and stride <= 2:
         return "stem wgmma 128x64"
-    return "mma.sync"
+    return None
+
+
+def _path_or_raise(cin, cout, groups, kh, kw, stride=1) -> str:
+    """:func:`conv_path`, or a ValueError naming the shape where no path
+    takes it."""
+    path = conv_path(cin, cout, groups, kh, kw, stride)
+    if path is None:
+        raise ValueError(
+            f"no path of the conv kernel takes cin {cin}, cout {cout}, groups {groups}, "
+            f"kernel {kh}x{kw}, stride {stride}: it takes groups 1 with cin and cout "
+            "multiples of 64 (wgmma), a grouped conv with cin == cout a multiple of 64 "
+            "and cin / groups dividing 64 (wgmma over 64-channel spans), or at most 4 "
+            "input channels, 64 outputs, kh and kw at most 7 and stride at most 2 (stem)")
+    return path
 
 
 def span_weights(weight: torch.Tensor, groups: int) -> torch.Tensor:
@@ -234,11 +251,13 @@ def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
     """The operands of one convolution that stay the same from call to call,
     on ``device`` (default: the weight's): ``w``, the weights cast to bf16
     and permuted to (cout, kh, kw, cin / groups), with the stem's 3 input
-    channels padded to 4 with zeros (``extra``: how many), or for a grouped
-    conv on the wgmma path its :func:`span_weights`; ``scale`` and
-    ``shift`` in fp32; ``weight`` and ``groups`` as given; ``wmap``, the
+    channels padded to 4 with zeros, or for a grouped conv on the wgmma
+    path its :func:`span_weights`; ``scale`` and ``shift`` in fp32;
+    ``weight`` and ``groups`` as given; ``wmap``, the
     weights' tensor map, which the first launch on the card builds. Raises
-    on what the kernel does not take."""
+    on what the kernel does not take, a shape no path takes included (the
+    stride, which the weights do not show, is checked by
+    :func:`pack_input`)."""
     if weight.dim() != 4:
         raise ValueError(f"weight must be 4-D, got {tuple(weight.shape)}")
     device = weight.device if device is None else torch.device(device)
@@ -252,8 +271,9 @@ def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
     if extra and groups != 1:
         raise ValueError(f"grouped convolution with {cin_g} channels a group: the "
                          "kernel takes a multiple of 4")
+    path = _path_or_raise(cin_g * groups, cout, groups, kh, kw)
     wb = weight.detach().to(device=device, dtype=torch.bfloat16)
-    if conv_path(cin_g * groups, cout, groups, kh, kw) == "wgmma 128x64 grouped":
+    if path == "wgmma 128x64 grouped":
         wp = span_weights(wb, groups)
     else:
         wp = wb.permute(0, 2, 3, 1)
@@ -269,7 +289,7 @@ def pack_weights(weight, groups=1, scale=None, shift=None, device=None) -> dict:
 
     p = {"w": wp.contiguous(), "scale": per_channel(scale, "scale"),
          "shift": per_channel(shift, "shift"), "weight": weight, "groups": groups,
-         "extra": extra, "wmap": None}
+         "wmap": None}
     _check_aligned(p, ("w", "scale", "shift"))
     return p
 
@@ -280,9 +300,8 @@ def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none"
     :func:`pack_weights`' operands (which must lie on x's device). An input
     or residual in channels_last memory is read where it lies (its memory
     is NHWC); anything else is copied to NHWC. The stem path reads an fp32
-    or bf16 input as it is (``x_fp32``); any other input is cast to bf16,
-    and on the mma.sync path a 3-channel input is padded to 4 with zeros
-    in the same copy."""
+    or bf16 input as it is (``x_fp32``); any other input is cast to bf16.
+    Raises on a shape no path takes at this stride."""
     if x.dim() != 4:
         raise ValueError(f"x must be 4-D, got {tuple(x.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -297,18 +316,12 @@ def pack_input(x, weights: dict, stride=1, padding=0, residual=None, relu="none"
     if weights["w"].device != dev:
         raise ValueError(f"the packed weights lie on {weights['w'].device}, x on {dev}")
     ho, wo = conv_output_hw(H, W, kh, kw, stride, padding)
-    stem = conv_path(cin, cout, groups, kh, kw, stride).startswith("stem")
-    if weights["extra"] and not stem:   # cast and pad in one copy, the extra channels zeros
-        xh = torch.empty((B, H, W, cin + weights["extra"]), dtype=torch.bfloat16, device=dev)
-        xh[..., cin:].zero_()
-        xh[..., :cin].copy_(x.permute(0, 2, 3, 1))
-        x, cin = xh, cin + weights["extra"]
-    else:
-        if x.dtype != torch.bfloat16 and not (stem and x.dtype == torch.float32):
-            x = x.to(torch.bfloat16)
-        if not x.is_contiguous(memory_format=torch.channels_last):
-            xh = torch.empty((B, H, W, cin), dtype=torch.bfloat16, device=dev)
-            x = xh.copy_(x.permute(0, 2, 3, 1))
+    stem = _path_or_raise(cin, cout, groups, kh, kw, stride).startswith("stem")
+    if x.dtype != torch.bfloat16 and not (stem and x.dtype == torch.float32):
+        x = x.to(torch.bfloat16)
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        xh = torch.empty((B, H, W, cin), dtype=torch.bfloat16, device=dev)
+        x = xh.copy_(x.permute(0, 2, 3, 1))
     res_kind = 0
     if residual is not None:
         if residual.shape != (B, cout, ho, wo) or residual.device != dev:
@@ -338,15 +351,15 @@ def _check_aligned(p: dict, names) -> None:
 
 
 def kernel_path(cin: int, cout: int, groups: int = 1, kh: int = 1, kw: Optional[int] = None,
-                stride: int = 1) -> str:
+                stride: int = 1) -> Optional[str]:
     """The path the built kernel takes for a convolution of this shape on
     the card, named as :func:`conv_path` names it (the library's rule, which
-    that function mirrors)."""
+    that function mirrors); None where the library refuses the shape."""
     from ..kernels.build import load_library
 
     code = load_library().dirjax_conv_path(cin, cout, groups, kh, kh if kw is None else kw,
                                            stride)
-    return {0: "mma.sync", 1: "stem wgmma 128x64", 2: "wgmma 128x64 grouped"}.get(
+    return {0: None, 1: "stem wgmma 128x64", 2: "wgmma 128x64 grouped"}.get(
         code, f"wgmma 128x{code}")
 
 

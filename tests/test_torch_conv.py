@@ -471,18 +471,20 @@ def test_pack_refuses_what_the_kernel_does_not_take():
     """``pack`` lays the kernel's operands out (device-neutral, so checked on
     CPU tensors) and refuses what the kernel cannot run: output channels a
     group not a multiple of 4 (its epilogue takes 4 at a time), input
-    channels a group not a multiple of 4 in a grouped convolution, a base
-    address off 16 bytes (a view with a storage offset), a residual of
-    another shape."""
-    x = torch.randn(1, 24, 5, 5).bfloat16().contiguous(memory_format=torch.channels_last)
-    w = torch.randn(24, 24, 3, 3)
-    assert tconv.pack(x, w, padding=1)["out"].shape == (1, 5, 5, 24)
+    channels a group not a multiple of 4 in a grouped convolution, a shape
+    no path of the kernel takes, a base address off 16 bytes (a view with a
+    storage offset), a residual of another shape."""
+    x = torch.randn(1, 64, 5, 5).bfloat16().contiguous(memory_format=torch.channels_last)
+    w = torch.randn(64, 64, 3, 3)
+    assert tconv.pack(x, w, padding=1)["out"].shape == (1, 5, 5, 64)
     with pytest.raises(ValueError, match="multiple of 4"):
-        tconv.pack(x, torch.randn(26, 24, 3, 3), padding=1)            # 26 outputs
+        tconv.pack(x, torch.randn(66, 64, 3, 3), padding=1)            # 66 outputs
     with pytest.raises(ValueError, match="multiple of 4"):
         tconv.pack(x, w[:, :6].contiguous(), groups=4)                 # 6 channels a group
+    with pytest.raises(ValueError, match="no path"):                   # 24 channels
+        tconv.pack(x[:, :24], w[:24, :24].contiguous(), padding=1)
     # NHWC memory 2 bytes into its storage
-    residual = torch.randn(1 + 5 * 5 * 24).bfloat16()[1:].view(1, 5, 5, 24).permute(0, 3, 1, 2)
+    residual = torch.randn(1 + 5 * 5 * 64).bfloat16()[1:].view(1, 5, 5, 64).permute(0, 3, 1, 2)
     with pytest.raises(ValueError, match="16-byte"):
         tconv.pack(x, w, padding=1, residual=residual)
     with pytest.raises(ValueError, match="residual"):

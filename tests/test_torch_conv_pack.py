@@ -10,16 +10,18 @@ the CPU (``pack_weights`` runs on any device; only a launch needs the card).
   change (``load_state_dict``, an in-place edit, ``fold_batchnorm``'s copy,
   ``.to()``, an optimizer step, a BN statistic) repacks, and a forward after
   the change equals a fresh model's.
-* The operands of the kernel's two Hopper paths for ResNeXt's grouped 3x3s
-  and the stem: the block-diagonal span packing (``span_weights``), used as
-  a dense convolution over each 64-channel span in fp32, is the grouped
-  convolution within 1e-6 of its products' magnitude, and a group width
-  that does not divide 64 is not span-packed; the stem path's operand (an
-  fp32 NHWC input rounded to bf16 as the kernel stages it, round to nearest
-  even, the fourth channel zero) is the padded bf16 copy the wrapper built
-  before it; and every convolution of every architecture takes a path
-  other than mma.sync (``conv_path``, the kernel's rule; the card tests
-  hold the built library to the same names).
+* The operands of the kernel's paths for ResNeXt's grouped 3x3s and the
+  stem: the block-diagonal span packing (``span_weights``), used as a dense
+  convolution over each 64-channel span in fp32, is the grouped convolution
+  within 1e-6 of its products' magnitude; a shape no path takes (a group
+  width that does not divide 64, more channels out than in, channels not
+  in multiples of 64, a stem stride past 2) is refused at packing, while
+  ``fused_conv`` on the CPU still runs its plain version; the stem path's
+  operand (an fp32 NHWC input rounded to bf16 as the kernel stages it,
+  round to nearest even, the fourth channel zero) is modelled in numpy and
+  the wrapper passes the input as it lies; and every convolution of every
+  architecture takes one of the three paths (``conv_path``, the kernel's
+  rule; the card tests hold the built library to the same names).
 """
 
 import copy
@@ -35,9 +37,9 @@ from dirjax_torch.ops import conv as tconv
 torch.set_num_threads(1)
 
 # (config, cin, planes, stride): a bottleneck with a downsample, ResNeXt's
-# grouped one, a basic block
-BLOCKS = {"bottleneck_s2": ("resnet50", 64, 32, 2), "resnext": ("resnext101_32x4d", 256, 64, 1),
-          "basic": ("resnet18", 32, 32, 1)}
+# grouped one, a basic block, each at the least widths the kernel takes
+BLOCKS = {"bottleneck_s2": ("resnet50", 64, 64, 2), "resnext": ("resnext101_32x4d", 256, 64, 1),
+          "basic": ("resnet18", 64, 64, 1)}
 
 
 def _block(name, seed=0, folded=False):
@@ -99,7 +101,7 @@ def _same(a, b):
         else:
             assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
             assert torch.equal(a[k], b[k]), k
-    assert a["groups"] == b["groups"] and a["extra"] == b["extra"]
+    assert a["groups"] == b["groups"]
 
 
 def _forward(block, x):
@@ -134,7 +136,7 @@ def test_stem_weights_are_padded_once():
     """The stem's 3 input channels packed as 4, the fourth zero."""
     conv, bn = torch.nn.Conv2d(3, 64, 7, 2, 3, bias=False), tr.BatchNormAffine(64)
     cached = tr._conv_operands(conv, bn, torch.device("cpu"))
-    assert cached["w"].shape == (64, 7, 7, 4) and cached["extra"] == 1
+    assert cached["w"].shape == (64, 7, 7, 4)
     assert torch.equal(cached["w"][..., :3], conv.weight.detach().bfloat16().permute(0, 2, 3, 1))
     assert not cached["w"][..., 3].any()
 
@@ -248,14 +250,29 @@ def test_span_packing_is_the_grouped_conv(g, stride):
                                                (128, 256, 32, 3), (96, 96, 24, 3),
                                                (96, 96, 8, 5)],
                          ids=["g12", "g12_wide", "cout_2x", "cin_not_64s", "g12_5x5"])
-def test_other_groups_are_not_span_packed(cin, cout, groups, k):
+def test_shapes_without_a_hopper_path_are_refused(cin, cout, groups, k):
     """A group width that does not divide 64, more channels out than in, or
-    channels not in multiples of 64: the mma.sync path, with the weights
-    packed per group as before."""
-    assert tconv.conv_path(cin, cout, groups, k, k) == "mma.sync"
-    w = torch.randn((cout, cin // groups, k, k), generator=torch.Generator().manual_seed(3))
-    packed = tconv.pack_weights(w, groups)
-    assert torch.equal(packed["w"], w.bfloat16().permute(0, 2, 3, 1))
+    channels not in multiples of 64: no path of the kernel takes it, so
+    packing its operands raises before anything could launch; ``fused_conv``
+    on a CPU tensor still runs the plain version, which takes any shape."""
+    assert tconv.conv_path(cin, cout, groups, k, k) is None
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn((cout, cin // groups, k, k), generator=gen)
+    with pytest.raises(ValueError, match="no path of the conv kernel"):
+        tconv.pack_weights(w, groups)
+    x = torch.randn((2, cin, 7, 6), generator=gen)
+    assert torch.equal(tconv.fused_conv(x, w, 1, k // 2, groups),
+                       tconv.conv_reference(x, w, 1, k // 2, groups))
+
+
+def test_stem_stride_past_two_is_refused():
+    """The stem path takes stride 1 and 2: a stem-shaped conv at stride 3
+    packs its weights (they show no stride) and is refused with its input."""
+    assert tconv.conv_path(3, 64, 1, 7, 7, 3) is None
+    w, x = torch.randn(64, 3, 7, 7), torch.randn(1, 3, 23, 19)
+    packed = tconv.pack_weights(w)
+    with pytest.raises(ValueError, match="stride 3"):
+        tconv.pack_input(x, packed, 3, 3)
 
 
 def _bf16_rne(a: np.ndarray) -> np.ndarray:
@@ -268,11 +285,9 @@ def _bf16_rne(a: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("hw", [(37, 29), (24, 32)], ids=["odd", "even"])
 def test_stem_operand_is_the_padded_bf16_input(hw):
     """The stem path's operand modelled in numpy (each fp32 channel rounded
-    to bf16, nearest even, a zero fourth channel) equals the (B, H, W, 4)
-    bf16 copy that pack_input makes for a 3-channel conv on the mma.sync
-    path (cout 32), as it made it for the stem before; a stem the stem path
-    takes gets the fp32 input as it lies (no copy), and an NCHW input one
-    NHWC bf16 copy."""
+    to bf16, nearest even, a zero fourth channel): the stem path gets the
+    fp32 input as it lies (no copy), which that model rounds, and an NCHW
+    input one NHWC bf16 copy, equal to the model's first three channels."""
     rng = np.random.default_rng(7)
     H, W = hw
     x = torch.from_numpy((rng.normal(size=(2, H, W, 3)) * 3).astype(np.float32))
@@ -281,10 +296,6 @@ def test_stem_operand_is_the_padded_bf16_input(hw):
     model = np.zeros((2, H, W, 4), np.uint16)
     model[..., :3] = _bf16_rne(x.permute(0, 2, 3, 1).numpy())
     want = torch.from_numpy(model.view(np.int16)).view(torch.bfloat16)
-
-    mma = tconv.pack(x, torch.randn(32, 3, 7, 7), 2, 3)
-    assert tconv.conv_path(3, 32, 1, 7, 7, 2) == "mma.sync" and not mma["x_fp32"]
-    assert mma["dims"][3] == 4 and torch.equal(mma["x"], want)
 
     stem = tconv.pack(x, torch.randn(64, 3, 7, 7), 2, 3)
     assert tconv.conv_path(3, 64, 1, 7, 7, 2) == "stem wgmma 128x64"
@@ -299,7 +310,7 @@ def test_stem_operand_is_the_padded_bf16_input(hw):
 def test_every_architecture_takes_a_hopper_path():
     """Every convolution of every architecture dirjax names: its grouped
     3x3s take the span path, its stem the stem path, the rest the wgmma
-    path; none is left on mma.sync. The port's ViT descriptors, which dirjax
+    path; none is refused. The port's ViT descriptors, which dirjax
     does not name, run no convolution: their patch embedding is a GEMM."""
     from dirjax_torch.models import create_model, is_vit
     from dirjax_torch.models.registry import model_names

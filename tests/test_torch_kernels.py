@@ -54,7 +54,8 @@ Tolerances:
   bf16 ulp for a bf16 output, and at most 1e-3 of a bf16 output's elements
   not equal. Cases: every epilogue of the backbones and the FPN merge, the
   stem's 3 channels, 1x1/3x3/7x7 at strides 1 and 2, groups of 4, 8 and 32
-  channels, ragged pixel tiles and channel counts of every tile width.
+  channels, ragged pixel tiles and channel counts of every tile width; a
+  shape no path takes is refused before any launch.
 """
 
 import numpy as np
@@ -580,8 +581,6 @@ CONV_CASES = [
     (2, 128, 17, 13, 128, 3, 1, 32, True, True, None, "post", "bf16"),      # ResNeXt, 4 a group
     (2, 256, 17, 13, 256, 3, 2, 32, True, True, None, "post", "bf16"),      # 8 a group
     (2, 1024, 9, 7, 1024, 3, 1, 32, True, True, None, "post", "bf16"),      # 32 a group
-    (1, 40, 5, 3, 8, 3, 1, 1, True, True, None, "post", "fp32"),            # narrow, ragged
-    (3, 96, 11, 9, 200, 3, 1, 1, True, True, "bf16", "post", "bf16"),       # two channel tiles
 ]
 
 
@@ -612,14 +611,10 @@ WGMMA_CASES = [
 GROUPED_CASES = [(2, 32 * g, 17, 13, 32 * g, 3, stride, 32, True, True, None, "post", "bf16")
                  for g in (4, 8, 16, 32) for stride in (1, 2)]
 
-# shapes that stay on the mma.sync path: a 3-channel conv with 32 outputs,
-# a group width that does not divide 64, more channels out than in, and
-# the narrow and two-tile cases above
-MMA_SYNC_CASES = [
-    (2, 3, 37, 29, 32, 7, 2, 1, True, True, None, "post", "bf16"),          # 3 -> 32
-    (2, 96, 17, 13, 96, 3, 1, 8, True, True, None, "post", "bf16"),         # 12 a group
-    (2, 128, 17, 13, 256, 3, 2, 32, True, True, None, "post", "bf16"),      # 4 -> 8 a group
-    CONV_CASES[13], CONV_CASES[14],
+# shapes no path takes: channels not multiples of 64
+NO_PATH_CASES = [
+    (1, 40, 5, 3, 8, 3, 1, 1, True, True, None, "post", "fp32"),            # narrow, ragged
+    (3, 96, 11, 9, 200, 3, 1, 1, True, True, "bf16", "post", "bf16"),       # two channel tiles
 ]
 
 
@@ -676,13 +671,6 @@ class TestConvKernel:
         agreement()'s bounds of the plain version."""
         self._check(rng, cuda, case, "wgmma")
 
-    @pytest.mark.parametrize("case", MMA_SYNC_CASES)
-    def test_mma_sync_path_keeps_the_rest(self, rng, cuda, case):
-        """A 3-channel conv the stem path does not take (3 channels padded
-        to 4), grouped convs without 64-channel spans and channels not
-        multiples of 64 stay on the mma.sync path, within the same bounds."""
-        self._check(rng, cuda, case, "mma.sync")
-
     @pytest.mark.parametrize("case", GROUPED_CASES)
     def test_grouped_path_matches_reference(self, rng, cuda, case):
         """ResNeXt's grouped 3x3s (g = 4, 8, 16, 32, stride 1 and 2, ragged
@@ -718,9 +706,34 @@ class TestConvKernel:
         """The built library's rule names the path ops/conv.py packs the
         operands for, at every shape of these tests and the backbones'."""
         for B, cin, H, W, cout, k, stride, groups, *_ in (
-                CONV_CASES + WGMMA_CASES + GROUPED_CASES + MMA_SYNC_CASES):
+                CONV_CASES + WGMMA_CASES + GROUPED_CASES + NO_PATH_CASES):
             assert conv.kernel_path(cin, cout, groups, k, k, stride) == \
                 conv.conv_path(cin, cout, groups, k, k, stride)
+
+    @pytest.mark.parametrize("case", NO_PATH_CASES)
+    def test_refuses_a_shape_no_path_takes(self, rng, cuda, case):
+        """Channels not multiples of 64: the library's rule names no path,
+        fused_conv raises while it packs the operands, before any launch,
+        and the library refuses the shape itself (cudaErrorInvalidValue)."""
+        from dirjax_torch.kernels.build import load_library
+
+        B, cin, H, W, cout, k, stride, groups, sc, sh, res, relu, out = case
+        assert conv.kernel_path(cin, cout, groups, k, k, stride) is None
+        x, w, scale, shift, r = _conv_inputs(rng, cuda, B, cin, H, W, cout, k, stride, groups,
+                                             sc, sh, res)
+        out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+        before = conv.launches
+        with torch.no_grad(), pytest.raises(ValueError, match="no path"):
+            conv.fused_conv(x, w, stride, k // 2, groups, scale, shift, r, relu, out_dtype)
+        assert conv.launches == before
+        ho, wo = conv.conv_output_hw(H, W, k, k, stride, k // 2)
+        wp = w.bfloat16().permute(0, 2, 3, 1).contiguous()
+        y = torch.empty((B, ho, wo, cout), dtype=out_dtype, device=cuda)
+        err = load_library().dirjax_conv_fused(
+            x.data_ptr(), 0, wp.data_ptr(), None, None, None, None, 0, 0, y.data_ptr(),
+            out == "bf16", B, H, W, cin, cout, k, k, stride, k // 2, groups, ho, wo, None)
+        torch.cuda.synchronize()
+        assert err == 1   # cudaErrorInvalidValue
 
     def _check(self, rng, cuda, case, path, given="bf16_channels_last"):
         torch.backends.cudnn.allow_tf32 = False
@@ -751,10 +764,8 @@ class TestConvKernel:
         assert agree["over"] == 0.0, agree
         if out == "bf16":
             # the share one bf16 rounding apart from cuDNN's fp32 sums grows
-            # with K: the K = 4608 cases read 1.1e-3-1.3e-3, and over
-            # chip_smoke.py's 106 shapes the mma.sync kernel and the wgmma
-            # one read the same largest share; K above 2304 is held to
-            # chip_smoke.py's bound
+            # with K: the K = 4608 cases read 1.1e-3-1.3e-3; K above 2304
+            # is held to chip_smoke.py's bound
             assert agree["apart"] <= (1e-3 if cin // groups * k * k <= 2304 else 2e-3), agree
 
     def test_refuses_a_gradient(self, rng, cuda):
@@ -768,14 +779,14 @@ class TestConvKernel:
                 conv.fused_conv(*args)
 
     def test_rejects_what_it_does_not_take(self, rng, cuda):
-        x, w, *_ = _conv_inputs(rng, cuda, 1, 24, 5, 5, 24, 3, 1, 1, False, False, None)
+        x, w, *_ = _conv_inputs(rng, cuda, 1, 64, 5, 5, 64, 3, 1, 1, False, False, None)
         with torch.no_grad():
             with pytest.raises(ValueError, match="multiple of 4"):
                 conv.fused_conv(x, w[:, :6].contiguous(), groups=4)    # 6 channels a group
             with pytest.raises(ValueError, match="multiple of 4"):
-                conv.fused_conv(x, torch.cat([w, w[:2]]), padding=1)   # 26 outputs
+                conv.fused_conv(x, torch.cat([w, w[:2]]), padding=1)   # 66 outputs
             with pytest.raises(ValueError, match="16-byte"):            # a view 4 bytes in
-                conv.fused_conv(x, w, padding=1, scale=torch.ones(25, device=cuda)[1:])
+                conv.fused_conv(x, w, padding=1, scale=torch.ones(65, device=cuda)[1:])
             with pytest.raises(ValueError, match="residual"):
                 conv.fused_conv(x, w, padding=1, residual=x[:, :, :4])
 
